@@ -6,17 +6,27 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card, its power limit, the float32 matmul settings;
-2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
+2. build: compiles the port's four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/kernels/``;
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
-   at the main path's shapes plus ragged, cross and bfloat16 cases;
-4. main path: one-shot PACFL clustering of K = 1024 synthetic clients at
+   at the main paths' shapes plus ragged, cross, windowed, high-rank and
+   bfloat16 cases;
+4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
    assignment queries in batches of 32 through the medoid representative
    cache — checking that the planted clusters are recovered and every
-   newcomer and query lands in its own, and that both kernels ran;
-5. timings: each kernel's median time at the main-path shape beside its
+   newcomer and query lands in its own, and that the proximity and tsgemm
+   kernels ran;
+5. LM serving main path: full-width tinyllama-1.1b, then rwkv6-1.6b, in
+   bfloat16 through ``repro_torch.launch.serve`` (batch 4, prompt 1024, 32
+   greedy tokens: one prefill and 31 decode forwards), checking that every
+   attention call launched the flash kernel and every WKV call the WKV
+   kernel;
+6. whole model in float32 at full width: last-position logits of a prefill
+   and 8 teacher-forced decode steps through the kernels on the card against
+   the plain twins (the same model on the CPU);
+7. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
@@ -24,6 +34,7 @@ The second-to-last line is the ``{"kernels": [...]}`` record, the last
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -33,9 +44,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor flop/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor and
+# bfloat16 dense tensor-core flop/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 N_FEATURES = 3072          # flattened 32x32x3 CIFAR-10 image
 RANK = 3                   # PACFLConfig.p default
@@ -53,6 +66,26 @@ SEED = 0
 
 PROX_TOL_DEG = 1e-3        # the reference's TOL_DEG
 F32_RTOL, BF16_RTOL = 1e-5, 2e-2   # tests/test_kernels.py, atol = 10 * rtol
+FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
+WKV_REL_TOL = 1e-5         # of max |out| and max |state|
+
+# LM serving (phase 5): tinyllama-1.1b's attention and rwkv6-1.6b's WKV.
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1024, 32
+LM_ARCHS = (("tinyllama-1.1b", "flash_attention"), ("rwkv6-1.6b", "wkv"))
+# Whole-model float32 check (phase 6): the CPU side runs the plain twins at
+# full width, so the prompt is shorter than phase 5's.
+F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
+# Limits on max|kernels - plain| / max|logits|.  Both sides are float32 and
+# differ only in summation order (cuBLAS vs the CPU's BLAS, the kernel's
+# online softmax and on-chip recurrence vs the dense / stepwise twins), ~1e-6
+# relative per operation; a wrong mask, head mapping or state moves the
+# logits by ~1e-1 of their scale.  How far the model amplifies rounding is
+# measured beside each check (the "floor": the kernels' logits again after
+# every weight moves by one float32 ulp).  tinyllama amplifies little;
+# rwkv6 at its random init (decay ~0.9975, so the WKV state sums nearly all
+# past k v^T before the per-head group norm) amplifies rounding ~700x more,
+# hence its wider limit.
+LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
 
 
 def log(phase: str, msg: str) -> None:
@@ -143,9 +176,25 @@ def time_ms(torch, fn, *, warmup=3, iters=15) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def graph_ms(torch, fn, *, reps=1, iters=10) -> float:
+    """Median device time of one ``fn()`` replayed from a CUDA graph that
+    holds ``reps`` calls: the host's launch gaps are not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay, iters=iters) / reps
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
+          ) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,6 +207,8 @@ def phase_device(torch) -> dict:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products accumulate in float32 (the reference's policy)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -173,10 +224,10 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["proximity", "tsgemm"])
-    for name in ("proximity", "tsgemm"):
+    _build.build_all(_build.KERNELS)
+    for name in _build.KERNELS:
         _build.load(name)
-    log("build", f"proximity.cu + tsgemm.cu built and loaded in "
+    log("build", f"{', '.join(n + '.cu' for n in _build.KERNELS)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR.relative_to(ROOT)}")
 
 
@@ -208,6 +259,12 @@ def check_proximity(torch, fed, errs: list) -> None:
         compare("cross 1024x37 p=3", U3, newcomers, measure, False)
     compare("cross 1024x1024 p=3 x q=5", U3, U5, "eq2", False)
     compare("cross 37x1024 p=3 x q=5", newcomers, U5, "eq2", False)
+    # ranks above the templates' 8: the runtime-rank path
+    fed12 = Federation(torch, fed.device, p=12, seed=SEED + 4)
+    U12 = fed12.signatures(planted(256))
+    for measure in ("eq3", "eq2"):
+        compare("square K=256 p=12", U12, U12, measure, True)
+    compare("cross 1024x256 p=3 x q=12", U3, U12, "eq2", False)
 
 
 def check_tsgemm(torch, device, errs: list) -> None:
@@ -244,6 +301,75 @@ def check_tsgemm(torch, device, errs: list) -> None:
     compare("ragged", randn(3, 1000, 300), randn(3, 300, 13), F32_RTOL)
     compare("ragged strided", randn(3, 300, 1001).transpose(1, 2), randn(3, 300, 7), F32_RTOL)
     compare("bf16 D @ Omega", D.to(torch.bfloat16), omega.to(torch.bfloat16), BF16_RTOL)
+
+
+def check_flash(torch, device, errs: list) -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    Hq, Hkv, hd = 32, 4, 64   # tinyllama-1.1b
+
+    def compare(label, B, Sq, Skv, dtype, causal=True, window=None, q_offset=0):
+        q = torch.randn((B, Sq, Hq, hd), generator=gen, device=device).to(dtype)
+        k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
+        v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        log("kernels", f"flash {label} {str(dtype)[6:]}: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"{kw} max|kernel - plain| = {err:.3e} (limit {tol})")
+        require(bool(torch.isfinite(got).all()) and got.dtype == dtype and err <= tol,
+                f"flash {label} {dtype}: err {err}")
+        if dtype == torch.float32:
+            errs.append(err)
+
+    cache_len = LM_PROMPT + LM_TOKENS
+    for dtype in (torch.float32, torch.bfloat16):
+        compare("prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, dtype)
+        compare("decode", LM_BATCH, 1, cache_len, dtype, q_offset=cache_len - 16)
+        compare("windowed ragged", 2, 1000, 1000, dtype, window=128)
+        compare("ragged suffix", 2, 77, 1111, dtype, q_offset=1034)
+    compare("non-causal windowed, rows past the window", 1, 5, 40, torch.float32,
+            causal=False, window=7, q_offset=50)
+
+
+def wkv_inputs(torch, gen, B, S, H, hd, device):
+    """r, k, v, w, u at the model's scales: decay w = exp(-exp(-6 + noise))."""
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=device) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen,
+                                                       device=device)))
+    u = 0.1 * torch.randn((H, hd), generator=gen, device=device)
+    return r, k, v, w, u
+
+
+def check_wkv(torch, device, errs: list) -> None:
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    H, hd = 32, 64   # rwkv6-1.6b
+
+    def compare(label, ops, state0):
+        out, st = wkv_cuda(*ops, state0)
+        want_out, want_st = wkv_plain(*ops, state0)
+        torch.cuda.synchronize()
+        e_out = ((out - want_out).abs().max() / want_out.abs().max()).item()
+        e_st = ((st - want_st).abs().max() / want_st.abs().max()).item()
+        log("kernels", f"wkv {label}: r {tuple(ops[0].shape)} max|kernel - plain| / max|plain| "
+            f"= {e_out:.3e} (out), {e_st:.3e} (state) (limit {WKV_REL_TOL})")
+        require(bool(torch.isfinite(out).all()) and max(e_out, e_st) <= WKV_REL_TOL,
+                f"wkv {label}: {e_out}, {e_st}")
+        errs.append(max((out - want_out).abs().max().item(), (st - want_st).abs().max().item()))
+        return st
+
+    ops = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device)
+    compare("prefill", ops, None)
+    state = compare("prefill with state0", ops,
+                    0.1 * torch.randn((LM_BATCH, H, hd, hd), generator=gen, device=device))
+    step = wkv_inputs(torch, gen, LM_BATCH, 1, H, hd, device)
+    compare("decode S=1, carried state", step, state)
 
 
 def phase_main_path(torch, fed) -> dict:
@@ -306,6 +432,125 @@ def phase_main_path(torch, fed) -> dict:
     return launches
 
 
+def phase_lm_serving(torch, device) -> dict:
+    """Phase 5: each architecture served at full width in bfloat16; the
+    launch counts are set to 0 just before and read just after each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    launches = {}
+    for arch, kernel in LM_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=device)
+        prompt = serve.random_prompt(cfg, LM_BATCH, LM_PROMPT, seed=SEED, device=device)
+        sync(torch, device)
+        n_params = sum(p.numel() for p in params.parameters())
+        log("lm", f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params / 1e9:.3f} B parameters in bfloat16, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        serve.generate(params, prompt, 2)   # warm-up: cuBLAS plans, allocator
+        _build.reset_launches()
+        toks, times = serve.generate(params, prompt, LM_TOKENS)
+        counts = dict(_build.LAUNCHES)
+        total = times["prefill_s"] + times["decode_s"]
+        log("lm", f"{arch}: batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} tokens: "
+            f"prefill {times['prefill_s']:.4f} s, {LM_TOKENS - 1} decode steps "
+            f"{times['decode_s']:.4f} s ({LM_BATCH * LM_TOKENS / total:.1f} tok/s, "
+            f"decode {LM_BATCH * (LM_TOKENS - 1) / times['decode_s']:.1f} tok/s); "
+            f"kernel launches {counts}")
+        expected = cfg.n_layers * LM_TOKENS
+        require(counts.get(kernel, 0) == expected,
+                f"{arch}: {counts.get(kernel, 0)} {kernel} launches, expected {expected}")
+        require(tuple(toks.shape) == (LM_BATCH, LM_TOKENS)
+                and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
+                f"{arch}: generated tokens out of range")
+        with torch.inference_mode():
+            logits, cache = lm.make_prefill_step(LM_PROMPT + LM_TOKENS)(params, prompt)
+            require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
+            tok = logits.argmax(-1)[:, None]
+            step = lm.make_serve_step()
+            dev_ms = graph_ms(torch, lambda: step(params, cache, tok, LM_PROMPT))
+        host_ms = times["decode_s"] / (LM_TOKENS - 1) * 1e3
+        log("lm", f"{arch}: one decode step {host_ms:.3f} ms on the host clock, "
+            f"{dev_ms:.3f} ms replayed from a CUDA graph (device idle "
+            f"{1 - dev_ms / host_ms:.1%} of a host-driven step)")
+        log("lm", f"{arch}: sample {toks[0, :12].tolist()}")
+        launches[kernel] = counts[kernel]
+        del params, prompt, toks, logits, cache, tok
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _teacher_forced(torch, params, prompt, teacher):
+    """Last-position logits of a prefill and one decode step per teacher token."""
+    from repro_torch.models import lm
+
+    B, S = prompt.shape
+    out = []
+    with torch.inference_mode():
+        logits, cache = lm.make_prefill_step(max_len=S + teacher.shape[1])(params, prompt)
+        out.append(logits.float())
+        step = lm.make_serve_step()
+        for t in range(teacher.shape[1]):
+            logits, cache = step(params, cache, teacher[:, t:t + 1], S + t)
+            out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def _ulp_perturbed(torch, params):
+    """A copy of ``params`` with every float32 weight moved by one ulp,
+    up or down at random (seeded)."""
+    noisy = copy.deepcopy(params)
+    gen = torch.Generator(device=params.embed.device).manual_seed(SEED + 3)
+    with torch.no_grad():
+        for p in noisy.parameters():
+            up = torch.rand(p.shape, generator=gen, device=p.device) < 0.5
+            p.mul_(torch.where(up, 1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24))
+    return noisy
+
+
+def phase_lm_float32(torch, device) -> None:
+    """Phase 6: the full-width model in float32 through the kernels on the
+    card against the same model through the plain twins on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    for arch, kernel in LM_ARCHS:
+        cfg = get_config(arch)
+        params = lm.init_params(cfg, seed=SEED + 1, dtype=torch.float32, device=device)
+        prompt = serve.random_prompt(cfg, F32_BATCH, F32_PROMPT, seed=SEED + 1, device=device)
+        teacher = serve.random_prompt(cfg, F32_BATCH, F32_DECODE, seed=SEED + 2, device=device)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        got = _teacher_forced(torch, params, prompt, teacher).cpu()
+        t1 = time.perf_counter()
+        require(_build.LAUNCHES[kernel] == cfg.n_layers * (1 + F32_DECODE),
+                f"{arch} float32: {dict(_build.LAUNCHES)}")
+        floor = (_teacher_forced(torch, _ulp_perturbed(torch, params), prompt, teacher).cpu()
+                 - got).abs().max().item()
+        torch.cuda.empty_cache()
+        params = params.to("cpu")
+        want = _teacher_forced(torch, params, prompt.cpu(), teacher.cpu())
+        t2 = time.perf_counter()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        limit = LOGIT_REL_TOL[arch]
+        log("lm32", f"{arch} float32 batch {F32_BATCH}, prompt {F32_PROMPT}, "
+            f"{F32_DECODE} teacher-forced steps: max|kernels - plain| = {err:.3e}, "
+            f"max|logits| = {scale:.3f}, relative {err / scale:.3e} (limit {limit}); "
+            f"one-ulp weight floor {floor / scale:.3e} relative; argmax agreement "
+            f"{same:.4f}; card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+        require(bool(torch.isfinite(got).all()) and err <= limit * scale,
+                f"{arch} float32 logits: {err} vs scale {scale}")
+        del params, got, want
+
+
 def phase_timings(torch, fed, launches, errs) -> list:
     from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
     from repro_torch.kernels.tsgemm import tsgemm_cuda, tsgemm_plain
@@ -359,6 +604,90 @@ def phase_timings(torch, fed, launches, errs) -> list:
     return rows
 
 
+def lm_kernel_timings(torch, device, launches, errs) -> list:
+    """Flash attention at tinyllama's prefill and decode shapes, WKV at
+    rwkv6's, in the main path's types (bfloat16 attention, float32 WKV)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    B, S, Hq, Hkv, hd = LM_BATCH, LM_PROMPT, 32, 4, 64
+    bf16 = torch.bfloat16
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    # prefill: causal, S x S
+    q, k, v = randn(B, S, Hq, hd).to(bf16), randn(B, S, Hkv, hd).to(bf16), randn(B, S, Hkv, hd).to(bf16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), iters=5)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = S * (S + 1) / 2
+    b_ms, b_by = bound(2.0 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * Hq * hd * pairs,
+                       PEAK_BF16_FLOPS)
+    log("time", f"flash prefill q {tuple(q.shape)} k {tuple(k.shape)} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
+        "launches": launches.get("flash_attention", 0),
+        "max_abs_err": max(errs["flash_attention"]), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    })
+
+    # decode: one query per sequence against the cache, keys up to pos valid
+    cache_len = LM_PROMPT + LM_TOKENS
+    pos = cache_len - 1
+    q1 = randn(B, 1, Hq, hd).to(bf16)
+    kc, vc = randn(B, cache_len, Hkv, hd).to(bf16), randn(B, cache_len, Hkv, hd).to(bf16)
+    # decode-sized calls are timed as CUDA-graph replays: the host's launch
+    # gaps would otherwise exceed the kernels themselves
+    ms = graph_ms(torch, lambda: flash_attention_cuda(q1, kc, vc, q_offset=pos), reps=20)
+    plain_ms = graph_ms(torch, lambda: flash_attention_plain(q1, kc, vc, q_offset=pos), reps=20)
+    q1t, kct, vct = (x.transpose(1, 2) for x in (q1, kc, vc))
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        q1t, kct[:, :, :pos + 1], vct[:, :, :pos + 1], enable_gqa=True), reps=20)
+    keys = pos + 1
+    b_ms, b_by = bound(2.0 * (2 * q1.numel() + 2 * B * keys * Hkv * hd),
+                       4.0 * B * Hq * hd * keys, PEAK_BF16_FLOPS)
+    log("time", f"flash decode q {tuple(q1.shape)} cache {tuple(kc.shape)} pos {pos} bf16 "
+        f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+    # WKV: prefill over the prompt, then one decode step with a carried state
+    H = 32
+    ops = wkv_inputs(torch, gen, B, S, H, hd, device)
+    ms = time_ms(torch, lambda: wkv_cuda(*ops))
+    plain_ms = time_ms(torch, lambda: wkv_plain(*ops), warmup=1, iters=3)
+    n = B * S * H * hd
+    b_ms, b_by = bound(4.0 * (5 * n + H * hd + B * H * hd * hd), 7.0 * n * hd)
+    log("time", f"wkv prefill r {tuple(ops[0].shape)} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by})")
+    rows.append({
+        "name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/wkv/wkv.py:53",
+        "launches": launches.get("wkv", 0), "max_abs_err": max(errs["wkv"]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    })
+    step = wkv_inputs(torch, gen, B, 1, H, hd, device)
+    state = randn(B, H, hd, hd)
+    ms = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
+    plain_ms = graph_ms(torch, lambda: wkv_plain(*step, state), reps=20)
+    n1 = B * H * hd
+    b_ms, b_by = bound(4.0 * (5 * n1 + H * hd + 2 * B * H * hd * hd), 7.0 * n1 * hd)
+    log("time", f"wkv decode r {tuple(step[0].shape)} state {tuple(state.shape)} f32 "
+        f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -373,11 +702,16 @@ def main() -> int:
     device = phase_device(torch)
     phase_build()
     fed = Federation(torch, torch.device("cuda"))
-    errs = {"proximity": [], "tsgemm": []}
+    errs = {"proximity": [], "tsgemm": [], "flash_attention": [], "wkv": []}
     check_proximity(torch, fed, errs["proximity"])
     check_tsgemm(torch, fed.device, errs["tsgemm"])
+    check_flash(torch, fed.device, errs["flash_attention"])
+    check_wkv(torch, fed.device, errs["wkv"])
     launches = phase_main_path(torch, fed)
+    lm_launches = phase_lm_serving(torch, fed.device)
+    phase_lm_float32(torch, fed.device)
     rows = phase_timings(torch, fed, launches, errs)
+    rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     print(device["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,16 @@
 // G^T G (same plane order, sweep count, cancellation-free tangent, 1e-30
 // denominator guard and rsqrt as measures.py::_jacobi_rotate).  Clients and
 // rows past the edge are staged as zeros and never written.
+//
+// Ranks above kMaxRank take a runtime-rank path (proximity_any_rank): one
+// warp per pair, the pair's NC-row chunks staged in the warp's slice of
+// dynamic shared memory, each lane summing its Gram entries over a chunk in
+// a fresh FP32 register and adding the chunk sums into FP64 totals kept in
+// shared memory.  The reduction is the same arithmetic with loops in place
+// of the unroll: eq3's in-order clipped arccos sum on lane 0, eq2's packed
+// G^T G and cyclic Jacobi (same plane order and sweep count) with the
+// off-plane updates of each rotation spread over the lanes.  It has no
+// pair-tile reuse, so it is far slower than the template path per pair.
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,7 +52,7 @@ constexpr int kTy = 16;
 constexpr int kThreads = kTx * kTy;
 constexpr float kTiny = 1e-30f;
 constexpr float kDegPerRad = 57.295779513082320876798f;
-constexpr int kMaxRank = 8;
+constexpr int kMaxRank = 8;  // largest rank the templates unroll
 
 // Pairs per thread along a and b: RA * RB * ACC <= 32 chunk sums (one pair
 // per thread when a single pair needs more).
@@ -323,14 +333,175 @@ int pick_q(int q, int eq2, const float* Ua, long long sak, long long san,
 #undef PROX_Q
 }
 
+// ---------------------------------------------------------------------------
+// Runtime-rank path: any p, q.
+// ---------------------------------------------------------------------------
+
+constexpr int kDynChunk = 16;
+constexpr int kDynMaxWarps = 8;
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 227 * 1024;
+
+struct DynLayout {
+  int entries;        // Gram entries a pair accumulates: p (eq3) or p*q
+  size_t warp_bytes;  // FP64 totals, then staged rows of a and b, then G^T G
+  __host__ __device__ DynLayout(int p, int q, int eq2)
+      : entries(eq2 ? p * q : p),
+        warp_bytes(sizeof(double) * (eq2 ? p * q : p) +
+                   sizeof(float) * (kDynChunk * (p + q) + (eq2 ? q * q : 0))) {
+    warp_bytes = (warp_bytes + 15) / 16 * 16;
+  }
+};
+
+__global__ void __launch_bounds__(32 * kDynMaxWarps)
+proximity_any_rank(const float* __restrict__ Ua, long long sak, long long san,
+                   long long sap, int Ka, const float* __restrict__ Ub,
+                   long long sbk, long long sbn, long long sbq, int Kb, int n,
+                   int p, int q, int eq2, float* __restrict__ C,
+                   long long ldc) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const DynLayout lay(p, q, eq2);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long pair =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (pair >= static_cast<long long>(Ka) * Kb) return;
+  const int a = static_cast<int>(pair / Kb);
+  const int b = static_cast<int>(pair - static_cast<long long>(a) * Kb);
+
+  unsigned char* base = dyn_smem + lay.warp_bytes * warp;
+  double* tot = reinterpret_cast<double*>(base);
+  float* sa = reinterpret_cast<float*>(tot + lay.entries);  // [kDynChunk][p]
+  float* sb = sa + kDynChunk * p;                            // [kDynChunk][q]
+  float* bq = sb + kDynChunk * q;                            // [q][q]
+
+  for (int e = lane; e < lay.entries; e += 32) tot[e] = 0.0;
+  const float* A = Ua + a * sak;
+  const float* B = Ub + b * sbk;
+  for (int t0 = 0; t0 < n; t0 += kDynChunk) {
+    __syncwarp();
+    for (int e = lane; e < kDynChunk * p; e += 32) {
+      const int t = e / p, r = e - t * p;
+      sa[e] = t0 + t < n ? A[(t0 + t) * san + r * sap] : 0.f;
+    }
+    for (int e = lane; e < kDynChunk * q; e += 32) {
+      const int t = e / q, s = e - t * q;
+      sb[e] = t0 + t < n ? B[(t0 + t) * sbn + s * sbq] : 0.f;
+    }
+    __syncwarp();
+    for (int e = lane; e < lay.entries; e += 32) {
+      const int r = eq2 ? e / q : e;
+      const int s = eq2 ? e - r * q : e;
+      float part = 0.f;
+      for (int t = 0; t < kDynChunk; ++t)
+        part = fmaf(sa[t * p + r], sb[t * q + s], part);
+      tot[e] += part;
+    }
+  }
+  __syncwarp();
+
+  float out;
+  if (!eq2) {
+    float total = 0.f;
+    for (int r = 0; r < p; ++r) {
+      float d = fabsf(static_cast<float>(tot[r]));
+      d = d > 1.f ? 1.f : d;
+      const float ang = acosf(d) * kDegPerRad;
+      total = r == 0 ? ang : total + ang;
+    }
+    out = total;
+  } else {
+    // Packed upper triangle of G^T G, entry (i, j) at bq[i * q + j], i <= j.
+    for (int e = lane; e < q * q; e += 32) {
+      const int i = e / q, j = e - i * q;
+      if (i > j) continue;
+      float acc = static_cast<float>(tot[i]) * static_cast<float>(tot[j]);
+      for (int k = 1; k < p; ++k)
+        acc = acc + static_cast<float>(tot[k * q + i]) *
+                        static_cast<float>(tot[k * q + j]);
+      bq[e] = acc;
+    }
+    __syncwarp();
+    float lam = bq[0];
+    if (q > 1) {
+      const int sweeps = q <= 5 ? 4 : 6;
+      for (int it = 0; it < sweeps; ++it) {
+        for (int i = 0; i < q - 1; ++i) {
+          for (int j = i + 1; j < q; ++j) {
+            const float bii = bq[i * q + i], bjj = bq[j * q + j];
+            const float bij = bq[i * q + j];
+            const float d = bjj - bii;
+            const float e = bij + bij;
+            const float den = fabsf(d) + sqrtf(d * d + e * e) + kTiny;
+            const float sgn = d >= 0.f ? 1.f : -1.f;
+            const float t = sgn * e / den;
+            const float c = rsqrtf(1.f + t * t);
+            const float s = t * c;
+            __syncwarp();
+            for (int k = lane; k < q; k += 32) {
+              if (k == i || k == j) continue;
+              float& bik = k < i ? bq[k * q + i] : bq[i * q + k];
+              float& bjk = k < j ? bq[k * q + j] : bq[j * q + k];
+              const float x = bik, y = bjk;
+              bik = c * x - s * y;
+              bjk = s * x + c * y;
+            }
+            if (lane == 0) {
+              const float tb = t * bij;
+              bq[i * q + i] = bii - tb;
+              bq[j * q + j] = bjj + tb;
+              bq[i * q + j] = 0.f;
+            }
+            __syncwarp();
+          }
+        }
+      }
+      lam = bq[0];
+      for (int i = 1; i < q; ++i) {
+        const float v = bq[i * q + i];
+        lam = v > lam ? v : lam;
+      }
+    }
+    lam = lam < 0.f ? 0.f : lam;
+    float smax = sqrtf(lam);
+    smax = smax > 1.f ? 1.f : smax;
+    out = acosf(smax) * kDegPerRad;
+  }
+  if (lane == 0) C[a * ldc + b] = out;
+}
+
+int launch_any_rank(const float* Ua, long long sak, long long san,
+                    long long sap, int Ka, const float* Ub, long long sbk,
+                    long long sbn, long long sbq, int Kb, int n, int p, int q,
+                    int eq2, float* C, long long ldc, cudaStream_t stream) {
+  if (!eq2 && p != q) return cudaErrorInvalidValue;
+  const DynLayout lay(p, q, eq2);
+  if (lay.warp_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  int warps = static_cast<int>(kDefaultSmem / lay.warp_bytes);
+  warps = warps < 1 ? 1 : (warps > kDynMaxWarps ? kDynMaxWarps : warps);
+  const size_t smem = lay.warp_bytes * warps;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        proximity_any_rank, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long pairs = static_cast<long long>(Ka) * Kb;
+  const long long grid = (pairs + warps - 1) / warps;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  proximity_any_rank<<<static_cast<unsigned>(grid), 32 * warps, smem,
+                       stream>>>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb,
+                                 n, p, q, eq2, C, ldc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-int proximity_max_rank() { return kMaxRank; }
-
 // Ua (Ka, n, p) and Ub (Kb, n, q) float32 with element strides; C (Ka, Kb)
-// float32 with row stride ldc.  eq2 != 0 selects Eq. 2, else Eq. 3 (p == q).
+// float32 with row stride ldc.  Any p, q >= 1: ranks up to kMaxRank take the
+// unrolled templates, larger ones the runtime-rank path.  eq2 != 0 selects Eq. 2, else Eq. 3 (p == q).
 // Returns cudaGetLastError() after the launch (nonzero: not launched).
 int proximity_cross_f32(const float* Ua, long long sak, long long san,
                         long long sap, int Ka, const float* Ub, long long sbk,
@@ -338,7 +509,11 @@ int proximity_cross_f32(const float* Ua, long long sak, long long san,
                         int q, int eq2, float* C, long long ldc,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Ka <= 0 || Kb <= 0 || n <= 0) return cudaErrorInvalidValue;
+  if (Ka <= 0 || Kb <= 0 || n <= 0 || p <= 0 || q <= 0)
+    return cudaErrorInvalidValue;
+  if (p > kMaxRank || q > kMaxRank)
+    return launch_any_rank(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, p,
+                           q, eq2, C, ldc, st);
 #define PROX_P(PP)                                                           \
   case PP:                                                                   \
     return pick_q<PP>(q, eq2, Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb,  \

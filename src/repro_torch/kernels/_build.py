@@ -28,6 +28,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# Every kernel source in csrc/, by name.
+KERNELS = ("proximity", "tsgemm", "flash_attention", "wkv")
+
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,8 @@ computes the principal-angle block ``(Ka, n, p) x (Kb, n, q) -> (Ka, Kb)``
 in degrees; the square matrix is the case ``Ua is Ub`` followed by the
 hygiene pass (:func:`repro_torch.kernels.proximity.ops.proximity`).  Unlike
 the TPU kernel it is not square-only and does not zero-pad K: it masks the
-ragged edge itself.
+ragged edge itself.  Like the TPU kernel it takes any basis rank: ranks up to
+8 run unrolled templates, larger ones a runtime-rank path in the same source.
 
 :func:`proximity_cross` takes the plain twin only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -19,9 +20,6 @@ import torch
 
 from repro_torch.core.measures import eq3_from_diag, measure_from_gram
 from repro_torch.kernels import _build
-
-# Largest basis rank the kernel instantiates (csrc/proximity.cu kMaxRank).
-MAX_RANK = 8
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -61,11 +59,6 @@ def check_operands(Ua: torch.Tensor, Ub: torch.Tensor, measure: str) -> None:
         raise ValueError(
             f"eq3 pairs identically ordered angles and needs p == q, got "
             f"p={p}, q={q} (use eq2 for rectangular pairs)"
-        )
-    if max(p, q) > MAX_RANK:
-        raise ValueError(
-            f"the proximity kernel supports basis ranks p, q <= {MAX_RANK}, "
-            f"got p={p}, q={q}"
         )
     if Ua.device != Ub.device:
         raise ValueError(f"operands on {Ua.device} and {Ub.device}")

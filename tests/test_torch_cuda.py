@@ -7,7 +7,9 @@ GPU (decided inside the fixture, never at import).  Run on a GPU machine:
 
 Tolerances: proximity within 1e-3 degrees (the reference's ``TOL_DEG``);
 tsgemm within rtol 1e-5 float32 / 2e-2 bfloat16, atol 10x rtol
-(``tests/test_kernels.py``).
+(``tests/test_kernels.py``); flash attention within 2e-5 float32 / 3e-2
+bfloat16 (``tests/test_kernels.py``); WKV within 1e-5 of the largest
+|output| and |state| (the state barely decays, so the scale grows with S).
 """
 import numpy as np
 import pytest
@@ -34,7 +36,8 @@ def _signatures(K, n, p, seed, spread=None):
     return torch.from_numpy(np.stack([np.linalg.qr(x)[0] for x in X]).astype(np.float32))
 
 
-RANKS = [(p, q, m) for p, q in [(1, 1), (3, 3), (5, 5), (8, 8), (3, 5), (7, 2)]
+RANKS = [(p, q, m) for p, q in [(1, 1), (3, 3), (5, 5), (8, 8), (3, 5), (7, 2),
+                                 (9, 9), (12, 12), (3, 12), (12, 5)]
          for m in ("eq3", "eq2") if m == "eq2" or p == q]
 
 
@@ -119,3 +122,85 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
     cache.refresh(ext.engine)
     idx, d = serve_assign(gpu.U[:6], cache.rep_stack, "eq3")
     assert idx.device.type == "cuda" and torch.isfinite(d).all()
+
+
+FLASH_CASES = [
+    # B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset
+    (2, 64, 64, 4, 2, 32, True, None, 0),
+    (1, 32, 128, 8, 8, 16, False, None, 0),
+    (2, 64, 64, 4, 1, 32, True, 16, 0),
+    (1, 16, 64, 4, 2, 32, True, None, 48),
+    (1, 128, 128, 2, 2, 64, True, None, 0),
+    (3, 32, 32, 6, 3, 32, True, 8, 0),
+    (2, 200, 200, 32, 4, 64, True, None, 0),        # tinyllama heads, ragged tiles
+    (4, 1, 1056, 32, 4, 64, True, None, 1040),      # decode against a cache
+    (2, 13, 77, 8, 2, 64, True, 20, 60),            # ragged Sq and Skv, window
+    (1, 5, 40, 4, 4, 128, False, 7, 50),            # rows with no valid key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,hd,causal,window,qoff", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                              window, qoff, dtype):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(Sq * 7 + Skv)
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    before = _build.LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=qoff)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=qoff)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,H,hd", [(2, 16, 4, 16), (1, 40, 2, 32), (3, 7, 1, 16),
+                                      (2, 300, 8, 64), (4, 1, 32, 64), (1, 33, 2, 128)])
+def test_wkv_kernel_matches_plain(cuda, B, S, H, hd, with_state):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + S)
+    r, k, v = (torch.randn((B, S, H, hd), generator=g, device=cuda) for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, hd), generator=g, device=cuda))
+    u = 0.1 * torch.randn((H, hd), generator=g, device=cuda)
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=cuda) if with_state else None
+    before = _build.LAUNCHES["wkv"]
+    out, sT = wkv_cuda(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv"] == before + 1
+    want_out, want_s = wkv_plain(r, k, v, w, u, s0)
+    assert (out - want_out).abs().max().item() <= 1e-5 * want_out.abs().max().item()
+    assert (sT - want_s).abs().max().item() <= 1e-5 * want_s.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])
+def test_lm_serving_on_cuda_matches_cpu(cuda, arch):
+    """Reduced model in float32: the kernels on the card against the plain
+    twins on the CPU, prefill and 4 decode steps, one launch per layer per
+    forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).reduced()
+    gpu = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompt = serve.random_prompt(cfg, 2, 24, seed=0, device=cuda)
+    name = "wkv" if cfg.block_kind == "rwkv6" else "flash_attention"
+    _build.reset_launches()
+    toks, _ = serve.generate(gpu, prompt, 5)
+    assert _build.LAUNCHES[name] == cfg.n_layers * 5
+    with torch.inference_mode():
+        got, _ = lm.forward(gpu, prompt)
+        cpu = gpu.to("cpu")
+        want, _ = lm.forward(cpu, prompt.cpu())
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    assert toks.shape == (2, 5)

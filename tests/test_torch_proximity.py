@@ -19,7 +19,6 @@ from repro.kernels.proximity.proximity import proximity_pallas
 from repro_torch.core import angles
 from repro_torch.core.hc import hierarchical_clustering
 from repro_torch.kernels.proximity import (
-    MAX_RANK,
     proximity,
     proximity_cross,
     proximity_cuda,
@@ -124,11 +123,43 @@ class TestRectangularAndLimits:
 
     @pytest.mark.parametrize("measure", ["eq3", "eq2"])
     def test_rank_above_kernel_limit_raises(self, measure):
-        U = torch.from_numpy(_signatures(3, n=24, p=MAX_RANK + 1))
-        with pytest.raises(ValueError, match=f"<= {MAX_RANK}"):
-            proximity_cross(U, U, measure)
-        with pytest.raises(ValueError, match=f"<= {MAX_RANK}"):
-            angles.proximity_matrix(U, measure, backend="kernel")
+        """Ranks above the kernel's unrolled-template limit (8) do not raise:
+        at p = 9 and 12 every backend matches the reference within TOL_DEG —
+        its Pallas kernel for eq3 (its eq2 Jacobi unrolled at p > 8 takes
+        minutes to trace in interpret mode), its ``jnp`` backend (the same
+        packed Jacobi) for eq2, and its SVD oracle for both."""
+        for p in (9, 12):
+            U = _signatures(6, n=48, p=p, seed=p)
+            jU = jnp.asarray(U)
+            wants = [np.asarray(ref_proximity_ref(jU, measure=measure))]
+            if measure == "eq3":
+                wants.append(np.asarray(proximity_pallas(jU, measure=measure)))
+            else:
+                wants.append(np.asarray(ref_angles.proximity_matrix(jU, measure, backend="jnp")))
+            for backend in PORT_BACKENDS:
+                got = _port(U, measure, backend)
+                for want in wants:
+                    np.testing.assert_allclose(got, want, atol=TOL_DEG, err_msg=f"{backend} p={p}")
+
+    @pytest.mark.parametrize("measure", ["eq3", "eq2"])
+    @pytest.mark.parametrize("p", [9, 12])
+    def test_high_rank_square_and_cross_match_reference(self, p, measure):
+        """The kernel's twin at p > 8: the square matrix and a cross block
+        against the reference's ``proximity_matrix`` / ``cross_proximity``."""
+        U = _clustered(10, n=48, p=p, seed=3 * p)
+        want = np.asarray(ref_angles.proximity_matrix(jnp.asarray(U), measure, backend="jnp"))
+        np.testing.assert_allclose(_port(U, measure, "kernel"), want, atol=TOL_DEG)
+        want_c = np.asarray(ref_angles.cross_proximity(
+            jnp.asarray(U[:7]), jnp.asarray(U[7:]), measure, backend="jnp"))
+        got_c = proximity_cross(torch.from_numpy(U[:7]), torch.from_numpy(U[7:]), measure)
+        np.testing.assert_allclose(got_c.numpy(), want_c, atol=TOL_DEG)
+
+    def test_cross_rank_3_by_12_matches_reference(self):
+        Ua, Ub = _signatures(5, n=48, p=3, seed=31), _signatures(4, n=48, p=12, seed=32)
+        want = np.asarray(ref_angles.measure_pair(jnp.asarray(Ua), jnp.asarray(Ub), "eq2"))
+        got = proximity_cross(torch.from_numpy(Ua), torch.from_numpy(Ub), "eq2").numpy()
+        assert got.shape == (5, 4)
+        np.testing.assert_allclose(got, want, atol=TOL_DEG)
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
         U = torch.from_numpy(_signatures(3))
