@@ -7,10 +7,12 @@ Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card, its power limit, the float32 matmul settings;
 2. build: compiles the port's four CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, in parallel) into ``build/kernels/``;
+   (one ``nvcc`` per source, in parallel) into ``build/kernels/``, printing
+   each source's ``nvcc`` time and the count of tensor-core (``HMMA``)
+   instructions in the SASS of the bfloat16 flash-attention kernel;
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
-   at the main paths' shapes plus ragged, cross, windowed, high-rank and
-   bfloat16 cases;
+   at the main paths' shapes plus ragged, cross, windowed, high-rank,
+   split-KV / split-K and bfloat16 cases;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -22,18 +24,33 @@ Phases, each printing its own lines; any failure exits nonzero:
    bfloat16 through ``repro_torch.launch.serve`` (batch 4, prompt 1024, 32
    greedy tokens: one prefill and 31 decode forwards), checking that every
    attention call launched the flash kernel and every WKV call the WKV
-   kernel;
+   kernel, and timing the prefill and one decode step replayed from a CUDA
+   graph beside their host-clock times;
 6. whole model in float32 at full width: last-position logits of a prefill
    and 8 teacher-forced decode steps through the kernels on the card against
    the plain twins (the same model on the CPU);
 7. timings: each kernel's median time at its main-path shape beside its
-   bound at the card's peak rates, its plain twin and the library call.
+   bound at the card's peak rates, its plain twin and the library call
+   (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
+   the M = 1024 bucket).
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Nothing of the JAX package is imported.
+
+    python3 chip_smoke.py --time-kernels SRC
+
+builds only the flash-attention and tsgemm kernels of the ``repro_torch``
+under the directory SRC, times them at phase 7's main-path shapes with
+phase 7's timers and prints one JSON line of milliseconds.  Two commits are
+compared on one card by running it on both trees in turns in one session,
+e.g. on a parent unpacked with ``git archive`` into ``build/parent``:
+
+    for s in build/parent/src src src build/parent/src; do
+        python3 chip_smoke.py --time-kernels $s; done
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import statistics
@@ -67,6 +84,13 @@ SEED = 0
 PROX_TOL_DEG = 1e-3        # the reference's TOL_DEG
 F32_RTOL, BF16_RTOL = 1e-5, 2e-2   # tests/test_kernels.py, atol = 10 * rtol
 FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
+# bfloat16 flash attention is held, besides, to max|kernel - plain| <= this
+# share of max|plain| in each case.  Both round the output to bfloat16 once
+# (2^-8 relative) and the kernel also rounds P; one bfloat16 step of the
+# largest output is at most 2^-7 of it.  The absolute 3e-2 alone is ~60% of
+# a decode output's scale; phase 3 prints beside each case how far a
+# one-key shift of the mask moves the plain twin, against this limit.
+FLASH_BF16_REL_TOL = 1e-2
 WKV_REL_TOL = 1e-5         # of max |out| and max |state|
 
 # LM serving (phase 5): tinyllama-1.1b's attention and rwkv6-1.6b's WKV.
@@ -86,6 +110,10 @@ F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
 # past k v^T before the per-head group norm) amplifies rounding ~700x more,
 # hence its wider limit.
 LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
+
+# The revision in which the flash-attention and tsgemm kernels were redesigned
+# (their earlier times are in PERF.md section 6).
+REDESIGNED_IN = 13
 
 
 def log(phase: str, msg: str) -> None:
@@ -159,8 +187,14 @@ def same_partition(labels, truth) -> bool:
 # --------------------------------------------------------------------------
 
 
+# Device cycles to sleep before each timed sample (~0.6 ms at 1.7 GHz).
+SLEEP_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, *, warmup=3, iters=15) -> float:
-    """Median device time of ``fn()`` over ``iters`` runs (CUDA events)."""
+    """Median device time of ``fn()`` over ``iters`` samples (CUDA events).
+    The device sleeps before each sample while the host enqueues it, so the
+    wrapper's Python prologue is not in the time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -168,6 +202,7 @@ def time_ms(torch, fn, *, warmup=3, iters=15) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -220,6 +255,23 @@ def phase_device(torch) -> dict:
     return {"kind": name, "count": count, "smi": smi}
 
 
+def count_hmma(lib_path, function_substring: str) -> int:
+    """Tensor-core instructions (HMMA / HGMMA) in the SASS of the functions
+    of a built library whose names contain ``function_substring``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function_substring in line
+        elif inside and ("HMMA" in line or "HGMMA" in line):
+            count += 1
+    return count
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -229,6 +281,11 @@ def phase_build() -> None:
         _build.load(name)
     log("build", f"{', '.join(n + '.cu' for n in _build.KERNELS)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR.relative_to(ROOT)}")
+    log("build", "nvcc seconds per source: " + ", ".join(
+        f"{name}.cu {sec:.1f}" for name, sec in _build.BUILD_SECONDS.items()))
+    hmma = count_hmma(_build.library_path("flash_attention"), "flash_fwd_tc")
+    log("build", f"flash_attention bf16 kernel (flash_fwd_tc): {hmma} HMMA instructions in its SASS")
+    require(hmma > 0, "the bf16 flash-attention kernel has no tensor-core instructions")
 
 
 def check_proximity(torch, fed, errs: list) -> None:
@@ -278,13 +335,15 @@ def check_tsgemm(torch, device, errs: list) -> None:
     def compare(label, A, B, rtol):
         got = tsgemm_cuda(A, B)
         want = tsgemm_plain(A, B)
+        exact = A.double() @ B.double()
         torch.cuda.synchronize()
         diff = (got - want).abs()
         err = diff.max().item()
         excess = (diff - (10 * rtol + rtol * want.abs())).max().item()
         log("kernels", f"tsgemm {label}: {tuple(A.shape)} @ {tuple(B.shape)} "
             f"strides {A.stride()} max|kernel - plain| = {err:.3e} "
-            f"(rtol {rtol}, atol {10 * rtol})")
+            f"(rtol {rtol}, atol {10 * rtol}); against float64: kernel "
+            f"{(got - exact).abs().max().item():.3e}, plain {(want - exact).abs().max().item():.3e}")
         require(bool(torch.isfinite(got).all()) and excess <= 0, f"tsgemm {label}")
         if A.dtype == torch.float32:
             errs.append(err)
@@ -295,36 +354,72 @@ def check_tsgemm(torch, device, errs: list) -> None:
     Q = torch.linalg.qr(tsgemm_plain(D, omega))[0]
     Z = torch.linalg.qr(tsgemm_plain(D.transpose(1, 2), Q))[0]
     compare("D @ Omega", D, omega, F32_RTOL)
-    compare("D^T @ Q (strided)", D.transpose(1, 2), Q, F32_RTOL)
+    compare("D^T @ Q (strided, split-K)", D.transpose(1, 2), Q, F32_RTOL)
     compare("D @ Z", D, Z, F32_RTOL)
-    compare("Q^T @ D (strided, wide B)", Q.transpose(1, 2), D, F32_RTOL)
+    compare("Q^T @ D (strided, wide B, split-K)", Q.transpose(1, 2), D, F32_RTOL)
+    # the SVD's operands: D^T against Q with orthonormal columns
+    D3 = randn(64, 3000, 512)
+    Q3 = torch.linalg.qr(randn(64, 3000, ell))[0]
+    compare("split-K, k = 3000 no multiple of the split", D3.transpose(1, 2), Q3, F32_RTOL)
+    del D3, Q3
     compare("ragged", randn(3, 1000, 300), randn(3, 300, 13), F32_RTOL)
     compare("ragged strided", randn(3, 300, 1001).transpose(1, 2), randn(3, 300, 7), F32_RTOL)
-    compare("bf16 D @ Omega", D.to(torch.bfloat16), omega.to(torch.bfloat16), BF16_RTOL)
+    bf16 = torch.bfloat16
+    compare("bf16 D @ Omega", D.to(bf16), omega.to(bf16), BF16_RTOL)
+    compare("bf16 D^T @ Q (strided, vector path, split-K)",
+            D.to(bf16).transpose(1, 2), Q.to(bf16), BF16_RTOL)
+    compare("bf16 ragged strided (element path)",
+            randn(3, 300, 1001, dtype=bf16).transpose(1, 2), randn(3, 300, 7, dtype=bf16),
+            BF16_RTOL)
+    # D^T against a Gaussian B: sums of 3000 products of unit normals (|C|
+    # up to ~250), where float32 rounding alone exceeds the elementwise atol
+    # between any two summation orders.  Both products are held to float64
+    # instead: the kernel's error may be at most twice cuBLAS's.
+    A, B = randn(64, 3000, 512).transpose(1, 2), randn(64, 3000, ell)
+    exact = A.double() @ B.double()
+    e_kernel = (tsgemm_cuda(A, B) - exact).abs().max().item()
+    e_plain = (tsgemm_plain(A, B) - exact).abs().max().item()
+    log("kernels", f"tsgemm split-K, k = 3000, Gaussian B: {tuple(A.shape)} @ {tuple(B.shape)} "
+        f"against float64: kernel {e_kernel:.3e}, plain (cuBLAS) {e_plain:.3e} (limit 2x plain)")
+    require(e_kernel <= 2 * e_plain, f"tsgemm Gaussian k = 3000: {e_kernel} vs {e_plain}")
 
 
-def check_flash(torch, device, errs: list) -> None:
+def check_flash(torch, device, errs: dict) -> None:
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention.flash_attention import split_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    Hq, Hkv, hd = 32, 4, 64   # tinyllama-1.1b
+    tinyllama, llama3b = (32, 4, 64), (24, 8, 128)   # (Hq, Hkv, hd)
 
-    def compare(label, B, Sq, Skv, dtype, causal=True, window=None, q_offset=0):
+    def compare(label, B, Sq, Skv, dtype, causal=True, window=None, q_offset=0,
+                heads=tinyllama):
+        Hq, Hkv, hd = heads
         q = torch.randn((B, Sq, Hq, hd), generator=gen, device=device).to(dtype)
         k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
         v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         got = flash_attention_cuda(q, k, v, **kw)
-        want = flash_attention_plain(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        err = (got.float() - want).abs().max().item()
         tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        ok = bool(torch.isfinite(got).all()) and got.dtype == dtype and err <= tol
+        line = f"max|kernel - plain| = {err:.3e} (limit {tol})"
+        if dtype == torch.bfloat16:
+            scale = want.abs().max().item()
+            # the plain twin with each query one position earlier: one key
+            # fewer at the causal edge, the window's edge one key back
+            shifted = flash_attention_plain(q, k, v, **{**kw, "q_offset": q_offset - 1})
+            moved = (shifted.float() - want).abs().max().item()
+            ok = ok and err <= FLASH_BF16_REL_TOL * scale
+            line += (f", {err / scale:.3e} of max|plain| {scale:.4f} (limit "
+                     f"{FLASH_BF16_REL_TOL}; a one-key mask shift moves the plain twin by "
+                     f"{moved / scale:.3e})")
+        split = split_plan(B, Sq, Skv, Hq, Hkv, hd) if dtype == torch.bfloat16 else (1, Skv)
         log("kernels", f"flash {label} {str(dtype)[6:]}: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"{kw} max|kernel - plain| = {err:.3e} (limit {tol})")
-        require(bool(torch.isfinite(got).all()) and got.dtype == dtype and err <= tol,
-                f"flash {label} {dtype}: err {err}")
-        if dtype == torch.float32:
-            errs.append(err)
+            f"{kw} (nsplit, split_len) {split} {line}")
+        require(ok, f"flash {label} {dtype}: err {err}")
+        errs[dtype].append(err)
 
     cache_len = LM_PROMPT + LM_TOKENS
     for dtype in (torch.float32, torch.bfloat16):
@@ -332,6 +427,14 @@ def check_flash(torch, device, errs: list) -> None:
         compare("decode", LM_BATCH, 1, cache_len, dtype, q_offset=cache_len - 16)
         compare("windowed ragged", 2, 1000, 1000, dtype, window=128)
         compare("ragged suffix", 2, 77, 1111, dtype, q_offset=1034)
+        compare("prefill, llama3.2-3b heads", LM_BATCH, LM_PROMPT, LM_PROMPT, dtype,
+                heads=llama3b)
+        compare("decode, Skv no multiple of the split", LM_BATCH, 1, 1000, dtype, q_offset=999)
+        compare("decode, trailing splits empty", LM_BATCH, 1, cache_len, dtype, q_offset=300)
+        compare("windowed decode, early splits masked", LM_BATCH, 1, cache_len, dtype,
+                window=200, q_offset=cache_len - 1)
+        compare("decode, no valid key in any split", LM_BATCH, 1, cache_len, dtype,
+                window=100, q_offset=cache_len + 300)
     compare("non-causal windowed, rows past the window", 1, 5, 40, torch.float32,
             causal=False, window=7, q_offset=50)
 
@@ -468,12 +571,17 @@ def phase_lm_serving(torch, device) -> dict:
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
                 f"{arch}: generated tokens out of range")
         with torch.inference_mode():
-            logits, cache = lm.make_prefill_step(LM_PROMPT + LM_TOKENS)(params, prompt)
+            prefill = lm.make_prefill_step(LM_PROMPT + LM_TOKENS)
+            logits, cache = prefill(params, prompt)
             require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
             tok = logits.argmax(-1)[:, None]
             step = lm.make_serve_step()
             dev_ms = graph_ms(torch, lambda: step(params, cache, tok, LM_PROMPT))
+            pre_ms = graph_ms(torch, lambda: prefill(params, prompt), iters=5)
         host_ms = times["decode_s"] / (LM_TOKENS - 1) * 1e3
+        pre_host_ms = times["prefill_s"] * 1e3
+        log("lm", f"{arch}: prefill {pre_host_ms:.3f} ms on the host clock, {pre_ms:.3f} ms "
+            f"replayed from a CUDA graph (device idle {1 - pre_ms / pre_host_ms:.1%})")
         log("lm", f"{arch}: one decode step {host_ms:.3f} ms on the host clock, "
             f"{dev_ms:.3f} ms replayed from a CUDA graph (device idle "
             f"{1 - dev_ms / host_ms:.1%} of a host-driven step)")
@@ -576,10 +684,15 @@ def phase_timings(torch, fed, launches, errs) -> list:
                 "library_ms": None,
             })
     gen = torch.Generator(device=fed.device).manual_seed(SEED + 3)
-    D = torch.randn((64, n, 512), generator=gen, device=fed.device)
-    omega = torch.randn((64, 512, p + 8), generator=gen, device=fed.device)
-    Q = torch.linalg.qr(D @ omega)[0]
-    cases = [("D @ Omega", D, omega), ("D^T @ Q", D.transpose(1, 2), Q)]
+    cases = []
+    for M in (512, 1024):   # the two pow2 buckets of the main path
+        D = torch.randn((64, n, M), generator=gen, device=fed.device)
+        omega = torch.randn((64, M, p + 8), generator=gen, device=fed.device)
+        Q = torch.linalg.qr(D @ omega)[0]
+        tag = "" if M == 512 else f"M={M} "
+        cases += [(tag + "D @ Omega", D, omega), (tag + "D^T @ Q", D.transpose(1, 2), Q)]
+        if M == 512:
+            cases.append(("Q^T @ D", Q.transpose(1, 2), D))
     for label, A, B in cases:
         ms = time_ms(torch, lambda: tsgemm_cuda(A, B))
         plain_ms = time_ms(torch, lambda: tsgemm_plain(A, B))
@@ -599,7 +712,7 @@ def phase_timings(torch, fed, launches, errs) -> list:
                 "launches": launches.get("tsgemm", 0),
                 "max_abs_err": max(errs["tsgemm"]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms,
+                "library_ms": lib_ms, "redesigned": REDESIGNED_IN,
             })
     return rows
 
@@ -637,9 +750,28 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
         "launches": launches.get("flash_attention", 0),
-        "max_abs_err": max(errs["flash_attention"]), "ms": ms, "plain_ms": plain_ms,
+        # the timed kernel is the bfloat16 one; the float32 one's error beside it
+        "max_abs_err": max(errs["flash_attention"][bf16]),
+        "max_abs_err_f32": max(errs["flash_attention"][torch.float32]),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "redesigned": REDESIGNED_IN,
     })
+
+    # prefill at llama3.2-3b's heads: hd 128, G = 3
+    Hq3, Hkv3, hd3 = 24, 8, 128
+    q3, k3, v3 = (randn(B, S, h, hd3).to(bf16) for h in (Hq3, Hkv3, Hkv3))
+    q3t, k3t, v3t = (x.transpose(1, 2) for x in (q3, k3, v3))
+    ms3 = time_ms(torch, lambda: flash_attention_cuda(q3, k3, v3))
+    plain3 = time_ms(torch, lambda: flash_attention_plain(q3, k3, v3), iters=5)
+    lib3 = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q3t, k3t, v3t, is_causal=True, enable_gqa=True))
+    b3, b3_by = bound(2.0 * (2 * q3.numel() + 2 * k3.numel()), 4.0 * B * Hq3 * hd3 * pairs,
+                      PEAK_BF16_FLOPS)
+    log("time", f"flash prefill q {tuple(q3.shape)} k {tuple(k3.shape)} bf16 causal "
+        f"(llama3.2-3b heads): kernel {ms3:.4f} ms, plain {plain3:.4f} ms, SDPA {lib3:.4f} ms, "
+        f"bound {b3:.4f} ms ({b3_by})")
+    del q3, k3, v3, q3t, k3t, v3t
 
     # decode: one query per sequence against the cache, keys up to pos valid
     cache_len = LM_PROMPT + LM_TOKENS
@@ -688,11 +820,49 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     return rows
 
 
-def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
+def time_kernels(torch) -> dict:
+    """Milliseconds of the imported ``repro_torch``'s tsgemm and bfloat16
+    flash-attention wrappers at phase 7's main-path shapes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.tsgemm import tsgemm_cuda
+
+    _build.build_all(["tsgemm", "flash_attention"])
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    ms = {}
+    D, omega = randn(64, N_FEATURES, 512), randn(64, 512, RANK + 8)
+    Q = torch.linalg.qr(D @ omega)[0]
+    for label, A, B in (("tsgemm D @ Omega", D, omega), ("tsgemm D^T @ Q", D.transpose(1, 2), Q),
+                        ("tsgemm Q^T @ D", Q.transpose(1, 2), D)):
+        ms[label] = time_ms(torch, lambda: tsgemm_cuda(A, B))
+    del D, omega, Q
+    bf16 = torch.bfloat16
+    for Hq, Hkv, hd in ((32, 4, 64), (24, 8, 128)):
+        q, k, v = (randn(LM_BATCH, LM_PROMPT, h, hd, dtype=bf16) for h in (Hq, Hkv, Hkv))
+        ms[f"flash prefill hd {hd}"] = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
+    cache_len = LM_PROMPT + LM_TOKENS
+    q1 = randn(LM_BATCH, 1, 32, 64, dtype=bf16)
+    kc, vc = (randn(LM_BATCH, cache_len, 4, 64, dtype=bf16) for _ in range(2))
+    ms["flash decode (graph replay)"] = graph_ms(
+        torch, lambda: flash_attention_cuda(q1, kc, vc, q_offset=cache_len - 1), reps=20)
+    return ms
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--time-kernels", metavar="SRC",
+                    help="only time the tsgemm and flash-attention kernels of SRC/repro_torch")
+    args = ap.parse_args(argv)
+    src = Path(args.time_kernels).resolve() if args.time_kernels else ROOT / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke.py: {src}/repro_torch not found", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     import torch
 
     if not torch.cuda.is_available():
@@ -700,9 +870,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = phase_device(torch)
+    if args.time_kernels:
+        print(json.dumps({"src": args.time_kernels, "device": device["smi"],
+                          "ms": time_kernels(torch)}))
+        return 0
     phase_build()
     fed = Federation(torch, torch.device("cuda"))
-    errs = {"proximity": [], "tsgemm": [], "flash_attention": [], "wkv": []}
+    errs = {"proximity": [], "tsgemm": [], "wkv": [],
+            "flash_attention": {torch.float32: [], torch.bfloat16: []}}
     check_proximity(torch, fed, errs["proximity"])
     check_tsgemm(torch, fed.device, errs["tsgemm"])
     check_flash(torch, fed.device, errs["flash_attention"])

@@ -8,16 +8,20 @@ source never reuses a stale build.  :func:`build_all` starts one ``nvcc``
 per source at once, so the builds run in parallel.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else.  ``BUILD_SECONDS`` holds each
+source's ``nvcc`` wall time from the last build in this process.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterable
 
@@ -32,6 +36,9 @@ NVCC_FLAGS = (
 KERNELS = ("proximity", "tsgemm", "flash_attention", "wkv")
 
 LAUNCHES: collections.Counter = collections.Counter()
+BUILD_SECONDS: dict[str, float] = {}
+
+H100_SMS = 132  # the default SM count of the kernels' grid plans
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -62,29 +69,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+def _start(name: str) -> tuple[str, Path, Path, subprocess.Popen, float] | None:
     lib = library_path(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return lib, tmp, proc
+    return name, lib, tmp, proc, t0
+
+
+def _finish(started: tuple[str, Path, Path, subprocess.Popen, float]) -> str | None:
+    name, lib, tmp, proc, t0 = started
+    out, _ = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        return f"{lib.name}: nvcc exit {proc.returncode}\n{out}"
+    os.replace(tmp, lib)
+    return None
 
 
 def build_all(names: Iterable[str]) -> None:
     """Compile every named source that has no current build, in parallel."""
     started = [s for s in (_start(n) for n in names) if s is not None]
-    failures = []
-    for lib, tmp, proc in started:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{lib.name}: nvcc exit {proc.returncode}\n{out}")
-            continue
-        os.replace(tmp, lib)
+    with ThreadPoolExecutor(max_workers=max(1, len(started))) as pool:
+        failures = [f for f in pool.map(_finish, started) if f is not None]
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
 
@@ -97,3 +110,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (for grid plans)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

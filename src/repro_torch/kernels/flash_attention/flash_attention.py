@@ -6,7 +6,11 @@ Ports ``repro.kernels.flash_attention.flash_attention`` (``_flash_kernel`` /
 attention with a causal mask, an optional sliding window and a query offset
 in an online softmax, float32 or bfloat16 in and the same type out, float32
 inside.  Unlike the TPU kernel it takes ragged ``Sq`` and ``Skv`` (masked at
-the edge) and needs no tile sizes.
+the edge) and needs no tile sizes.  bfloat16 runs on the tensor cores; when
+the grid would not fill the card (decode), :func:`split_plan` cuts the keys
+into ranges whose partial softmax states the kernel merges in a second step
+(:func:`repro_torch.kernels.flash_attention.ref.merge_partials` is that
+merge in plain PyTorch).  float32 runs on the CUDA cores, unsplit.
 
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` takes the
 plain twin only for tensors on the CPU; for CUDA tensors it launches the
@@ -25,13 +29,47 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-_MAX_GROUP = 128  # query heads per KV head: one block's rows
+_MAX_GROUP = 128  # query heads per KV head: one float32 block's rows
+
+# The bfloat16 kernel's tiling (csrc/flash_attention.cu: kBK, launch_tc_hd).
+TC_KEYS = 64      # keys per tile
+MAX_SPLITS = 256  # kMaxSplits: splits the merge step takes
+
+
+def tc_rows_per_block(hd: int, rows: int) -> int:
+    """(position, head) rows per block of the bfloat16 kernel: two m16 tiles
+    per warp (128 rows) for hd <= 64 when there are more than 64 rows, else
+    one (64 rows)."""
+    return 128 if hd <= 64 and rows > 64 else 64
+
 
 _ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 ]
+
+
+def split_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, *,
+               sm_count: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(nsplit, split_len)`` for the bfloat16 kernel: split ``s`` walks
+    keys ``[s * split_len, (s + 1) * split_len)`` of ``[0, Skv)``.
+
+    Splits only when the unsplit grid (query tiles x Hkv x B blocks) holds
+    fewer than two blocks per SM, into as many splits as reach two per SM
+    (at most ``MAX_SPLITS``), each a whole number of key tiles and none past
+    ``Skv``.
+    """
+    rows = Sq * (Hq // Hkv)
+    q_tiles = -(-rows // tc_rows_per_block(hd, rows))
+    blocks = q_tiles * Hkv * B
+    tiles = -(-Skv // TC_KEYS)
+    nsplit = min(-(-2 * sm_count // blocks), tiles, MAX_SPLITS)
+    if nsplit <= 1:
+        return 1, Skv
+    split_len = -(-tiles // nsplit) * TC_KEYS
+    return -(-Skv // split_len), split_len
 
 
 def _lib() -> ctypes.CDLL:
@@ -121,11 +159,23 @@ def flash_attention_cuda(
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     o = torch.empty_like(q)
+    nsplit, split_len = 1, Skv
+    if q.dtype == torch.bfloat16:
+        nsplit, split_len = split_plan(B, Sq, Skv, Hq, Hkv, hd,
+                                       sm_count=_build.sm_count(q.device.index))
+    parts = (None, None, None)
+    if nsplit > 1:
+        # per-split softmax state (m, l) and accumulator, merged by the kernel
+        rows = Sq * (Hq // Hkv)
+        ml = torch.empty((2, B, Hkv, nsplit, rows), dtype=torch.float32, device=q.device)
+        acc = torch.empty((B, Hkv, nsplit, rows, hd), dtype=torch.float32, device=q.device)
+        parts = (ml[0].data_ptr(), ml[1].data_ptr(), acc.data_ptr())
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *parts, nsplit, split_len,
             B, Sq, Skv, Hq, Hkv, hd, int(causal), 0 if window is None else int(window),
             int(q_offset), 1.0 / math.sqrt(hd), stream,
         )

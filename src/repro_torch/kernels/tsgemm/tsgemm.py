@@ -5,7 +5,9 @@ Ports ``repro.kernels.tsgemm.tsgemm`` (``_tsgemm_kernel`` /
 kernel (``repro_torch/csrc/tsgemm.cu``) takes ``(Bt, m, k) @ (Bt, k, p)``
 with the batch in the grid and every operand addressed through its strides,
 so the transposed views the randomized SVD passes (``D.T``, ``Q.T``) are
-read in place, never copied.
+read in place, never copied.  :func:`split_k_plan` fits the kernel's column
+slab to ``p`` and cuts ``k`` into splits when the grid would not fill the
+card; the kernel sums the splits' partial products in a second step.
 
 :func:`repro_torch.kernels.tsgemm.ops.tsgemm` takes the plain twin only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -21,14 +23,43 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 65535
 
+# The kernel's tiling (csrc/tsgemm.cu: kBM, kBK) and its column slabs.
+TS_ROWS = 128     # rows of C per block
+TS_K = 32         # k per tile
+SLABS = (4, 8, 12, 16)
+
 _ARGTYPES = [
     ctypes.c_int,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
+
+
+def split_k_plan(Bt: int, m: int, k: int, p: int, *,
+                 sm_count: int = _build.H100_SMS) -> tuple[int, int, int, int]:
+    """``(slab, n_slabs, nsplit, split_len)`` for ``(Bt, m, k) @ (Bt, k, p)``.
+
+    The columns of C go in ``n_slabs`` slabs of ``slab`` (a multiple of 4,
+    at most 16: 12 for p = 11).  When the grid (row tiles x slabs x Bt
+    blocks) holds fewer than four blocks per SM, split ``s`` takes
+    ``k`` indices ``[s * split_len, (s + 1) * split_len)``: as many splits
+    as reach four blocks per SM, each at least four tiles of ``TS_K`` and a
+    whole number of them, none past ``k``.
+    """
+    n_slabs = -(-p // SLABS[-1])
+    slab = -(-p // n_slabs)
+    slab = -(-slab // 4) * 4
+    blocks = -(-m // TS_ROWS) * n_slabs * Bt
+    nsplit = min(-(-4 * sm_count // blocks), k // (4 * TS_K))
+    if nsplit <= 1:
+        return slab, n_slabs, 1, k
+    split_len = -(-(-(-k // TS_K)) // nsplit) * TS_K
+    return slab, n_slabs, -(-k // split_len), split_len
 
 
 def _lib() -> ctypes.CDLL:
@@ -92,13 +123,15 @@ def tsgemm_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         m_, p_ = m, p
     sab, sam, sak = A_.stride()
     a_mode = 1 if sak == 1 and sam != 1 else 0
-    fast_ok = sam == 1 and sak % 4 == 0 if a_mode == 0 else sam % 4 == 0
-    vec = int(
-        A_.dtype == torch.float32
-        and fast_ok
-        and sab % 4 == 0
-        and A_.data_ptr() % 16 == 0
-    )
+    # 16-byte copies along A's fast axis: 4 float32 or 8 bfloat16 values
+    epv = 16 // A_.element_size()
+    fast_ok = sam == 1 and sak % epv == 0 if a_mode == 0 else sam % epv == 0
+    vec = int(fast_ok and sab % epv == 0 and A_.data_ptr() % 16 == 0)
+    slab, _, nsplit, split_len = split_k_plan(Bt, m_, k, p_,
+                                             sm_count=_build.sm_count(A.device.index))
+    part = None
+    if nsplit > 1:
+        part = torch.empty((nsplit, Bt, m_, p_), dtype=torch.float32, device=A.device)
     lib = _lib()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -107,7 +140,8 @@ def tsgemm_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
             A_.data_ptr(), sab, sam, sak,
             B_.data_ptr(), *B_.stride(),
             C_.data_ptr(), *C_.stride(),
-            Bt, m_, k, p_, a_mode, vec, stream,
+            None if part is None else part.data_ptr(),
+            Bt, m_, k, p_, a_mode, vec, slab, nsplit, split_len, stream,
         )
     if rc != 0:
         raise RuntimeError(
