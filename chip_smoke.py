@@ -8,11 +8,13 @@ Phases, each printing its own lines; any failure exits nonzero:
 1. device: the card, its power limit, the float32 matmul settings;
 2. build: compiles the port's four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/kernels/``, printing
-   each source's ``nvcc`` time and the count of tensor-core (``HMMA``)
-   instructions in the SASS of the bfloat16 flash-attention kernel;
+   each source's ``nvcc`` time and the count of tensor-core instructions in
+   the SASS of the bfloat16 flash-attention kernel (``HMMA``) and of the
+   eq3 proximity kernel (``DMMA``);
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
    at the main paths' shapes plus ragged, cross, windowed, high-rank,
-   split-KV / split-K and bfloat16 cases;
+   split-KV / split-K, bfloat16 and fast-decay cases, and the square
+   proximity (upper-triangle tiles, mirrored) against the full rectangle;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -32,21 +34,27 @@ Phases, each printing its own lines; any failure exits nonzero:
 7. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call
    (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
-   the M = 1024 bucket).
+   the M = 1024 bucket; WKV also with float32 r, k, v).
 
 The second-to-last line is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Nothing of the JAX package is imported.
 
     python3 chip_smoke.py --time-kernels SRC
 
-builds only the flash-attention and tsgemm kernels of the ``repro_torch``
-under the directory SRC, times them at phase 7's main-path shapes with
-phase 7's timers and prints one JSON line of milliseconds.  Two commits are
+builds the four kernels of the ``repro_torch`` under the directory SRC,
+times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
+and eq2) at phase 7's main-path shapes with phase 7's timers and prints one
+JSON line of milliseconds.  Two commits are
 compared on one card by running it on both trees in turns in one session,
 e.g. on a parent unpacked with ``git archive`` into ``build/parent``:
 
     for s in build/parent/src src src build/parent/src; do
         python3 chip_smoke.py --time-kernels $s; done
+
+    python3 chip_smoke.py --sweep-wkv
+
+times WKV by chunk length and by route at short sequences, the numbers
+behind ``wkv_plan``'s constants, and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -111,9 +119,9 @@ F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
 # hence its wider limit.
 LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
 
-# The revision in which the flash-attention and tsgemm kernels were redesigned
-# (their earlier times are in PERF.md section 6).
-REDESIGNED_IN = 13
+# The revision in which each kernel was last redesigned (earlier times are
+# in PERF.md section 6).
+REDESIGNED_IN = {"flash_attention": 13, "tsgemm": 13, "wkv": 14, "proximity": 14}
 
 
 def log(phase: str, msg: str) -> None:
@@ -226,6 +234,24 @@ def graph_ms(torch, fn, *, reps=1, iters=10) -> float:
     return time_ms(torch, graph.replay, iters=iters) / reps
 
 
+def profile_ms(torch, fn, *, iters=10) -> dict:
+    """Device milliseconds per call of each CUDA kernel that ``fn()``
+    launches, by kernel name (``torch.profiler``, after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    def short(key):
+        return key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+    return {short(e.key): e.device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
           ) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -255,9 +281,9 @@ def phase_device(torch) -> dict:
     return {"kind": name, "count": count, "smi": smi}
 
 
-def count_hmma(lib_path, function_substring: str) -> int:
-    """Tensor-core instructions (HMMA / HGMMA) in the SASS of the functions
-    of a built library whose names contain ``function_substring``."""
+def count_mma(lib_path, function_substring: str, opcodes=("HMMA", "HGMMA")) -> int:
+    """Tensor-core instructions (``opcodes``) in the SASS of the functions of
+    a built library whose names contain ``function_substring``."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -267,7 +293,7 @@ def count_hmma(lib_path, function_substring: str) -> int:
     for line in sass.splitlines():
         if "Function :" in line:
             inside = function_substring in line
-        elif inside and ("HMMA" in line or "HGMMA" in line):
+        elif inside and any(op in line for op in opcodes):
             count += 1
     return count
 
@@ -283,9 +309,12 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR.relative_to(ROOT)}")
     log("build", "nvcc seconds per source: " + ", ".join(
         f"{name}.cu {sec:.1f}" for name, sec in _build.BUILD_SECONDS.items()))
-    hmma = count_hmma(_build.library_path("flash_attention"), "flash_fwd_tc")
+    hmma = count_mma(_build.library_path("flash_attention"), "flash_fwd_tc")
     log("build", f"flash_attention bf16 kernel (flash_fwd_tc): {hmma} HMMA instructions in its SASS")
     require(hmma > 0, "the bf16 flash-attention kernel has no tensor-core instructions")
+    dmma = count_mma(_build.library_path("proximity"), "eq3_tc", ("DMMA",))
+    log("build", f"proximity eq3 kernel (eq3_tc): {dmma} DMMA instructions in its SASS")
+    require(dmma > 0, "the eq3 proximity kernel has no FP64 tensor-core instructions")
 
 
 def check_proximity(torch, fed, errs: list) -> None:
@@ -322,6 +351,17 @@ def check_proximity(torch, fed, errs: list) -> None:
     for measure in ("eq3", "eq2"):
         compare("square K=256 p=12", U12, U12, measure, True)
     compare("cross 1024x256 p=3 x q=12", U3, U12, "eq2", False)
+    # the square launches only the upper-triangle tiles and mirrors them:
+    # it must equal the full rectangle of the stack against a copy of itself
+    for label, U in (("K=1024 p=3", U3), ("ragged K=1000 p=3", U3[:1000]), ("K=1024 p=5", U5)):
+        square = proximity_cuda(U, U, "eq3")
+        cross = proximity_cuda(U, U.clone(), "eq3")
+        torch.cuda.synchronize()
+        diff = (square - cross).abs().max().item()
+        log("kernels", f"proximity square {label} eq3 vs cross against a clone: "
+            f"max|square - cross| = {diff:.3e}, square symmetric: {bool((square == square.T).all())}")
+        require(diff == 0.0 and bool((square == square.T).all()),
+                f"proximity square {label}: mirrored tiles differ from the rectangle by {diff}")
 
 
 def check_tsgemm(torch, device, errs: list) -> None:
@@ -439,40 +479,57 @@ def check_flash(torch, device, errs: dict) -> None:
             causal=False, window=7, q_offset=50)
 
 
-def wkv_inputs(torch, gen, B, S, H, hd, device):
-    """r, k, v, w, u at the model's scales: decay w = exp(-exp(-6 + noise))."""
+def wkv_inputs(torch, gen, B, S, H, hd, device, fast=False):
+    """r, k, v, w, u at the model's scales: decay w = exp(-exp(ww)) with
+    ww = -6 + noise (the model's init, w ~ 0.9975), or with ``fast`` ww ~
+    U[-6, 2] (w down to ~6e-4, as trained RWKV-6 decays reach)."""
     r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=device) for _ in range(3))
-    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen,
-                                                       device=device)))
+    if fast:
+        ww = -6.0 + 8.0 * torch.rand((B, S, H, hd), generator=gen, device=device)
+    else:
+        ww = -6.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen, device=device)
+    w = torch.exp(-torch.exp(ww))
     u = 0.1 * torch.randn((H, hd), generator=gen, device=device)
     return r, k, v, w, u
 
 
 def check_wkv(torch, device, errs: list) -> None:
-    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     H, hd = 32, 64   # rwkv6-1.6b
 
     def compare(label, ops, state0):
+        plan = wkv_plan(ops[0].shape[1])
         out, st = wkv_cuda(*ops, state0)
-        want_out, want_st = wkv_plain(*ops, state0)
+        want_out, want_st = wkv_plain(*(a.float() for a in ops), state0)
         torch.cuda.synchronize()
         e_out = ((out - want_out).abs().max() / want_out.abs().max()).item()
         e_st = ((st - want_st).abs().max() / want_st.abs().max()).item()
-        log("kernels", f"wkv {label}: r {tuple(ops[0].shape)} max|kernel - plain| / max|plain| "
+        log("kernels", f"wkv {label}: r {tuple(ops[0].shape)} {str(ops[0].dtype)[6:]} "
+            f"{plan.route} (chunk {plan.chunk}) max|kernel - plain| / max|plain| "
             f"= {e_out:.3e} (out), {e_st:.3e} (state) (limit {WKV_REL_TOL})")
         require(bool(torch.isfinite(out).all()) and max(e_out, e_st) <= WKV_REL_TOL,
                 f"wkv {label}: {e_out}, {e_st}")
         errs.append(max((out - want_out).abs().max().item(), (st - want_st).abs().max().item()))
         return st
 
+    def bf16(ops):   # the serving path's r, k, v
+        return tuple(a.to(torch.bfloat16) if i < 3 else a for i, a in enumerate(ops))
+
     ops = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device)
+    state0 = 0.1 * torch.randn((LM_BATCH, H, hd, hd), generator=gen, device=device)
     compare("prefill", ops, None)
-    state = compare("prefill with state0", ops,
-                    0.1 * torch.randn((LM_BATCH, H, hd, hd), generator=gen, device=device))
+    state = compare("prefill with state0", ops, state0)
+    compare("prefill with state0, bfloat16 r k v", bf16(ops), state0)
     step = wkv_inputs(torch, gen, LM_BATCH, 1, H, hd, device)
     compare("decode S=1, carried state", step, state)
+    fast = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device, fast=True)
+    compare("prefill, fast decay", fast, None)
+    compare("prefill with state0, fast decay", fast, state0)
+    compare("prefill with state0, fast decay, bfloat16 r k v", bf16(fast), state0)
+    compare("ragged: S=1000 with state0, fast decay",
+            tuple(a[:, :1000] if i < 4 else a for i, a in enumerate(fast)), state0)
 
 
 def phase_main_path(torch, fed) -> dict:
@@ -666,11 +723,17 @@ def phase_timings(torch, fed, launches, errs) -> list:
     K, n, p = N_CLIENTS, N_FEATURES, RANK
     U = fed.signatures(planted(K))
     rows = []
+    # The least work of the square: the matrix is symmetric, so K (K + 1) / 2
+    # client pairs, each p (eq3: the Gram diagonal) or p * p (eq2) dot
+    # products of length n at 2 flops a term; the O(K^2) epilogue is not
+    # counted.  Both peaks (FP64 tensor cores for eq3, FP32 for eq2) are 67
+    # TFLOP/s.
+    pairs = K * (K + 1) / 2
     for measure in ("eq3", "eq2"):
         ms = time_ms(torch, lambda: proximity_cuda(U, U, measure))
         plain_ms = time_ms(torch, lambda: proximity_plain(U, U, measure), iters=5)
         gram = p if measure == "eq3" else p * p
-        b_ms, b_by = bound(K * n * p * 4 + K * K * 4, 2.0 * K * K * n * gram)
+        b_ms, b_by = bound(K * n * p * 4 + K * K * 4, 2.0 * pairs * n * gram)
         log("time", f"proximity {measure} K={K} n={n} p={p}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if measure == "eq3":
@@ -681,8 +744,13 @@ def phase_timings(torch, fed, launches, errs) -> list:
                 "launches": launches.get("proximity", 0),
                 "max_abs_err": max(errs["proximity"]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None,
+                "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
             })
+    Uc = U.clone()
+    ms = time_ms(torch, lambda: proximity_cuda(U, Uc, "eq3"))
+    log("time", f"proximity eq3 K={K} against a clone (the full rectangle, no "
+        f"triangle): kernel {ms:.4f} ms")
+    del Uc
     gen = torch.Generator(device=fed.device).manual_seed(SEED + 3)
     cases = []
     for M in (512, 1024):   # the two pow2 buckets of the main path
@@ -712,18 +780,19 @@ def phase_timings(torch, fed, launches, errs) -> list:
                 "launches": launches.get("tsgemm", 0),
                 "max_abs_err": max(errs["tsgemm"]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "redesigned": REDESIGNED_IN,
+                "library_ms": lib_ms, "redesigned": REDESIGNED_IN["tsgemm"],
             })
     return rows
 
 
 def lm_kernel_timings(torch, device, launches, errs) -> list:
     """Flash attention at tinyllama's prefill and decode shapes, WKV at
-    rwkv6's, in the main path's types (bfloat16 attention, float32 WKV)."""
+    rwkv6's, in the main path's types (bfloat16 attention; WKV's bfloat16
+    r, k, v with float32 w, u and state)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     B, S, Hq, Hkv, hd = LM_BATCH, LM_PROMPT, 32, 4, 64
@@ -755,7 +824,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
         "max_abs_err_f32": max(errs["flash_attention"][torch.float32]),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "redesigned": REDESIGNED_IN,
+        "redesigned": REDESIGNED_IN["flash_attention"],
     })
 
     # prefill at llama3.2-3b's heads: hd 128, G = 3
@@ -792,42 +861,55 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
         f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
 
-    # WKV: prefill over the prompt, then one decode step with a carried state
+    # WKV: prefill over the prompt, then one decode step with a carried state.
+    # The least work per step and state entry (i, j): out_j += r_i S_ij (one
+    # FMA) and S_ij = w_i S_ij + k_i v_j (a multiply and an FMA), 5 flops;
+    # the bonus (sum_i r_i u_i k_i) v_j is per j, not per (i, j).
     H = 32
     ops = wkv_inputs(torch, gen, B, S, H, hd, device)
-    ms = time_ms(torch, lambda: wkv_cuda(*ops))
-    plain_ms = time_ms(torch, lambda: wkv_plain(*ops), warmup=1, iters=3)
+    bf = tuple(a.to(torch.bfloat16) if i < 3 else a for i, a in enumerate(ops))
+    plan = wkv_plan(S)
+    ms = time_ms(torch, lambda: wkv_cuda(*bf))
+    ms_f32 = time_ms(torch, lambda: wkv_cuda(*ops))
+    plain_ms = time_ms(torch, lambda: wkv_plain(*bf), warmup=1, iters=3)
     n = B * S * H * hd
-    b_ms, b_by = bound(4.0 * (5 * n + H * hd + B * H * hd * hd), 7.0 * n * hd)
-    log("time", f"wkv prefill r {tuple(ops[0].shape)} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(2.0 * 3 * n + 4.0 * (2 * n + H * hd + B * H * hd * hd), 5.0 * n * hd)
+    log("time", f"wkv prefill r {tuple(ops[0].shape)} ({plan.route}, chunk {plan.chunk}): "
+        f"kernel {ms:.4f} ms with bfloat16 r, k, v (the serving path's), {ms_f32:.4f} ms "
+        f"float32; plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by})")
     rows.append({
         "name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv/wkv.py:53",
         "launches": launches.get("wkv", 0), "max_abs_err": max(errs["wkv"]),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "ms": ms, "ms_f32": ms_f32, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "redesigned": REDESIGNED_IN["wkv"],
     })
-    step = wkv_inputs(torch, gen, B, 1, H, hd, device)
+    del ops, bf
+    step = tuple(a.to(torch.bfloat16) if i < 3 else a
+                 for i, a in enumerate(wkv_inputs(torch, gen, B, 1, H, hd, device)))
     state = randn(B, H, hd, hd)
     ms = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
     plain_ms = graph_ms(torch, lambda: wkv_plain(*step, state), reps=20)
     n1 = B * H * hd
-    b_ms, b_by = bound(4.0 * (5 * n1 + H * hd + 2 * B * H * hd * hd), 7.0 * n1 * hd)
-    log("time", f"wkv decode r {tuple(step[0].shape)} state {tuple(state.shape)} f32 "
+    b_ms, b_by = bound(2.0 * 3 * n1 + 4.0 * (2 * n1 + H * hd + 2 * B * H * hd * hd),
+                       5.0 * n1 * hd)
+    log("time", f"wkv decode r {tuple(step[0].shape)} bf16, state {tuple(state.shape)} f32 "
         f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
         f"bound {b_ms:.4f} ms ({b_by})")
     return rows
 
 
 def time_kernels(torch) -> dict:
-    """Milliseconds of the imported ``repro_torch``'s tsgemm and bfloat16
-    flash-attention wrappers at phase 7's main-path shapes."""
+    """Milliseconds of the imported ``repro_torch``'s tsgemm, bfloat16
+    flash-attention, float32 WKV and proximity wrappers at phase 7's
+    main-path shapes (the wrappers' calls that earlier trees also take)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.proximity import proximity_cuda
     from repro_torch.kernels.tsgemm import tsgemm_cuda
+    from repro_torch.kernels.wkv import wkv_cuda
 
-    _build.build_all(["tsgemm", "flash_attention"])
+    _build.build_all(_build.KERNELS)
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
 
@@ -850,13 +932,60 @@ def time_kernels(torch) -> dict:
     kc, vc = (randn(LM_BATCH, cache_len, 4, 64, dtype=bf16) for _ in range(2))
     ms["flash decode (graph replay)"] = graph_ms(
         torch, lambda: flash_attention_cuda(q1, kc, vc, q_offset=cache_len - 1), reps=20)
+    del q, k, v, q1, kc, vc
+    H, hd = 32, 64
+    ops = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device)
+    ms["wkv prefill f32"] = time_ms(torch, lambda: wkv_cuda(*ops))
+    step = wkv_inputs(torch, gen, LM_BATCH, 1, H, hd, device)
+    state = randn(LM_BATCH, H, hd, hd)
+    ms["wkv decode (graph replay)"] = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
+    del ops, step, state
+    U = Federation(torch, device).signatures(planted(N_CLIENTS))
+    for measure in ("eq3", "eq2"):
+        ms[f"proximity {measure} K={N_CLIENTS}"] = time_ms(
+            torch, lambda: proximity_cuda(U, U, measure))
+    return ms
+
+
+def sweep_wkv(torch) -> dict:
+    """The measurements behind ``wkv_plan``'s constants, float32 at
+    rwkv6-1.6b's (4, S, 32, 64) with the model's decays: the prefill at
+    S = 1024 by chunk length, both routes at short S, and the device time of
+    each of the chunked route's kernels at S = 1024 (torch.profiler).  The
+    route and chunk length are set through the plan's module constants."""
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    plan = importlib.import_module("repro_torch.kernels.wkv.wkv")
+    chunk, min_s = plan.CHUNK, plan.CHUNKED_MIN_S
+    _build.build_all(("wkv",))
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    H, hd = 32, 64
+    ops = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device)
+    ms = {"kernels at S=1024": profile_ms(torch, lambda: plan.wkv_cuda(*ops))}
+    try:
+        for c in (32, 64, 128, 256):
+            plan.CHUNK = c
+            ms[f"S=1024 chunk {c}"] = time_ms(torch, lambda: plan.wkv_cuda(*ops))
+        plan.CHUNK = chunk
+        for S in (16, 32, 48, 64, 128):
+            short = wkv_inputs(torch, gen, LM_BATCH, S, H, hd, device)
+            for route, threshold in (("recurrent", S + 1), ("chunked", 1)):
+                plan.CHUNKED_MIN_S = threshold
+                ms[f"S={S} {route}"] = time_ms(torch, lambda: plan.wkv_cuda(*short))
+    finally:
+        plan.CHUNK, plan.CHUNKED_MIN_S = chunk, min_s
     return ms
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--time-kernels", metavar="SRC",
-                    help="only time the tsgemm and flash-attention kernels of SRC/repro_torch")
+                    help="only time the kernels of SRC/repro_torch at the main-path shapes")
+    ap.add_argument("--sweep-wkv", action="store_true",
+                    help="only time WKV by chunk length and route (wkv_plan's constants)")
     args = ap.parse_args(argv)
     src = Path(args.time_kernels).resolve() if args.time_kernels else ROOT / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -873,6 +1002,9 @@ def main(argv=None) -> int:
     if args.time_kernels:
         print(json.dumps({"src": args.time_kernels, "device": device["smi"],
                           "ms": time_kernels(torch)}))
+        return 0
+    if args.sweep_wkv:
+        print(json.dumps({"device": device["smi"], "ms": sweep_wkv(torch)}))
         return 0
     phase_build()
     fed = Federation(torch, torch.device("cuda"))

@@ -6,8 +6,11 @@ computes the principal-angle block ``(Ka, n, p) x (Kb, n, q) -> (Ka, Kb)``
 in degrees; the square matrix is the case ``Ua is Ub`` followed by the
 hygiene pass (:func:`repro_torch.kernels.proximity.ops.proximity`).  Unlike
 the TPU kernel it is not square-only and does not zero-pad K: it masks the
-ragged edge itself.  Like the TPU kernel it takes any basis rank: ranks up to
-8 run unrolled templates, larger ones a runtime-rank path in the same source.
+ragged edge itself.  Like the TPU kernel it takes any basis rank.  Eq. 3 at
+ranks up to 8 runs on the FP64 tensor cores; when both operands are one
+stack, only the upper-triangle tiles of the square are launched
+(:func:`triangle_tile`) and each value is mirrored.  Eq. 2 runs unrolled
+templates up to rank 8; larger ranks take a runtime-rank path.
 
 :func:`proximity_cross` takes the plain twin only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -15,11 +18,16 @@ for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.core.measures import eq3_from_diag, measure_from_gram
 from repro_torch.kernels import _build
+
+# Clients per side of the eq3 tensor-core kernel's square block tile
+# (csrc/proximity.cu ``Eq3Tile``), at every rank.
+EQ3_TILE = 32
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -29,6 +37,25 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
 ]
+
+
+def triangle_tile(x: int) -> tuple[int, int]:
+    """The tile ``(bi, bj)``, ``bi <= bj``, that block ``x`` of the symmetric
+    eq3 grid computes: x enumerates the upper triangle column by column,
+    (0, 0), (0, 1), (1, 1), (0, 2), ...  The kernel's ``triangle_tile`` uses
+    the same formula (a double square root, then exact integer correction)."""
+    j = int((math.sqrt(8.0 * x + 1.0) - 1.0) / 2.0)
+    while j * (j + 1) // 2 > x:
+        j -= 1
+    while (j + 1) * (j + 2) // 2 <= x:
+        j += 1
+    return x - j * (j + 1) // 2, j
+
+
+def triangle_tiles(K: int) -> int:
+    """Blocks of the symmetric eq3 grid for K clients."""
+    nt = -(-K // EQ3_TILE)
+    return nt * (nt + 1) // 2
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,9 +97,10 @@ def proximity_plain(
     """Plain PyTorch twin of the kernel: (Ka, n, p) x (Kb, n, q) -> (Ka, Kb).
 
     Same function as the kernel: the Gram entries of the float32 inputs,
-    summed without float32 cancellation (float64 here; FP32 chunk sums with
-    FP64 totals in the kernel) and rounded to float32, then the measure
-    core's clipped-arccos (eq3) / packed-Jacobi (eq2) reduction in float32.
+    summed without float32 cancellation (float64 here; FP64 tensor-core sums
+    for eq3 and FP32 chunk sums with FP64 totals for eq2 in the kernel) and
+    rounded to float32, then the measure core's clipped-arccos (eq3) /
+    packed-Jacobi (eq2) reduction in float32.
     """
     Ua, Ub = Ua.float().double(), Ub.float().double()
     if measure == "eq3":

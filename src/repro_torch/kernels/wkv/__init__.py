@@ -1,5 +1,5 @@
 from repro_torch.kernels.wkv.ops import wkv
-from repro_torch.kernels.wkv.ref import wkv_ref
-from repro_torch.kernels.wkv.wkv import wkv_cuda, wkv_plain
+from repro_torch.kernels.wkv.ref import wkv_chunked_ref, wkv_ref
+from repro_torch.kernels.wkv.wkv import WkvPlan, wkv_cuda, wkv_plain, wkv_plan
 
-__all__ = ["wkv", "wkv_cuda", "wkv_plain", "wkv_ref"]
+__all__ = ["WkvPlan", "wkv", "wkv_chunked_ref", "wkv_cuda", "wkv_plain", "wkv_plan", "wkv_ref"]

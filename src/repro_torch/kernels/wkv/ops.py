@@ -10,13 +10,17 @@ from repro_torch.kernels.wkv.wkv import check_operands, wkv_cuda, wkv_plain
 
 def wkv(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
     """WKV6 recurrence -> (out (B, S, H, hd), final state (B, H, hd, hd)),
-    both float32; operands are taken as float32, as the TPU kernel casts them.
+    both float32, computed in float32 as the TPU kernel does.
 
     CPU tensors take :func:`wkv_plain`; CUDA tensors launch the kernel (and
-    raise if it cannot), never the twin.
+    raise if it cannot), never the twin.  The kernel reads bfloat16 r, k, v
+    as they are (converted on load, exactly); other types are cast to
+    float32 here, as are w, u and state0.
     """
     check_operands(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, state0)
-    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
-    return wkv_cuda(r, k, v, w, u, None if state0 is None else state0.float())
+    if not (r.dtype == k.dtype == v.dtype == torch.bfloat16):
+        r, k, v = (a.float() for a in (r, k, v))
+    return wkv_cuda(r, k, v, w.float(), u.float(),
+                    None if state0 is None else state0.float())

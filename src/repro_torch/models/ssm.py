@@ -2,9 +2,9 @@
 
 RWKV6 ("Finch") keeps the paper's data-dependent decay.  The WKV recurrence
 runs through :func:`repro_torch.kernels.wkv.wkv`: on CUDA the hand-written
-kernel keeps each (batch, head) state on chip for the whole sequence, in
-prefill (the prompt) and in decode (one step), in place of the reference's
-two-level ``lax.scan``; on the CPU its plain twin steps the same recurrence.
+kernel runs the prefill (the prompt) in parallel chunks and decode (one step)
+with each (batch, head) state on chip, in place of the reference's two-level
+``lax.scan``; on the CPU its plain twin steps the same recurrence.
 
 The Mamba2 half (``MambaState``, ``mamba_ssd``, ``mamba_decode``) is not
 ported yet: ROADMAP Queue 1 item 1.
@@ -116,8 +116,8 @@ def rwkv_time_mix(params: RWKV, cfg: ArchConfig, x: torch.Tensor,
     x_prev = _token_shift(x, None if state is None else state.x_tm)
     r, k, v, g, w = _rwkv_projections(params, cfg, x, x_prev, dtype)
 
-    outs, wkv_state = wkv(r.float(), k.float(), v.float(), w, params.u,
-                          None if state is None else state.wkv)
+    # r, k, v in the compute dtype: the kernel converts bfloat16 on load
+    outs, wkv_state = wkv(r, k, v, w, params.u, None if state is None else state.wkv)
     y = outs.reshape(B, S, D)                              # float32
 
     # per-head group norm

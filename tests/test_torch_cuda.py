@@ -11,11 +11,14 @@ tsgemm within rtol 1e-5 float32 / 2e-2 bfloat16, atol 10x rtol
 bfloat16 (``tests/test_kernels.py``), and bfloat16 also within 1e-2 of the
 largest |output| (one bfloat16 step of it is at most 2^-7); WKV within 1e-5
 of the largest |output| and |state| (the state barely decays, so the scale
-grows with S).
+grows with S), by both routes (sequences on each side of the plan's
+threshold) and with fast decays (w down to ~6e-4).
 """
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.kernels.wkv.wkv import CHUNKED_MIN_S
 
 pytestmark = pytest.mark.cuda
 
@@ -250,6 +253,152 @@ def test_wkv_kernel_matches_plain(cuda, B, S, H, hd, with_state):
     want_out, want_s = wkv_plain(r, k, v, w, u, s0)
     assert (out - want_out).abs().max().item() <= 1e-5 * want_out.abs().max().item()
     assert (sT - want_s).abs().max().item() <= 1e-5 * want_s.abs().max().item()
+
+
+def _wkv_operands(cuda, B, S, H, hd, seed, regime, with_state, dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    if regime == "fast":   # ww ~ U[-6, 2]: w = exp(-exp(ww)) down to ~6e-4
+        ww = -6.0 + 8.0 * torch.rand((B, S, H, hd), generator=g, device=cuda)
+    else:                  # the model's init: w ~ exp(-exp(-6)) ~ 0.9975
+        ww = -6.0 + 0.5 * torch.randn((B, S, H, hd), generator=g, device=cuda)
+    w = torch.exp(-torch.exp(ww))
+    u = 0.1 * torch.randn((H, hd), generator=g, device=cuda)
+    s0 = 0.1 * torch.randn((B, H, hd, hd), generator=g, device=cuda) if with_state else None
+    return (r, k, v, w, u), s0
+
+
+def _assert_wkv_close(got, want):
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime", ["slow", "fast"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_prefill_decay_regimes_match_plain(cuda, with_state, regime, dtype):
+    """rwkv6-1.6b's prefill shape by the chunked route: fast decays (whose
+    cumulative products underflow within a chunk) as well as the model's
+    init; bfloat16 r, k, v are read as they are."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan
+
+    assert wkv_plan(1024).route == "chunked"
+    ops, s0 = _wkv_operands(cuda, 4, 1024, 32, 64, 11, regime, with_state, dtype)
+    got = wkv_cuda(*ops, s0)
+    torch.cuda.synchronize()
+    _assert_wkv_close(got, wkv_plain(*(a.float() for a in ops), s0))
+
+
+_WKV_ROUTE_KERNELS = {"recurrent": {"wkv_step"}, "chunked": {"wkv_chunk", "wkv_scan"}}
+
+
+@pytest.mark.parametrize("S", [1, CHUNKED_MIN_S - 1, CHUNKED_MIN_S, 300, 1024])
+def test_wkv_routes_by_length_match_plain(cuda, S):
+    """Sequence lengths on each side of CHUNKED_MIN_S: one call counts one
+    launch, runs the CUDA kernels of the route wkv_plan names (read from
+    torch.profiler) and matches the plain twin, fast decays from a carried
+    state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan
+
+    assert (S < CHUNKED_MIN_S) == (wkv_plan(S).route == "recurrent")
+    ops, s0 = _wkv_operands(cuda, 2, S, 4, 64, S, "fast", True)
+    wkv_cuda(*ops, s0)   # builds and loads the library outside the trace
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["wkv"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = wkv_cuda(*ops, s0)
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv"] == before + 1
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    ran = {kernel for kernel in set().union(*_WKV_ROUTE_KERNELS.values())
+           if any(kernel in name for name in names)}
+    assert ran == _WKV_ROUTE_KERNELS[wkv_plan(S).route]
+    _assert_wkv_close(got, wkv_plain(*ops, s0))
+
+
+@pytest.mark.parametrize("S", [1, 300])
+def test_wkv_misaligned_state0(cuda, S):
+    """A state0 view one float into its storage (not 16-byte aligned, which
+    the chunked route's 16-byte loads need) gives what the aligned one does,
+    on both routes."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    ops, s0 = _wkv_operands(cuda, 2, S, 4, 64, 17, "fast", True)
+    shifted = torch.empty(s0.numel() + 1, device=cuda)[1:].view_as(s0)
+    shifted.copy_(s0)
+    assert shifted.data_ptr() % 16 != 0
+    got = wkv_cuda(*ops, shifted)
+    torch.cuda.synchronize()
+    _assert_wkv_close(got, wkv_plain(*ops, s0))
+    assert all(torch.equal(a, b) for a, b in zip(got, wkv_cuda(*ops, s0)))
+
+
+def test_wkv_chunked_route_is_graph_capturable(cuda):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv import wkv_cuda
+
+    ops, s0 = _wkv_operands(cuda, 4, 1024, 32, 64, 5, "fast", True)
+    want = wkv_cuda(*ops, s0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wkv_cuda(*ops, s0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.LAUNCHES["wkv"]
+    with torch.cuda.graph(graph):
+        out, state = wkv_cuda(*ops, s0)
+    assert _build.LAUNCHES["wkv"] == before + 1
+    out.zero_()
+    state.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want[0]) and torch.equal(state, want[1])
+
+
+@pytest.mark.parametrize("K,p", [(1000, 3), (1000, 5), (130, 1)])
+def test_proximity_square_equals_clone_cross(cuda, K, p):
+    """The symmetric eq3 grid (upper-triangle tiles, mirrored) gives what the
+    full rectangle gives for the stack against a copy of itself, exactly
+    symmetric."""
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+
+    U = _signatures(K, 300, p, seed=K + p, spread=0.3).to(cuda)
+    square = proximity_cuda(U, U, "eq3")
+    cross = proximity_cuda(U, U.clone(), "eq3")
+    torch.cuda.synchronize()
+    assert torch.equal(square, square.T)
+    assert torch.equal(square, cross)
+    off = ~torch.eye(K, dtype=torch.bool, device=cuda)
+    want = proximity_plain(U, U, "eq3")
+    assert (square - want)[off].abs().max().item() <= TOL_DEG
+
+
+@pytest.mark.parametrize("layout", ["transposed", "offset"])
+def test_proximity_eq3_strided_stacks(cuda, layout):
+    """The eq3 kernel stages a stack whose clients' rows are not contiguous
+    and 16-byte aligned element by element: a stack stored transposed, and
+    one starting 609 floats into its storage.  Mixed with a contiguous
+    stack in a cross block, and squared (upper-triangle tiles)."""
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+
+    U = _signatures(62, 203, 3, seed=3, spread=0.3).to(cuda)   # n * p = 609
+    V = U.transpose(1, 2).contiguous().transpose(1, 2) if layout == "transposed" else U[1:]
+    W = U[1:].contiguous() if layout == "offset" else U
+    off = ~torch.eye(V.shape[0], dtype=torch.bool, device=cuda)
+    for Ua, Ub in ((V, V), (V, W[:17]), (W[:17], V)):
+        got = proximity_cuda(Ua, Ub, "eq3")
+        want = proximity_plain(Ua, Ub, "eq3")
+        torch.cuda.synchronize()
+        if Ua is Ub:
+            assert torch.equal(got, got.T)
+            got, want = got[off], want[off]
+        assert (got - want).abs().max().item() <= TOL_DEG
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])

@@ -7,6 +7,11 @@ functions, tested here on the CPU: every key (or ``k``) index is covered
 exactly once, no split is out of range, and at the main path's shapes the
 split fills the card (H100: 132 SMs).
 
+The WKV kernel's route plan (``wkv_plan``: the recurrent kernel for short
+sequences and decode, chunks for prefill) must cover every time step
+exactly once, and the proximity kernel's symmetric eq3 grid
+(``triangle_tile``) every unordered pair of client tiles exactly once.
+
 ``merge_partials`` is the formula of the kernel's combine step, in plain
 PyTorch beside the twin.  Partial states from ``attention_partials`` over a
 plan's key ranges, merged, must equal the reference's ``attention_ref``
@@ -34,7 +39,9 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
     merge_partials,
 )
+from repro_torch.kernels.proximity.proximity import EQ3_TILE, triangle_tile, triangle_tiles
 from repro_torch.kernels.tsgemm.tsgemm import SLABS, TS_K, TS_ROWS, split_k_plan
+from repro_torch.kernels.wkv.wkv import CHUNK, CHUNKED_MIN_S, SUB_BLOCK, WkvPlan, wkv_plan
 
 F32_TOL = 2e-5
 
@@ -133,6 +140,53 @@ def test_tsgemm_plan_at_the_main_path_shapes():
     assert split_k_plan(64, 1024, 3072, 11)[2:] == (2, 1536)
     # wide B tiles over slabs of at most 16
     assert split_k_plan(2, 300, 700, 20)[:2] == (12, 2)
+
+
+@pytest.mark.parametrize("S", [1, 2, 15, CHUNKED_MIN_S - 1, CHUNKED_MIN_S, 63, 64, 65, 100,
+                               1024, 1056, 4097])
+def test_wkv_plan_covers_every_step_once(S):
+    plan = wkv_plan(S)
+    assert plan.route == ("recurrent" if S < CHUNKED_MIN_S else "chunked")
+    covered = np.zeros(S, dtype=np.int64)
+    for c in range(plan.n_chunks):
+        lo, hi = c * plan.chunk, min((c + 1) * plan.chunk, S)
+        assert lo < S, "a chunk past the sequence"
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if plan.route == "chunked":
+        assert plan.chunk % SUB_BLOCK == 0
+
+
+def test_wkv_plan_routes():
+    assert wkv_plan(1) == WkvPlan("recurrent", 1, 1)            # decode
+    assert wkv_plan(1024) == WkvPlan("chunked", CHUNK, 1024 // CHUNK)   # rwkv6 prefill
+    assert wkv_plan(CHUNKED_MIN_S - 1).route == "recurrent"
+    assert CHUNK % SUB_BLOCK == 0
+    with pytest.raises(ValueError):
+        wkv_plan(0)
+
+
+@pytest.mark.parametrize("K", [1, 2, 31, 32, 33, 37, 63, 64, 65, 100, 513, 1000, 1023, 1024,
+                               2048, 8192])
+def test_triangle_tiles_cover_every_unordered_pair_once(K):
+    nt = -(-K // EQ3_TILE)
+    seen = np.zeros((nt, nt), dtype=np.int64)
+    for x in range(triangle_tiles(K)):
+        bi, bj = triangle_tile(x)
+        assert 0 <= bi <= bj < nt
+        seen[bi, bj] += 1
+    assert (np.triu(seen) == np.triu(np.ones_like(seen))).all()
+    assert (np.tril(seen, -1) == 0).all()
+
+
+def test_triangle_tile_at_large_indices():
+    """The square-root guess is corrected exactly where float rounding
+    could put it one column off."""
+    for j in (1000, 46340, 10**6, 3 * 10**7):
+        first = j * (j + 1) // 2
+        assert triangle_tile(first) == (0, j)
+        assert triangle_tile(first - 1) == (j - 1, j - 1)
+        assert triangle_tile(first + j) == (j, j)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,16 @@
 The twin (``wkv_plain``, which the kernel wrapper takes for CPU tensors) is
 held against the reference's Pallas kernel (interpret mode) and its oracle
 ``wkv_ref`` on the cases of ``tests/test_kernels.py``, with and without an
-initial state: atol 2e-5.  The port's ``rwkv_time_mix`` and
+initial state: atol 2e-5.  So is ``wkv_chunked_ref``, the CUDA kernel's
+chunked route in plain PyTorch, in three decay regimes (slow: the model's
+init, w ~ 0.9975; sigmoid; fast: ww ~ U[-6, 2], w down to ~6e-4, where a
+route that divided by cumulative decay would overflow), with sequences
+shorter than a chunk and not a multiple of it.  In the slow regime the
+state barely decays, so the outputs grow with S (max|out| ~126 at S = 100,
+where one float32 ulp is 7.6e-6) and any two summation orders differ by more
+than the absolute 2e-5: the port's stepwise twin itself is 4.6e-5 from the
+reference there.  The chunked cases are therefore held to ATOL plus
+SCALE_RTOL of the largest |value| (a few float32 ulps of it).  The port's ``rwkv_time_mix`` and
 ``rwkv_channel_mix`` are held against the reference's with the reference's
 own parameters, in prefill and in decode (S = 1, carried state).  Inputs are
 numpy-seeded.
@@ -19,17 +28,31 @@ from repro.kernels.wkv import wkv as ref_wkv
 from repro.kernels.wkv import wkv_ref as ref_wkv_ref
 from repro.models import ssm as ref_ssm
 from repro_torch.configs import get_config
-from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain, wkv_ref
+from repro_torch.kernels.wkv import wkv, wkv_chunked_ref, wkv_cuda, wkv_plain, wkv_ref
+from repro_torch.kernels.wkv.wkv import CHUNK
 from repro_torch.models import ssm
 
 ATOL = 2e-5
+SCALE_RTOL = 1e-6
 MIX_ATOL = 1e-5
 
 
-def _operands(B, S, H, hd, seed, with_state):
+def _decay(rng, shape, regime):
+    """w in (0, 1): "sigmoid" of a normal, "slow" exp(-exp(-6 + noise)) (the
+    model's init), "fast" exp(-exp(ww)) with ww ~ U[-6, 2] (down to ~6e-4)."""
+    if regime == "slow":
+        w = np.exp(-np.exp(-6.0 + 0.5 * rng.normal(size=shape)))
+    elif regime == "fast":
+        w = np.exp(-np.exp(rng.uniform(-6.0, 2.0, size=shape)))
+    else:
+        w = 1.0 / (1.0 + np.exp(-rng.normal(size=shape)))
+    return w.astype(np.float32)
+
+
+def _operands(B, S, H, hd, seed, with_state, regime="sigmoid"):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.normal(size=(B, S, H, hd)).astype(np.float32) for _ in range(3))
-    w = (1.0 / (1.0 + np.exp(-rng.normal(size=(B, S, H, hd))))).astype(np.float32)
+    w = _decay(rng, (B, S, H, hd), regime)
     u = (0.1 * rng.normal(size=(H, hd))).astype(np.float32)
     s0 = rng.normal(size=(B, H, hd, hd)).astype(np.float32) if with_state else None
     return r, k, v, w, u, s0
@@ -50,6 +73,50 @@ def test_plain_matches_pallas_and_oracle(B, S, H, hd, with_state):
         np.testing.assert_allclose(state.numpy(), np.asarray(want_s), atol=ATOL)
     o2, s2 = wkv_ref(*t)
     assert torch.equal(o2, out) and torch.equal(s2, state)
+
+
+def _assert_close_to_scale(got, want):
+    want = np.asarray(want)
+    err = np.abs(got.numpy() - want).max()
+    assert err <= ATOL + SCALE_RTOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+# (B, S, H, hd, chunk): S shorter than a chunk, not a multiple of it, a
+# multiple of it, chunks of one sub-block, and the kernel's chunk length
+CHUNKED_SHAPES = [(2, 7, 2, 16, 64), (1, 100, 2, 16, 32), (2, 64, 2, 32, 64),
+                  (1, 40, 3, 16, 16), (1, 200, 2, 16, CHUNK)]
+
+
+@pytest.mark.parametrize("regime", ["slow", "sigmoid", "fast"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,H,hd,chunk", CHUNKED_SHAPES)
+def test_chunked_ref_matches_pallas_and_oracle(B, S, H, hd, chunk, with_state, regime):
+    ops = _operands(B, S, H, hd, seed=B * 100 + S + chunk, with_state=with_state,
+                    regime=regime)
+    j = [None if a is None else jnp.asarray(a) for a in ops]
+    t = [None if a is None else torch.from_numpy(a) for a in ops]
+    out, state = wkv_chunked_ref(*t, chunk=chunk)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    for want_o, want_s in (ref_wkv(*j), ref_wkv_ref(*j)):
+        _assert_close_to_scale(out, want_o)
+        _assert_close_to_scale(state, want_s)
+
+
+@pytest.mark.parametrize("regime", ["slow", "fast"])
+def test_chunked_ref_long_sequence_matches_oracle(regime):
+    """Chunks of the kernel's length (the default), the last ragged, from a
+    carried state."""
+    ops = _operands(2, 300, 2, 32, seed=7, with_state=True, regime=regime)
+    want_o, want_s = ref_wkv_ref(*(jnp.asarray(a) for a in ops))
+    out, state = wkv_chunked_ref(*(torch.from_numpy(a) for a in ops))
+    _assert_close_to_scale(out, want_o)
+    _assert_close_to_scale(state, want_s)
+
+
+def test_chunked_ref_rejects_bad_chunks():
+    t = [torch.from_numpy(a) for a in _operands(1, 8, 1, 16, 0, False)[:5]]
+    with pytest.raises(ValueError, match="multiple"):
+        wkv_chunked_ref(*t, chunk=24)
 
 
 def test_split_sequence_carries_state():
