@@ -22,28 +22,57 @@ Phases, each printing its own lines; any failure exits nonzero:
    cache — checking that the planted clusters are recovered and every
    newcomer and query lands in its own, and that the proximity and tsgemm
    kernels ran;
-5. LM serving main path: full-width tinyllama-1.1b, then rwkv6-1.6b, in
+5. federated-learning main path and the assignment server (at most 120 s),
+   every federation through ``run_federation`` (float32 convolutions, the
+   entry point's own setting): mix4 at CIFAR-10 geometry
+   (``launch/fl_train.py``'s ``build_clients("mix4", 100, 3072, 3000)``: 97
+   clients of 300 samples), LeNet-5 at 32x32x3 with 40 classes, PACFL with
+   beta 50, eq2, exact SVD: exactly the reference's three clusters
+   {cifar10s + svhns}, {fmnists}, {uspss} through at least one eq2
+   proximity launch, then 20 rounds with the launcher's settings (sample 0.1,
+   3 local epochs, batch 20, lr 0.05), each followed by an evaluation, to a
+   finite accuracy above chance; label20 (100 clients, eq3, beta 175):
+   PACFL's final mean above FedAvg's after 20 rounds each, PACFL through
+   the eq3 kernel; all ten strategies 3 rounds each on label20, finite,
+   every one but SOLO with nonzero communication; a mix4 PACFL run in which
+   8 fmnists newcomers join and 4 clients leave, each newcomer landing in
+   the fmnists cluster through more proximity launches than the mix4 run's;
+   and an ``AssignmentServer`` over phase 4's engine whose ``assign_many``
+   of the 256 queries equals phase 4's dispatch (and ``admit_oracle`` on
+   16), whose ``assign`` and ``drain`` launch the proximity kernel, and
+   whose 64 submitted joins drain into their planted clusters with the
+   epoch advanced.  It prints the mix4 call's time, its 20 rounds' window
+   from the entry point's records with the first round apart, a warm
+   round's host time beside its device time by kernel (torch.profiler), the
+   evaluation time and the server's per-batch latency;
+6. LM serving main path: full-width tinyllama-1.1b, then rwkv6-1.6b, in
    bfloat16 through ``repro_torch.launch.serve`` (batch 4, prompt 1024, 32
    greedy tokens: one prefill and 31 decode forwards), checking that every
    attention call launched the flash kernel and every WKV call the WKV
    kernel, and timing the prefill and one decode step replayed from a CUDA
    graph beside their host-clock times;
-6. whole model in float32 at full width: last-position logits of a prefill
+7. whole model in float32 at full width: last-position logits of a prefill
    and 8 teacher-forced decode steps through the kernels on the card against
    the plain twins (the same model on the CPU);
-7. timings: each kernel's median time at its main-path shape beside its
+8. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call
    (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
    the M = 1024 bucket; WKV also with float32 r, k, v).
 
-The second-to-last line is the ``{"kernels": [...]}`` record, the last
+Launch counts are set to 0 just before each main path (phase 4, each
+federation and each server call of phase 5, each architecture of 6) and
+read just after; launches that only check a result (phase 5's
+``admit_oracle`` and its newcomers' signatures) fall outside every window.
+The kernels line sums phases 4 and 5's windows and splits the proximity
+launches by route (eq3, eq2).  The second-to-last line
+is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Nothing of the JAX package is imported.
 
     python3 chip_smoke.py --time-kernels SRC
 
 builds the four kernels of the ``repro_torch`` under the directory SRC,
 times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
-and eq2) at phase 7's main-path shapes with phase 7's timers and prints one
+and eq2) at phase 8's main-path shapes with phase 8's timers and prints one
 JSON line of milliseconds.  Two commits are
 compared on one card by running it on both trees in turns in one session,
 e.g. on a parent unpacked with ``git archive`` into ``build/parent``:
@@ -59,6 +88,7 @@ behind ``wkv_plan``'s constants, and prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import statistics
@@ -101,11 +131,11 @@ FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
 FLASH_BF16_REL_TOL = 1e-2
 WKV_REL_TOL = 1e-5         # of max |out| and max |state|
 
-# LM serving (phase 5): tinyllama-1.1b's attention and rwkv6-1.6b's WKV.
+# LM serving (phase 6): tinyllama-1.1b's attention and rwkv6-1.6b's WKV.
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1024, 32
 LM_ARCHS = (("tinyllama-1.1b", "flash_attention"), ("rwkv6-1.6b", "wkv"))
-# Whole-model float32 check (phase 6): the CPU side runs the plain twins at
-# full width, so the prompt is shorter than phase 5's.
+# Whole-model float32 check (phase 7): the CPU side runs the plain twins at
+# full width, so the prompt is shorter than phase 6's.
 F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
 # Limits on max|kernels - plain| / max|logits|.  Both sides are float32 and
 # differ only in summation order (cuBLAS vs the CPU's BLAS, the kernel's
@@ -248,8 +278,11 @@ def profile_ms(torch, fn, *, iters=10) -> dict:
     def short(key):
         return key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
 
-    return {short(e.key): e.device_time_total / iters / 1e3
-            for e in prof.key_averages() if e.device_time_total > 0}
+    out: dict = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_time_total > 0:   # names that shorten alike add up
+            out[short(e.key)] += e.device_time_total / iters / 1e3
+    return dict(out)
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
@@ -267,7 +300,6 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
 def phase_device(torch) -> dict:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # bfloat16 products accumulate in float32 (the reference's policy)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
@@ -559,15 +591,17 @@ def phase_main_path(torch, fed) -> dict:
     t2 = time.perf_counter()
     cache = RepresentativeCache("medoid")
     cache.refresh(extended.engine)
-    assigned = []
+    assigned, queries = [], []
     for lo in range(0, N_QUERIES, QUERY_BATCH):
         U_q = compute_signatures(q_data[lo:lo + QUERY_BATCH], config,
                                  seed=SEED + 100 + lo, device=fed.device)
         idx, dmin = serve_assign(U_q, cache.rep_stack, config.measure)
         require(bool(torch.isfinite(dmin).all()), "non-finite serving distance")
         assigned.append(idx.cpu())
+        queries.append(U_q)
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
+    routes = dict(_build.ROUTE_LAUNCHES)
     log("main", f"one-shot {t1 - t0:.2f} s, extend {t2 - t1:.2f} s, "
         f"serve {t3 - t2:.2f} s; kernel launches {launches}")
 
@@ -589,11 +623,242 @@ def phase_main_path(torch, fed) -> dict:
         require(launches.get(name, 0) > 0, f"the {name} kernel never ran on the main path")
     log("main", f"recovered {clustering.n_clusters} planted clusters; "
         f"{N_NEWCOMERS} newcomers and {N_QUERIES} queries in their clusters")
-    return launches
+    return {"launches": launches, "routes": routes, "engine": extended.engine,
+            "config": config, "queries": torch.cat(queries), "served": served,
+            "label_of": label_of}
+
+
+# FL loop (phase 5): the launcher's settings (launch/fl_train.py) on LeNet-5
+# at CIFAR-10 geometry.  mix4 with 100 requested clients gives 31/25/27/14 =
+# 97; the reference's one-shot partition of them, by dataset name:
+FL_DIM, FL_CLIENTS, FL_ROUNDS, FL_STRATEGY_ROUNDS = 3072, 100, 20, 3
+MIX4_PARTITION = ({"cifar10s", "svhns"}, {"fmnists"}, {"uspss"})
+CHURN_JOINS, CHURN_LEAVES = 8, (0, 10, 40, 90)   # fmnists newcomers; positions
+SERVER_JOINS, SERVER_ORACLE = 64, 16
+FL_BUDGET_S = 120.0
+
+
+def _timed(torch, device, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, device)
+    return out, time.perf_counter() - t0
+
+
+EQ2, EQ3 = ("proximity", "eq2"), ("proximity", "eq3")
+
+
+def _counted(torch, device, fn, totals):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after (device synced): returns ``(out, seconds, launches by kernel,
+    launches by (kernel, route))`` and adds the counts into ``totals``."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    out, dt = _timed(torch, device, fn)
+    launches = collections.Counter(_build.LAUNCHES)
+    routes = collections.Counter(_build.ROUTE_LAUNCHES)
+    totals["launches"].update(launches)
+    totals["routes"].update(routes)
+    return out, dt, launches, routes
+
+
+def phase_fl(torch, device, main) -> dict:
+    """Phase 5: the federated-learning loop and the assignment server.
+
+    Every federation runs through ``run_federation``, each with the launch
+    counts set to 0 just before it and read just after.  mix4 PACFL (eq2,
+    beta 50, exact SVD) at 97 clients must find the reference's three
+    clusters and train 20 rounds above chance; on label20 (eq3, beta 175)
+    PACFL must beat FedAvg after 20 rounds; all ten strategies run 3 rounds;
+    a churn event admits 8 fmnists newcomers into the fmnists cluster
+    through more proximity launches than the mix4 run's; and the
+    AssignmentServer over phase 4's engine answers as phase 4's dispatch
+    and ``admit_oracle`` did (the oracle runs outside every counted window),
+    launching the proximity kernel itself, then drains 64 newcomers into
+    their planted clusters.  Returns the launches summed over the counted
+    runs and the timings."""
+    import numpy as np
+
+    from repro_torch._device import float32_math
+    from repro_torch.core.pacfl import compute_signatures
+    from repro_torch.data import make_dataset
+    from repro_torch.fl import STRATEGIES, ChurnEvent, mix_datasets, run_federation
+    from repro_torch.fl.trainer import round_generator, sample_round
+    from repro_torch.launch.fl_train import MIX4, build_clients, fl_config
+    from repro_torch.models.cnn import build_model
+    from repro_torch.serving import AssignmentServer, admit_oracle
+
+    t_phase = time.perf_counter()
+    totals = {"launches": collections.Counter(), "routes": collections.Counter()}
+    out = {}
+    # -- mix4: one-shot partition, then 20 rounds, from the process's first --
+    # -- FL round; an evaluation after each round gives each round's time ---
+    (clients, n_classes), t_data = _timed(torch, device, lambda: build_clients(
+        "mix4", FL_CLIENTS, FL_DIM, 3000))
+    cfg = fl_config("mix4", FL_ROUNDS)
+    model = build_model("lenet5", dim=FL_DIM, n_classes=n_classes)
+    log("fl", f"mix4: {len(clients)} clients x 300 samples at dim {FL_DIM} (data {t_data:.2f} s "
+        f"on the host); LeNet-5 {model.in_hw}x{model.in_ch}, {n_classes} classes; {cfg}")
+    res, t_run, _, routes = _counted(torch, device, lambda: run_federation(
+        "pacfl", clients, model, cfg, seed=SEED, eval_every=1, device=device), totals)
+    strat = res.strategy_obj
+    mix4_eq2 = routes[EQ2]
+    names = np.array([c.dataset_name for c in clients])
+    groups = sorted(({str(n) for n in names[strat.labels == z]}
+                     for z in np.unique(strat.labels)), key=sorted)
+    log("fl", f"mix4 PACFL: {strat.clustering.n_clusters} clusters "
+        f"{[sorted(g) for g in groups]}; proximity launches by route {dict(routes)}")
+    require(strat.clustering.n_clusters == 3
+            and sorted(groups, key=sorted) == sorted(MIX4_PARTITION, key=sorted),
+            f"mix4 partition {groups} is not the reference's {MIX4_PARTITION}")
+    require(mix4_eq2 >= 1, "the mix4 run launched no eq2 kernel")
+    # RoundRecord.seconds: since round 1 began, after that round's evaluation
+    ends = [r.seconds for r in res.records]
+    require([r.rnd for r in res.records] == list(range(1, FL_ROUNDS + 1)), "mix4 records")
+    per_round = np.diff([0.0] + ends)
+    window = ends[-1]
+    mix4_acc = res.final_mean
+    log("fl", f"mix4 PACFL through run_federation: {t_run:.3f} s, of which {FL_ROUNDS} rounds "
+        f"of {int(round(cfg.sample_frac * len(clients)))} clients x {strat._steps} local steps, "
+        f"each followed by an evaluation of {len(clients)} clients, {window:.3f} s "
+        f"({window / FL_ROUNDS * 1e3:.1f} ms a round; the entry point's records); the first "
+        f"round {per_round[0] * 1e3:.1f} ms, the other {FL_ROUNDS - 1} median "
+        f"{statistics.median(per_round[1:]) * 1e3:.1f} ms; the rest of the call (stacking, "
+        f"PACFL setup, final evaluation) {t_run - window:.3f} s; mean accuracy {mix4_acc:.4f} "
+        f"(chance {1 / n_classes:.4f}); comm {(strat.comm_up + strat.comm_down) / 1e6:.1f} MB")
+    require(bool(np.isfinite(res.final_accs).all()) and mix4_acc > 1.0 / n_classes,
+            f"mix4 accuracy {mix4_acc} not above chance")
+    # where a warm round's time goes: device time by kernel (torch.profiler)
+    # against the host clock of the same round, at the entry point's precision
+    sampled = sample_round(np.random.default_rng(SEED), strat.data.n_clients, cfg.sample_frac)
+    idx = strat.draw_indices(sampled, round_generator(SEED, FL_ROUNDS + 1, device))
+
+    def one_round():
+        strat.run_round(FL_ROUNDS + 1, sampled, idx)
+
+    with float32_math():
+        kernels = profile_ms(torch, one_round, iters=3)
+        host_ms = statistics.median(_timed(torch, device, one_round)[1] for _ in range(3)) * 1e3
+        _, t_eval = _timed(torch, device, strat.evaluate)
+    busy_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    out.update(call_s=t_run, window_s=window, first_round_s=float(per_round[0]),
+               round_ms=window / FL_ROUNDS * 1e3, warm_round_ms=host_ms,
+               round_device_ms=busy_ms, eval_s=t_eval)
+    log("fl", f"mix4 warm round: {host_ms:.1f} ms on the host clock, {busy_ms:.1f} ms of device "
+        f"kernels ({len(kernels)} kernels; device idle {1 - busy_ms / host_ms:.1%}); an "
+        f"evaluation of {len(clients)} clients {t_eval * 1e3:.1f} ms; largest: "
+        + ", ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+
+    # -- label20: PACFL beats FedAvg -------------------------------------------
+    (clients20, n20), t_data = _timed(torch, device, lambda: build_clients(
+        "label20", FL_CLIENTS, FL_DIM, 3000))
+    model20 = build_model("lenet5", dim=FL_DIM, n_classes=n20)
+    cfg20 = fl_config("label20", FL_ROUNDS)
+    finals = {}
+    for name in ("pacfl", "fedavg"):
+        res, t_run, _, routes = _counted(torch, device, lambda: run_federation(
+            name, clients20, model20, cfg20, seed=SEED, eval_every=FL_ROUNDS, device=device),
+            totals)
+        finals[name] = res.final_mean
+        extra = (f", {res.strategy_obj.clustering.n_clusters} clusters through "
+                 f"{routes[EQ3]} eq3 launches" if name == "pacfl" else "")
+        log("fl", f"label20 {name}: {len(clients20)} clients, {FL_ROUNDS} rounds in "
+            f"{t_run:.2f} s; final mean accuracy {res.final_mean:.4f}{extra}")
+        require(np.isfinite(res.final_mean), f"label20 {name}: non-finite accuracy")
+        require(name != "pacfl" or routes[EQ3] >= 1, "label20 PACFL launched no eq3 kernel")
+    require(finals["pacfl"] > finals["fedavg"],
+            f"label20: PACFL {finals['pacfl']} does not beat FedAvg {finals['fedavg']}")
+
+    # -- every strategy, 3 rounds on label20 -----------------------------------
+    cfg3 = fl_config("label20", FL_STRATEGY_ROUNDS)
+    for name in sorted(STRATEGIES):
+        res, t_run, _, routes = _counted(torch, device, lambda: run_federation(
+            name, clients20, model20, cfg3, seed=SEED, eval_every=FL_STRATEGY_ROUNDS,
+            device=device), totals)
+        s_ = res.strategy_obj
+        comm = s_.comm_up + s_.comm_down
+        log("fl", f"strategy {name}: {FL_STRATEGY_ROUNDS} rounds in {t_run:.2f} s, final mean "
+            f"accuracy {res.final_mean:.4f}, comm {comm / 1e6:.2f} MB")
+        require(bool(np.isfinite(res.final_accs).all()), f"{name}: non-finite accuracy")
+        require((comm == 0) == (name == "solo"), f"{name}: communication {comm}")
+        require(name != "pacfl" or routes[EQ3] >= 1, "strategy pacfl launched no eq3 kernel")
+
+    # -- churn: fmnists newcomers join a mix4 federation -----------------------
+    dss = [make_dataset(n, n_train=3000, n_test=800, dim=FL_DIM) for n in MIX4]
+    newcomers = mix_datasets(dss, [0, 0, CHURN_JOINS, 0], samples_per_client=300, seed=SEED + 1)
+    res, t_run, _, routes = _counted(torch, device, lambda: run_federation(
+        "pacfl", clients, model, fl_config("mix4", 3), seed=SEED, eval_every=3,
+        churn=[ChurnEvent(rnd=2, join=newcomers, leave=list(CHURN_LEAVES))], device=device),
+        totals)
+    churn_eq2 = routes[EQ2]
+    s_ = res.strategy_obj
+    kept = [c for i, c in enumerate(clients) if i not in CHURN_LEAVES]
+    fm_labels = {int(s_.labels[i]) for i, c in enumerate(kept) if c.dataset_name == "fmnists"}
+    new_labels = [int(x) for x in s_.labels[len(kept):]]
+    log("fl", f"churn: {CHURN_JOINS} fmnists newcomers joined, {len(CHURN_LEAVES)} left in "
+        f"{t_run:.2f} s (3 rounds); K = {len(res.final_accs)}, newcomer labels {new_labels}, "
+        f"fmnists cluster {sorted(fm_labels)}; eq2 launches {churn_eq2} (the same setup "
+        f"without churn, the mix4 run: {mix4_eq2})")
+    require(len(res.final_accs) == len(clients) - len(CHURN_LEAVES) + CHURN_JOINS,
+            "churn: wrong client count")
+    require(len(fm_labels) == 1 and set(new_labels) == fm_labels,
+            "churn: a newcomer left the fmnists cluster")
+    require(churn_eq2 > mix4_eq2, "churn: the admission launched no proximity kernel")
+
+    # -- AssignmentServer over phase 4's engine --------------------------------
+    engine, queries = main["engine"], main["queries"]
+    server = AssignmentServer(engine, batch_max=QUERY_BATCH)
+    # the check's own work, outside the counted windows: the oracle's
+    # admissions on engine forks and the newcomers' signatures
+    oracle = [admit_oracle(engine, queries[i]) for i in range(SERVER_ORACLE)]
+    fed = Federation(torch, device)
+    truth = [(7 * t + 3) % N_CLUSTERS for t in range(SERVER_JOINS)]
+    U_new = compute_signatures(fed.clients(truth), main["config"], seed=SEED + 500,
+                               device=device)
+    many, t_many, launches, _ = _counted(
+        torch, device, lambda: server.assign_many(list(queries)), totals)
+    require(launches["proximity"] > 0, "server: assign_many launched no proximity kernel")
+    require([int(x) for x in many.labels] == [int(x) for x in main["served"]],
+            "server: assign_many differs from phase 4's serve_assign")
+    for i, (lbl, new) in enumerate(oracle):
+        require(not new and lbl == int(many.labels[i]), f"server: query {i} vs admit_oracle")
+    lat = []
+    for lo in range(0, N_QUERIES, QUERY_BATCH):
+        _, dt, launches, _ = _counted(
+            torch, device, lambda: server.assign(queries[lo:lo + QUERY_BATCH]), totals)
+        require(launches["proximity"] > 0, "server: assign launched no proximity kernel")
+        lat.append(dt)
+    epoch0 = server.epoch
+
+    def join_and_drain():
+        ids = [server.submit_join(U_new[t]) for t in range(SERVER_JOINS)]
+        return ids, server.drain()
+
+    (ids, report), t_drain, launches, _ = _counted(torch, device, join_and_drain, totals)
+    label_of = dict(zip(engine.ids.tolist(), engine.labels.tolist()))
+    require(report.joins == SERVER_JOINS and server.epoch == epoch0 + 1, f"server: {report}")
+    require(launches["proximity"] > 0, "server: the drain launched no proximity kernel")
+    require([label_of[i] for i in ids] == [main["label_of"][c] for c in truth],
+            "server: a drained newcomer left its planted cluster")
+    out.update(serve_batch_ms=statistics.median(lat) * 1e3, drain_s=t_drain)
+    log("fl", f"server: assign_many of {N_QUERIES} queries {t_many * 1e3:.1f} ms, equal to "
+        f"phase 4's dispatch and to admit_oracle on {SERVER_ORACLE}; assign per batch of "
+        f"{QUERY_BATCH}: median {statistics.median(lat) * 1e3:.3f} ms; {SERVER_JOINS} joins "
+        f"submitted and drained in {t_drain:.3f} s ({launches['proximity']} proximity "
+        f"launches) -> epoch {server.epoch}, each in its planted cluster")
+    elapsed = time.perf_counter() - t_phase
+    log("fl", f"phase 5 took {elapsed:.1f} s (budget {FL_BUDGET_S:.0f} s); launches summed "
+        f"over its counted runs {dict(totals['launches'])}, by route {dict(totals['routes'])}")
+    require(elapsed <= FL_BUDGET_S, f"phase 5 took {elapsed:.1f} s")
+    out["routes"] = dict(totals["routes"])
+    out["launches"] = dict(totals["launches"])
+    return out
 
 
 def phase_lm_serving(torch, device) -> dict:
-    """Phase 5: each architecture served at full width in bfloat16; the
+    """Phase 6: each architecture served at full width in bfloat16; the
     launch counts are set to 0 just before and read just after each run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -678,7 +943,7 @@ def _ulp_perturbed(torch, params):
 
 
 def phase_lm_float32(torch, device) -> None:
-    """Phase 6: the full-width model in float32 through the kernels on the
+    """Phase 7: the full-width model in float32 through the kernels on the
     card against the same model through the plain twins on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -742,6 +1007,7 @@ def phase_timings(torch, fed, launches, errs) -> list:
                 "source": "src/repro_torch/csrc/proximity.cu",
                 "replaces": "src/repro/kernels/proximity/proximity.py:55",
                 "launches": launches.get("proximity", 0),
+                "launches_by_route": launches["proximity_by_route"],
                 "max_abs_err": max(errs["proximity"]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
@@ -901,7 +1167,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
 
 def time_kernels(torch) -> dict:
     """Milliseconds of the imported ``repro_torch``'s tsgemm, bfloat16
-    flash-attention, float32 WKV and proximity wrappers at phase 7's
+    flash-attention, float32 WKV and proximity wrappers at phase 8's
     main-path shapes (the wrappers' calls that earlier trees also take)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1014,7 +1280,13 @@ def main(argv=None) -> int:
     check_tsgemm(torch, fed.device, errs["tsgemm"])
     check_flash(torch, fed.device, errs["flash_attention"])
     check_wkv(torch, fed.device, errs["wkv"])
-    launches = phase_main_path(torch, fed)
+    main_path = phase_main_path(torch, fed)
+    fl = phase_fl(torch, fed.device, main_path)
+    # the PACFL and FL paths' launches, each counted from 0 over its run
+    launches = dict(collections.Counter(main_path["launches"])
+                    + collections.Counter(fl["launches"]))
+    routes = collections.Counter(main_path["routes"]) + collections.Counter(fl["routes"])
+    launches["proximity_by_route"] = {m: routes[("proximity", m)] for m in ("eq3", "eq2")}
     lm_launches = phase_lm_serving(torch, fed.device)
     phase_lm_float32(torch, fed.device)
     rows = phase_timings(torch, fed, launches, errs)

@@ -5,7 +5,8 @@ raises; nothing in the port silently carries on on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -26,3 +27,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def as_f32(x, device: torch.device) -> torch.Tensor:
     """``x`` (array-like or tensor) as a float32 tensor on ``device``."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+@contextlib.contextmanager
+def float32_math() -> Iterator[None]:
+    """Float32 matmuls and convolutions, as the reference computes them:
+    TF32 off for cuBLAS and for cuDNN (whose default is on) inside the
+    block, the previous settings restored after it.  Backward passes run
+    inside the block too, so they read the same settings."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

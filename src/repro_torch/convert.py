@@ -2,7 +2,8 @@
 
 The clustering system has no model weights: its state is the signature
 stack, the proximity matrix and the config.  The LM zoo has weights: the
-reference's ``lm.init_params`` pytree.  These helpers take the reference's
+reference's ``lm.init_params`` pytree; so do the FL models: the
+reference's ``models.cnn.MODEL_ZOO`` param trees.  These helpers take the reference's
 values as NumPy arrays and plain dicts (``dataclasses.asdict`` of a
 ``repro.core.pacfl.PACFLConfig``), so the port never imports the JAX
 package.
@@ -19,6 +20,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import ClusterEngine
 from repro_torch.core.pacfl import PACFLConfig, engine_config
 from repro_torch.models import lm
+
+# Architectures of ``repro_torch.models.cnn.MODEL_ZOO`` and the top-level
+# leaves of their reference param trees.
+CNN_TOP_LEVEL = {
+    "mlp": {"layers"},
+    "lenet5": {"c1", "c2", "f1", "f2", "f3", "_meta"},
+    "resnet9": {"b1", "b2", "b3a", "b3b", "b4", "b5", "b6a", "b6b", "fc"},
+}
 
 # Reference proximity backends -> the port's.  The device-sharded backend
 # has no counterpart on one card.
@@ -114,3 +123,68 @@ def lm_params_from_numpy(
     if unset:
         raise ValueError(f"{len(unset)} port parameters have no reference leaf")
     return model
+
+
+def _flatten_tree(tree, prefix: str = ""):
+    """``(dotted name, leaf)`` pairs of a nested dict / list param tree."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        name = f"{prefix}{key}"
+        if isinstance(val, (dict, list, tuple)):
+            yield from _flatten_tree(val, name + ".")
+        else:
+            yield name, val
+
+
+def cnn_params_from_numpy(
+    arch: str,
+    tree: dict,
+    *,
+    model: torch.nn.Module,
+    stacked: bool = False,
+    device: DeviceLike = None,
+) -> dict[str, torch.Tensor]:
+    """The port's ``{name: tensor}`` params for ``model`` from a reference
+    ``MODEL_ZOO`` param tree of ``arch`` (leaves as NumPy arrays).
+
+    Names join the tree's keys with dots (``f1.w``, ``b3a.gs``,
+    ``layers.0.b``) and come out in ``model``'s parameter order; names and
+    shapes must equal the module's.  Convolution weights (4-D; 5-D with
+    ``stacked``) transpose from the reference's HWIO to OIHW; every other
+    leaf keeps its layout.  ``stacked`` takes a ``(K, ...)`` stack of K
+    trees (per-client or per-cluster state) and keeps the leading axis.
+    LeNet-5's ``_meta`` leaf (``in_hw``, ``in_ch``) carries no parameter
+    and may be absent: when present it must match ``model``'s input; the
+    port's byte counts add its 12 bytes through ``LeNet5.meta_bytes``.
+    Every other reference leaf lands in exactly one port tensor.
+    """
+    if arch not in CNN_TOP_LEVEL:
+        raise ValueError(f"unknown model {arch!r}; have {sorted(CNN_TOP_LEVEL)}")
+    if set(tree) - {"_meta"} != CNN_TOP_LEVEL[arch] - {"_meta"} or not (
+        set(tree) <= CNN_TOP_LEVEL[arch]
+    ):
+        raise ValueError(
+            f"{arch}: reference leaves {sorted(tree)} vs {sorted(CNN_TOP_LEVEL[arch])}"
+        )
+    if "_meta" in tree:
+        hw = tuple(int(v) for v in np.asarray(tree["_meta"]["in_hw"]).reshape(-1, 2)[0])
+        ch = int(np.asarray(tree["_meta"]["in_ch"]).reshape(-1)[0])
+        if (hw, ch) != (tuple(model.in_hw), model.in_ch):
+            raise ValueError(f"_meta {(hw, ch)} vs the module's {(model.in_hw, model.in_ch)}")
+    dev = resolve_device(device)
+    lead = 1 if stacked else 0
+    out: dict[str, torch.Tensor] = {}
+    for name, leaf in _flatten_tree({k: v for k, v in tree.items() if k != "_meta"}):
+        arr = np.asarray(leaf, dtype=np.float32)
+        if arr.ndim == 4 + lead:   # HWIO -> OIHW
+            arr = arr.transpose(*range(lead), 3 + lead, 2 + lead, lead, 1 + lead)
+        out[name] = torch.from_numpy(np.array(arr, order="C")).to(dev)
+    want = dict(model.named_parameters())
+    if set(want) != set(out):
+        raise ValueError(f"{arch}: names {sorted(out)} vs the module's {sorted(want)}")
+    for name, p in want.items():
+        if tuple(out[name].shape[lead:]) != tuple(p.shape):
+            raise ValueError(
+                f"{name}: reference {tuple(out[name].shape[lead:])} vs port {tuple(p.shape)}"
+            )
+    return {name: out[name] for name in want}

@@ -8,7 +8,9 @@ source never reuses a stale build.  :func:`build_all` starts one ``nvcc``
 per source at once, so the builds run in parallel.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.  ``BUILD_SECONDS`` holds each
+launches its kernel and nowhere else.  ``ROUTE_LAUNCHES`` splits a kernel's
+count by route, ``(name, route)`` (the proximity kernel's ``eq3`` and
+``eq2``).  ``BUILD_SECONDS`` holds each
 source's ``nvcc`` wall time from the last build in this process.
 """
 from __future__ import annotations
@@ -36,6 +38,7 @@ NVCC_FLAGS = (
 KERNELS = ("proximity", "tsgemm", "flash_attention", "wkv")
 
 LAUNCHES: collections.Counter = collections.Counter()
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 BUILD_SECONDS: dict[str, float] = {}
 
 H100_SMS = 132  # the default SM count of the kernels' grid plans
@@ -44,8 +47,9 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count (and its split by route) to 0."""
     LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

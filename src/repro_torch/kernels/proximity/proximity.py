@@ -142,6 +142,7 @@ def proximity_cuda(
             f"(Ka={Ka}, Kb={Kb}, n={n}, p={p}, q={q}, {measure})"
         )
     _build.LAUNCHES["proximity"] += 1
+    _build.ROUTE_LAUNCHES["proximity", measure] += 1
     return C
 
 

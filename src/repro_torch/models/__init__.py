@@ -1,2 +1,3 @@
-"""The LM model zoo (port of ``repro.models``): dense attention and RWKV6
-serving on one card; see :mod:`repro_torch.models.lm` for what is ported."""
+"""Models (port of ``repro.models``): the LM zoo's dense attention and
+RWKV6 serving on one card (:mod:`repro_torch.models.lm`), and the FL
+experiments' MLP, LeNet-5 and ResNet-9 (:mod:`repro_torch.models.cnn`)."""
