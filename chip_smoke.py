@@ -8,13 +8,18 @@ Phases, each printing its own lines; any failure exits nonzero:
 1. device: the card, its power limit, the float32 matmul settings;
 2. build: compiles the port's four CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/kernels/``, printing
-   each source's ``nvcc`` time and the count of tensor-core instructions in
+   each source's ``nvcc`` time, the count of tensor-core instructions in
    the SASS of the bfloat16 flash-attention kernel (``HMMA``) and of the
-   eq3 proximity kernel (``DMMA``);
+   eq3 and eq2 proximity kernels (``DMMA``), and the registers and stack of
+   the main paths' eq2 and WKV decode instantiations (no stack allowed);
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
    at the main paths' shapes plus ragged, cross, windowed, high-rank,
    split-KV / split-K, bfloat16 and fast-decay cases, and the square
-   proximity (upper-triangle tiles, mirrored) against the full rectangle;
+   proximity (upper-triangle tiles) against the full rectangle; eq2 also at
+   its plan's cases (printed): mix4's K = 97 square (split over n), the
+   churn admission's cross block and square, K = 1024 (no split), each
+   launched twice and required bitwise equal; the recurrent WKV kernel
+   (decode) at S = 1, 16 and 32 from a carried state;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -41,7 +46,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    of the 256 queries equals phase 4's dispatch (and ``admit_oracle`` on
    16), whose ``assign`` and ``drain`` launch the proximity kernel, and
    whose 64 submitted joins drain into their planted clusters with the
-   epoch advanced.  It prints the mix4 call's time, its 20 rounds' window
+   epoch advanced.  mix4 runs twice more for 3 rounds with the same seed:
+   the two must give bitwise-equal labels, round accuracies and final
+   parameters, and their round accuracies must equal the 20-round run's
+   first three.  It prints the mix4 call's time, its 20 rounds' window
    from the entry point's records with the first round apart, a warm
    round's host time beside its device time by kernel (torch.profiler), the
    evaluation time and the server's per-batch latency;
@@ -57,7 +65,8 @@ Phases, each printing its own lines; any failure exits nonzero:
 8. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call
    (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
-   the M = 1024 bucket; WKV also with float32 r, k, v).
+   the M = 1024 bucket; proximity eq2 also at mix4's K = 97; WKV decode
+   replayed from a CUDA graph, and prefill also with float32 r, k, v).
 
 Launch counts are set to 0 just before each main path (phase 4, each
 federation and each server call of phase 5, each architecture of 6) and
@@ -72,18 +81,28 @@ is the ``{"kernels": [...]}`` record, the last
 
 builds the four kernels of the ``repro_torch`` under the directory SRC,
 times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
-and eq2) at phase 8's main-path shapes with phase 8's timers and prints one
-JSON line of milliseconds.  Two commits are
-compared on one card by running it on both trees in turns in one session,
-e.g. on a parent unpacked with ``git archive`` into ``build/parent``:
+and eq2 at K = 1024, eq2 at K = 97) at phase 8's main-path shapes with
+phase 8's timers and prints one JSON line of milliseconds.
+
+    python3 chip_smoke.py --time-fl SRC
+
+runs phase 5's federations (mix4 20 rounds, label20 PACFL and FedAvg 20
+rounds, the ten strategies 3 rounds) through SRC's ``run_federation`` and
+prints one JSON line of their times and the mix4 round times.  Two commits
+are compared on one card by running both on both trees in turns in one
+session, e.g. on a parent unpacked with ``git archive`` into
+``build/parent``:
 
     for s in build/parent/src src src build/parent/src; do
-        python3 chip_smoke.py --time-kernels $s; done
+        python3 chip_smoke.py --time-kernels $s; python3 chip_smoke.py --time-fl $s; done
 
     python3 chip_smoke.py --sweep-wkv
+    python3 chip_smoke.py --sweep-eq2
 
-times WKV by chunk length and by route at short sequences, the numbers
-behind ``wkv_plan``'s constants, and prints one JSON line.
+time WKV by chunk length and by route at short sequences, and eq2 at mix4's
+K = 97 by split count with its device time by kernel, the numbers behind
+``wkv_plan``'s constants and ``eq2_plan``'s one-wave split; each prints one
+JSON line.
 """
 from __future__ import annotations
 
@@ -149,9 +168,11 @@ F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
 # hence its wider limit.
 LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
 
-# The revision in which each kernel was last redesigned (earlier times are
-# in PERF.md section 6).
-REDESIGNED_IN = {"flash_attention": 13, "tsgemm": 13, "wkv": 14, "proximity": 14}
+# The revision in which each hand-written kernel was last redesigned (earlier
+# times are in PERF.md section 6).
+REDESIGNED_IN = {"flash_attention": 13, "tsgemm": 13,
+                 "wkv": {"prefill": 14, "decode": 16},
+                 "proximity": {"eq3": 14, "eq2": 16, "any_rank": None}}
 
 
 def log(phase: str, msg: str) -> None:
@@ -330,6 +351,25 @@ def count_mma(lib_path, function_substring: str, opcodes=("HMMA", "HGMMA")) -> i
     return count
 
 
+def resource_usage(lib_path, mangled_substring: str):
+    """(registers, stack bytes) of the first function of a built library
+    whose mangled name contains ``mangled_substring``
+    (``cuobjdump --dump-resource-usage``), or None if none is listed."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    usage = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(lib_path)],
+                           capture_output=True, text=True, timeout=300, check=True).stdout
+    inside = False
+    for line in usage.splitlines():
+        if "Function" in line:
+            inside = mangled_substring in line
+        elif inside and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            return int(fields["REG"]), int(fields.get("STACK", "0"))
+    return None
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -344,9 +384,20 @@ def phase_build() -> None:
     hmma = count_mma(_build.library_path("flash_attention"), "flash_fwd_tc")
     log("build", f"flash_attention bf16 kernel (flash_fwd_tc): {hmma} HMMA instructions in its SASS")
     require(hmma > 0, "the bf16 flash-attention kernel has no tensor-core instructions")
-    dmma = count_mma(_build.library_path("proximity"), "eq3_tc", ("DMMA",))
-    log("build", f"proximity eq3 kernel (eq3_tc): {dmma} DMMA instructions in its SASS")
-    require(dmma > 0, "the eq3 proximity kernel has no FP64 tensor-core instructions")
+    for kernel in ("eq3_tc", "eq2_tc"):
+        dmma = count_mma(_build.library_path("proximity"), kernel, ("DMMA",))
+        log("build", f"proximity kernel {kernel}: {dmma} DMMA instructions in its SASS")
+        require(dmma > 0, f"the proximity kernel {kernel} has no FP64 tensor-core instructions")
+    # the main paths' instantiations keep their state in registers
+    for name, label, mangled in (("proximity", "eq2_tc<3, 3>", "eq2_tcILi3ELi3E"),
+                                 ("proximity", "eq2_reduce_ws<3, 3>", "eq2_reduce_wsILi3ELi3E"),
+                                 ("wkv", "wkv_step<64, bf16>", "wkv_stepILi64E13__nv_bfloat16E")):
+        usage = resource_usage(_build.library_path(name), mangled)
+        if usage is None:
+            log("build", f"{label}: not in cuobjdump's resource usage")
+            continue
+        log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
+        require(usage[1] == 0, f"{label} spills to the stack ({usage[1]} bytes)")
 
 
 def check_proximity(torch, fed, errs: list) -> None:
@@ -383,17 +434,41 @@ def check_proximity(torch, fed, errs: list) -> None:
     for measure in ("eq3", "eq2"):
         compare("square K=256 p=12", U12, U12, measure, True)
     compare("cross 1024x256 p=3 x q=12", U3, U12, "eq2", False)
-    # the square launches only the upper-triangle tiles and mirrors them:
-    # it must equal the full rectangle of the stack against a copy of itself
-    for label, U in (("K=1024 p=3", U3), ("ragged K=1000 p=3", U3[:1000]), ("K=1024 p=5", U5)):
-        square = proximity_cuda(U, U, "eq3")
-        cross = proximity_cuda(U, U.clone(), "eq3")
+    # eq2 at its plan's cases: mix4's square (split over n), the churn
+    # admission's cross block and square (phase 5), PACFL's K = 1024 square
+    # (one kernel, no split); a split call is the same bitwise twice
+    from repro_torch.kernels.proximity.proximity import eq2_plan
+
+    U97 = fed.signatures(planted(MIX4_K))
+    members = MIX4_K - len(CHURN_LEAVES)
+    joins = fed.signatures(planted(CHURN_JOINS))
+    for label, Ua, Ub in ((f"square K={MIX4_K} (mix4)", U97, U97),
+                          (f"cross {members}x{CHURN_JOINS} (churn admission)", U97[:members], joins),
+                          (f"square K={CHURN_JOINS} (churn admission)", joins, joins),
+                          (f"square K={N_CLIENTS}", U3, U3)):
+        plan = eq2_plan(Ua.shape[0], Ub.shape[0], Ua.shape[1], Ua.shape[2], Ub.shape[2], Ua is Ub)
+        log("kernels", f"proximity eq2 {label}: {plan}")
+        compare(label, Ua, Ub, "eq2", Ua is Ub)
+        first, second = proximity_cuda(Ua, Ub, "eq2"), proximity_cuda(Ua, Ub, "eq2")
+        torch.cuda.synchronize()
+        require(torch.equal(first, second), f"proximity eq2 {label}: two launches differ")
+        log("kernels", f"proximity eq2 {label}: two launches bitwise equal")
+    # the square launches only the upper-triangle tiles (eq3 mirrors each
+    # value, eq2 runs both epilogues of a pair): it must equal the full
+    # rectangle of the stack against a copy of itself, where both take one
+    # split (eq3's square is also exactly symmetric)
+    for label, U, measure in (("K=1024 p=3", U3, "eq3"), ("ragged K=1000 p=3", U3[:1000], "eq3"),
+                              ("K=1024 p=5", U5, "eq3"), ("K=1024 p=3", U3, "eq2"),
+                              ("ragged K=1000 p=3", U3[:1000], "eq2")):
+        square = proximity_cuda(U, U, measure)
+        cross = proximity_cuda(U, U.clone(), measure)
         torch.cuda.synchronize()
         diff = (square - cross).abs().max().item()
-        log("kernels", f"proximity square {label} eq3 vs cross against a clone: "
-            f"max|square - cross| = {diff:.3e}, square symmetric: {bool((square == square.T).all())}")
-        require(diff == 0.0 and bool((square == square.T).all()),
-                f"proximity square {label}: mirrored tiles differ from the rectangle by {diff}")
+        symmetric = bool((square == square.T).all())
+        log("kernels", f"proximity square {label} {measure} vs cross against a clone: "
+            f"max|square - cross| = {diff:.3e}, square symmetric: {symmetric}")
+        require(diff == 0.0 and (symmetric or measure == "eq2"),
+                f"proximity square {label} {measure}: the triangle differs from the rectangle by {diff}")
 
 
 def check_tsgemm(torch, device, errs: list) -> None:
@@ -556,6 +631,10 @@ def check_wkv(torch, device, errs: list) -> None:
     compare("prefill with state0, bfloat16 r k v", bf16(ops), state0)
     step = wkv_inputs(torch, gen, LM_BATCH, 1, H, hd, device)
     compare("decode S=1, carried state", step, state)
+    compare("decode S=1, carried state, bfloat16 r k v", bf16(step), state)
+    for S in (16, 32):   # the recurrent route below CHUNKED_MIN_S
+        compare(f"recurrent S={S}, carried state", wkv_inputs(torch, gen, LM_BATCH, S, H, hd,
+                                                               device), state)
     fast = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device, fast=True)
     compare("prefill, fast decay", fast, None)
     compare("prefill with state0, fast decay", fast, state0)
@@ -632,7 +711,9 @@ def phase_main_path(torch, fed) -> dict:
 # at CIFAR-10 geometry.  mix4 with 100 requested clients gives 31/25/27/14 =
 # 97; the reference's one-shot partition of them, by dataset name:
 FL_DIM, FL_CLIENTS, FL_ROUNDS, FL_STRATEGY_ROUNDS = 3072, 100, 20, 3
+MIX4_K = 97
 MIX4_PARTITION = ({"cifar10s", "svhns"}, {"fmnists"}, {"uspss"})
+REPEAT_ROUNDS = 3   # the same-seed mix4 runs that must agree bitwise
 CHURN_JOINS, CHURN_LEAVES = 8, (0, 10, 40, 90)   # fmnists newcomers; positions
 SERVER_JOINS, SERVER_ORACLE = 64, 16
 FL_BUDGET_S = 120.0
@@ -667,7 +748,8 @@ def phase_fl(torch, device, main) -> dict:
     """Phase 5: the federated-learning loop and the assignment server.
 
     Every federation runs through ``run_federation``, each with the launch
-    counts set to 0 just before it and read just after.  mix4 PACFL (eq2,
+    counts set to 0 just before it and read just after (but for the two
+    short same-seed mix4 runs that check repeatability).  mix4 PACFL (eq2,
     beta 50, exact SVD) at 97 clients must find the reference's three
     clusters and train 20 rounds above chance; on label20 (eq3, beta 175)
     PACFL must beat FedAvg after 20 rounds; all ten strategies run 3 rounds;
@@ -709,6 +791,7 @@ def phase_fl(torch, device, main) -> dict:
                      for z in np.unique(strat.labels)), key=sorted)
     log("fl", f"mix4 PACFL: {strat.clustering.n_clusters} clusters "
         f"{[sorted(g) for g in groups]}; proximity launches by route {dict(routes)}")
+    require(len(clients) == MIX4_K, f"mix4: {len(clients)} clients, not {MIX4_K}")
     require(strat.clustering.n_clusters == 3
             and sorted(groups, key=sorted) == sorted(MIX4_PARTITION, key=sorted),
             f"mix4 partition {groups} is not the reference's {MIX4_PARTITION}")
@@ -719,6 +802,7 @@ def phase_fl(torch, device, main) -> dict:
     per_round = np.diff([0.0] + ends)
     window = ends[-1]
     mix4_acc = res.final_mean
+    mix4_accs = [r.mean_acc for r in res.records]
     log("fl", f"mix4 PACFL through run_federation: {t_run:.3f} s, of which {FL_ROUNDS} rounds "
         f"of {int(round(cfg.sample_frac * len(clients)))} clients x {strat._steps} local steps, "
         f"each followed by an evaluation of {len(clients)} clients, {window:.3f} s "
@@ -750,6 +834,26 @@ def phase_fl(torch, device, main) -> dict:
         f"kernels ({len(kernels)} kernels; device idle {1 - busy_ms / host_ms:.1%}); an "
         f"evaluation of {len(clients)} clients {t_eval * 1e3:.1f} ms; largest: "
         + ", ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+
+    # -- mix4 twice more with the same seed: bitwise the same (a check, so ---
+    # -- outside the counted windows) -----------------------------------------
+    def mix4_again():
+        again = run_federation("pacfl", clients, model, fl_config("mix4", REPEAT_ROUNDS),
+                               seed=SEED, eval_every=1, device=device)
+        st = again.strategy_obj
+        return ([r.mean_acc for r in again.records], st.labels.copy(), again.final_accs,
+                {k: v.detach().clone() for k, v in st.cluster_params.items()})
+
+    (acc_a, lab_a, fin_a, par_a), t_a = _timed(torch, device, mix4_again)
+    (acc_b, lab_b, fin_b, par_b), t_b = _timed(torch, device, mix4_again)
+    same = (acc_a == acc_b and np.array_equal(lab_a, lab_b) and np.array_equal(fin_a, fin_b)
+            and par_a.keys() == par_b.keys() and all(torch.equal(par_a[k], par_b[k]) for k in par_a))
+    log("fl", f"mix4 again, twice, {REPEAT_ROUNDS} rounds, seed {SEED} ({t_a:.2f} s, {t_b:.2f} s): "
+        f"labels, round accuracies {acc_a} and final parameters bitwise equal: {same}; the "
+        f"{FL_ROUNDS}-round run's first {REPEAT_ROUNDS} rounds {mix4_accs[:REPEAT_ROUNDS]}")
+    require(same, f"mix4 is not repeatable: accuracies {acc_a} vs {acc_b}")
+    require(acc_a == mix4_accs[:REPEAT_ROUNDS] and np.array_equal(lab_a, strat.labels),
+            "mix4: the short runs differ from the 20-round run's first rounds")
 
     # -- label20: PACFL beats FedAvg -------------------------------------------
     (clients20, n20), t_data = _timed(torch, device, lambda: build_clients(
@@ -981,37 +1085,58 @@ def phase_lm_float32(torch, device) -> None:
         del params, got, want
 
 
+def prox_bound(K: int, n: int, p: int, measure: str) -> tuple[float, str]:
+    """The least time of a proximity square: it is symmetric, so K (K + 1) / 2
+    client pairs, each p (eq3: the Gram diagonal) or p * p (eq2) dot
+    products of length n at 2 flops a term (the O(K^2) epilogue is not
+    counted), on the FP64 tensor cores' 67 TFLOP/s; or the stack read and
+    the matrix written once."""
+    gram = p if measure == "eq3" else p * p
+    return bound(K * n * p * 4 + K * K * 4, 2.0 * K * (K + 1) / 2 * n * gram)
+
+
+def wkv_decode_bound(B: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
+    """The least time of one WKV decode step: r, k, v read once, w and out
+    (float32) and u once, the state read and written once; 5 flops a state
+    entry (see lm_kernel_timings)."""
+    n1 = B * H * hd
+    return bound(rkv_bytes * 3.0 * n1 + 4.0 * (2 * n1 + H * hd + 2 * B * H * hd * hd),
+                 5.0 * n1 * hd)
+
+
 def phase_timings(torch, fed, launches, errs) -> list:
     from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
     from repro_torch.kernels.tsgemm import tsgemm_cuda, tsgemm_plain
 
     K, n, p = N_CLIENTS, N_FEATURES, RANK
     U = fed.signatures(planted(K))
+    U97 = fed.signatures(planted(MIX4_K))
     rows = []
-    # The least work of the square: the matrix is symmetric, so K (K + 1) / 2
-    # client pairs, each p (eq3: the Gram diagonal) or p * p (eq2) dot
-    # products of length n at 2 flops a term; the O(K^2) epilogue is not
-    # counted.  Both peaks (FP64 tensor cores for eq3, FP32 for eq2) are 67
-    # TFLOP/s.
-    pairs = K * (K + 1) / 2
-    for measure in ("eq3", "eq2"):
-        ms = time_ms(torch, lambda: proximity_cuda(U, U, measure))
-        plain_ms = time_ms(torch, lambda: proximity_plain(U, U, measure), iters=5)
-        gram = p if measure == "eq3" else p * p
-        b_ms, b_by = bound(K * n * p * 4 + K * K * 4, 2.0 * pairs * n * gram)
-        log("time", f"proximity {measure} K={K} n={n} p={p}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if measure == "eq3":
-            rows.append({
-                "name": "proximity", "route": "cuda",
-                "source": "src/repro_torch/csrc/proximity.cu",
-                "replaces": "src/repro/kernels/proximity/proximity.py:55",
-                "launches": launches.get("proximity", 0),
-                "launches_by_route": launches["proximity_by_route"],
-                "max_abs_err": max(errs["proximity"]), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
-            })
+    t = {}
+    for label, X, measure in ((f"eq3 K={K}", U, "eq3"), (f"eq2 K={K}", U, "eq2"),
+                              (f"eq2 K={MIX4_K} (mix4)", U97, "eq2")):
+        ms = time_ms(torch, lambda: proximity_cuda(X, X, measure))
+        plain_ms = time_ms(torch, lambda: proximity_plain(X, X, measure), iters=5)
+        b_ms, b_by = prox_bound(X.shape[0], n, p, measure)
+        t[label] = (ms, plain_ms, b_ms, b_by)
+        log("time", f"proximity {label} n={n} p={p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+    ms, plain_ms, b_ms, b_by = t[f"eq3 K={K}"]
+    row = {
+        "name": "proximity", "route": "cuda",
+        "source": "src/repro_torch/csrc/proximity.cu",
+        "replaces": "src/repro/kernels/proximity/proximity.py:55",
+        "launches": launches.get("proximity", 0),
+        "launches_by_route": launches["proximity_by_route"],
+        "max_abs_err": max(errs["proximity"]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
+    }
+    for key, label in (("eq2", f"eq2 K={K}"), ("eq2_k97", f"eq2 K={MIX4_K} (mix4)")):
+        ms, plain_ms, b_ms, b_by = t[label]
+        row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": b_ms,
+                    f"{key}_bound_by": b_by})
+    rows.append(row)
     Uc = U.clone()
     ms = time_ms(torch, lambda: proximity_cuda(U, Uc, "eq3"))
     log("time", f"proximity eq3 K={K} against a clone (the full rectangle, no "
@@ -1156,19 +1281,20 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     state = randn(B, H, hd, hd)
     ms = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
     plain_ms = graph_ms(torch, lambda: wkv_plain(*step, state), reps=20)
-    n1 = B * H * hd
-    b_ms, b_by = bound(2.0 * 3 * n1 + 4.0 * (2 * n1 + H * hd + 2 * B * H * hd * hd),
-                       5.0 * n1 * hd)
+    b_ms, b_by = wkv_decode_bound(B, H, hd, rkv_bytes=2)
     log("time", f"wkv decode r {tuple(step[0].shape)} bf16, state {tuple(state.shape)} f32 "
         f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+    rows[-1].update(decode_ms=ms, decode_plain_ms=plain_ms, decode_bound_ms=b_ms,
+                    decode_bound_by=b_by)
     return rows
 
 
 def time_kernels(torch) -> dict:
     """Milliseconds of the imported ``repro_torch``'s tsgemm, bfloat16
     flash-attention, float32 WKV and proximity wrappers at phase 8's
-    main-path shapes (the wrappers' calls that earlier trees also take)."""
+    main-path shapes (the wrappers' calls that earlier trees also take),
+    and the bounds of the proximity and WKV decode cases."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.proximity import proximity_cuda
@@ -1205,12 +1331,107 @@ def time_kernels(torch) -> dict:
     step = wkv_inputs(torch, gen, LM_BATCH, 1, H, hd, device)
     state = randn(LM_BATCH, H, hd, hd)
     ms["wkv decode (graph replay)"] = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
-    del ops, step, state
-    U = Federation(torch, device).signatures(planted(N_CLIENTS))
-    for measure in ("eq3", "eq2"):
-        ms[f"proximity {measure} K={N_CLIENTS}"] = time_ms(
-            torch, lambda: proximity_cuda(U, U, measure))
-    return ms
+    step_bf16 = tuple(a.to(bf16) if i < 3 else a for i, a in enumerate(step))   # serving's r, k, v
+    ms["wkv decode bf16 (graph replay)"] = graph_ms(
+        torch, lambda: wkv_cuda(*step_bf16, state), reps=20)
+    one = torch.zeros(1, device=device)
+    ms["graph replay floor (one-element add)"] = graph_ms(torch, lambda: one.add_(1.0), reps=20)
+    del ops, step, step_bf16, state
+    fed = Federation(torch, device)
+    bounds = {"wkv decode (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=4)[0],
+              "wkv decode bf16 (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=2)[0]}
+    for K, measures in ((N_CLIENTS, ("eq3", "eq2")), (MIX4_K, ("eq2",))):
+        U = fed.signatures(planted(K))
+        for measure in measures:
+            key = f"proximity {measure} K={K}"
+            ms[key] = time_ms(torch, lambda: proximity_cuda(U, U, measure))
+            bounds[key] = prox_bound(K, N_FEATURES, RANK, measure)[0]
+    return {"ms": ms, "bound_ms": bounds}
+
+
+def time_fl(torch) -> dict:
+    """Phase 5's federations through the imported ``repro_torch``'s
+    ``run_federation``, each timed on the host clock after a device sync:
+    mix4 PACFL 20 rounds (with its round times from the entry point's
+    records and a warm round of the finished federation), label20 PACFL and
+    FedAvg 20 rounds, the ten strategies 3 rounds on label20."""
+    import numpy as np
+
+    from repro_torch._device import float32_math
+    from repro_torch.fl import STRATEGIES, run_federation
+    from repro_torch.fl.trainer import round_generator, sample_round
+    from repro_torch.kernels import _build
+    from repro_torch.launch.fl_train import build_clients, fl_config
+    from repro_torch.models.cnn import build_model
+
+    _build.build_all(_build.KERNELS)
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {}
+    clients, n_classes = build_clients("mix4", FL_CLIENTS, FL_DIM, 3000)
+    model = build_model("lenet5", dim=FL_DIM, n_classes=n_classes)
+    cfg = fl_config("mix4", FL_ROUNDS)
+    res, out["mix4_s"] = _timed(torch, device, lambda: run_federation(
+        "pacfl", clients, model, cfg, seed=SEED, eval_every=1, device=device))
+    per_round = np.diff([0.0] + [r.seconds for r in res.records])
+    strat = res.strategy_obj
+    sampled = sample_round(np.random.default_rng(SEED), strat.data.n_clients, cfg.sample_frac)
+    idx = strat.draw_indices(sampled, round_generator(SEED, FL_ROUNDS + 1, device))
+    with float32_math():
+        warm = [_timed(torch, device, lambda: strat.run_round(FL_ROUNDS + 1, sampled, idx))[1]
+                for _ in range(5)]
+    out.update(mix4_first_round_s=float(per_round[0]),
+               mix4_round_median_ms=float(statistics.median(per_round[1:])) * 1e3,
+               mix4_warm_round_ms=statistics.median(warm) * 1e3, mix4_accuracy=res.final_mean)
+    clients20, n20 = build_clients("label20", FL_CLIENTS, FL_DIM, 3000)
+    model20 = build_model("lenet5", dim=FL_DIM, n_classes=n20)
+    for name in ("pacfl", "fedavg"):
+        res, out[f"label20_{name}_s"] = _timed(torch, device, lambda: run_federation(
+            name, clients20, model20, fl_config("label20", FL_ROUNDS), seed=SEED,
+            eval_every=FL_ROUNDS, device=device))
+    _, out["strategies_s"] = _timed(torch, device, lambda: [run_federation(
+        name, clients20, model20, fl_config("label20", FL_STRATEGY_ROUNDS), seed=SEED,
+        eval_every=FL_STRATEGY_ROUNDS, device=device) for name in sorted(STRATEGIES)])
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def sweep_eq2(torch) -> dict:
+    """The measurements behind ``eq2_plan``'s one-wave split: eq2 at mix4's
+    K = 97 (n = 3072, p = 3) planned as if the card had 33 to 528 SMs (the
+    plan's only input besides the shapes, set through ``_build.sm_count``),
+    each with its split count, time and device time by kernel
+    (torch.profiler), and the same split by kernel at K = 1024 and at the
+    churn admission's blocks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity import proximity_cuda
+    from repro_torch.kernels.proximity.proximity import eq2_plan
+
+    _build.build_all(("proximity",))
+    device = torch.device("cuda")
+    fed = Federation(torch, device)
+    U97 = fed.signatures(planted(MIX4_K))
+    joins = fed.signatures(planted(CHURN_JOINS))
+    out = {}
+    cases = ((f"K={MIX4_K}", U97, U97), (f"K={N_CLIENTS}", fed.signatures(planted(N_CLIENTS)), None),
+             (f"cross {MIX4_K - len(CHURN_LEAVES)}x{CHURN_JOINS}", U97[:MIX4_K - len(CHURN_LEAVES)],
+              joins), (f"square K={CHURN_JOINS}", joins, joins))
+    for label, Ua, Ub in cases:
+        Ub = Ua if Ub is None else Ub
+        out[label] = {"ms": time_ms(torch, lambda: proximity_cuda(Ua, Ub, "eq2")),
+                      "kernels_ms": profile_ms(torch, lambda: proximity_cuda(Ua, Ub, "eq2"))}
+    sm_count = _build.sm_count
+    try:
+        for sms in (33, 66, 132, 264, 528):
+            _build.sm_count = lambda index, _sms=sms: _sms
+            plan = eq2_plan(MIX4_K, MIX4_K, N_FEATURES, RANK, RANK, True, sms)
+            out[f"K={MIX4_K} as if {sms} SMs"] = {
+                "splits": plan.splits, "split_rows": plan.split_rows,
+                "ms": time_ms(torch, lambda: proximity_cuda(U97, U97, "eq2")),
+                "kernels_ms": profile_ms(torch, lambda: proximity_cuda(U97, U97, "eq2"))}
+    finally:
+        _build.sm_count = sm_count
+    return out
 
 
 def sweep_wkv(torch) -> dict:
@@ -1250,10 +1471,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--time-kernels", metavar="SRC",
                     help="only time the kernels of SRC/repro_torch at the main-path shapes")
+    ap.add_argument("--time-fl", metavar="SRC",
+                    help="only time phase 5's federations through SRC/repro_torch")
     ap.add_argument("--sweep-wkv", action="store_true",
                     help="only time WKV by chunk length and route (wkv_plan's constants)")
+    ap.add_argument("--sweep-eq2", action="store_true",
+                    help="only time eq2 by split count at K = 97 (eq2_plan's one wave)")
     args = ap.parse_args(argv)
-    src = Path(args.time_kernels).resolve() if args.time_kernels else ROOT / "src"
+    tree = args.time_kernels or args.time_fl
+    src = Path(tree).resolve() if tree else ROOT / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke.py: {src}/repro_torch not found", file=sys.stderr)
         return 2
@@ -1267,10 +1493,16 @@ def main(argv=None) -> int:
     device = phase_device(torch)
     if args.time_kernels:
         print(json.dumps({"src": args.time_kernels, "device": device["smi"],
-                          "ms": time_kernels(torch)}))
+                          **time_kernels(torch)}))
+        return 0
+    if args.time_fl:
+        print(json.dumps({"src": args.time_fl, "device": device["smi"], "fl": time_fl(torch)}))
         return 0
     if args.sweep_wkv:
         print(json.dumps({"device": device["smi"], "ms": sweep_wkv(torch)}))
+        return 0
+    if args.sweep_eq2:
+        print(json.dumps({"device": device["smi"], "eq2": sweep_eq2(torch)}))
         return 0
     phase_build()
     fed = Federation(torch, torch.device("cuda"))

@@ -31,14 +31,19 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
 
 @contextlib.contextmanager
 def float32_math() -> Iterator[None]:
-    """Float32 matmuls and convolutions, as the reference computes them:
-    TF32 off for cuBLAS and for cuDNN (whose default is on) inside the
-    block, the previous settings restored after it.  Backward passes run
-    inside the block too, so they read the same settings."""
+    """Float32 matmuls and convolutions, computed the same way on every run,
+    as the reference computes them: TF32 off for cuBLAS and for cuDNN (whose
+    default is on), and cuDNN held to deterministic algorithms, chosen by
+    its heuristics rather than by timing (``cudnn.deterministic`` on,
+    ``cudnn.benchmark`` off; by default cuDNN may take a weight-gradient
+    algorithm that sums with atomics, so two runs of one seed drift apart).
+    The previous settings are restored after the block.  Backward passes
+    run inside the block too, so they read the same settings."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
+    saved = matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark
     matmul.allow_tf32 = cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
     try:
         yield
     finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
+        matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved

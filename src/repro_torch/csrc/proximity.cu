@@ -34,19 +34,37 @@
 // and C[b, a]: half the work, and the result exactly symmetric.  The
 // epilogue is the reference's in-order clipped arccos sum over r.
 //
-// Eq. 2 (proximity_eq2_kernel): a 2-D grid of client-pair tiles, 16 x 16
-// threads, each thread a RA x RB micro-tile of pairs (sized so its FP32
-// chunk sums stay <= 32 registers beside their FP64 totals): each NC-row
-// chunk is summed in a fresh FP32 register and the chunk sums are added in
-// FP64.  The block walks n in chunks of NC rows staged through shared
-// memory, laid out [row*P + col][client] so a warp's staging stores hit 32
-// distinct banks and the compute loop reads each thread's clients as one
-// vector load.  Each pair accumulates its p*q Gram entries in registers and
-// is reduced in-thread by the reference's fixed-sweep cyclic Jacobi on the
-// packed q x q matrix G^T G (same plane order, sweep count,
+// Eq. 2 (eq2_tc): p * q times the Gram work of eq3's one column, and a
+// q x q Jacobi per pair.  What bounds it on this card: the FP64 tensor cores
+// at large K (at K = 1024, p = q = 3: 4.7e5 pairs x 9 x 3072 x 2 flops,
+// 0.43 ms at 67 TFLOP/s), and at the FL path's K = 97 the grid: 4 x 4
+// client tiles of 32 would leave 116 of 132 SMs idle while each block walked
+// all of n alone.  The design: the p x q Grams G_rs = Ua[:, :, r]
+// Ub[:, :, s]^T run on the FP64 tensor cores as eq3's do (the same 3-stage
+// cp.async ring, f32 -> f64 at fragment load, so the Gram is exact products
+// with FP64 sums; each operand its own padded stage row, q may differ from
+// p).  Per k16 step a warp loads q B-fragments, then per row r one
+// A-fragment and q mmas (9 mmas per 6 fragment loads at p = q = 3); each
+// lane then holds all p * q entries of its 4 pairs, and the reference's
+// fixed-sweep packed Jacobi on G^T G (same plane order, sweep count,
 // cancellation-free tangent, 1e-30 denominator guard and rsqrt as
-// measures.py::_jacobi_rotate).  Clients and rows past the edge are staged
-// as zeros and never written.
+// measures.py::_jacobi_rotate) runs in registers.  When Ua and Ub are one
+// stack the grid walks only the upper-triangle tiles and each unordered
+// pair's Gram runs the Jacobi twice, on G^T G for C[a, b] and on G G^T for
+// C[b, a]: each entry is what the full rectangle gives (the reference
+// averages the two in its hygiene; one mirrored value would differ from it
+// by ~0.02 degrees near 0).  A 256-thread block holds ~180 registers a
+// thread at p = q = 3, so one block runs on an SM at a time; where the
+// tiles cannot fill a wave of the card, a host plan
+// (kernels/proximity/proximity.py::eq2_plan) splits n so that tiles x splits
+// comes as close to the SM count as whole k16 steps allow (K = 97: 10 x
+// 13).  Each split writes its FP64 partial Grams to a workspace, and
+// eq2_reduce_ws adds them in split order (coalesced, 32 pairs a block) and
+// runs the epilogue, with no atomics, so the result is bitwise the same
+// from run to run.  Ranks whose accumulators and fragments would not fit
+// kEq2Doubles (p = q = 4, p = 3 with q = 5, ...) take the Gram rows r in
+// groups, one grid layer each, through the same workspace.  Clients and
+// rows past the edge are staged as zeros and never written.
 //
 // Ranks above kMaxRank take a runtime-rank path (proximity_any_rank): one
 // warp per pair, the pair's NC-row chunks staged in the warp's slice of
@@ -61,57 +79,10 @@
 
 namespace {
 
-constexpr int kTx = 16;
-constexpr int kTy = 16;
-constexpr int kThreads = kTx * kTy;
 constexpr float kTiny = 1e-30f;
 constexpr float kDegPerRad = 57.295779513082320876798f;
 constexpr int kMaxRank = 8;  // largest rank the templates unroll
 constexpr int kMaxDevices = 64;
-
-// Pairs per thread along a and b: RA * RB * ACC <= 32 chunk sums (one pair
-// per thread when a single pair needs more).
-template <int ACC> struct Micro {
-  static constexpr int RA = ACC <= 4 ? 4 : (ACC <= 16 ? 2 : 1);
-  static constexpr int RB = ACC <= 2 ? 4 : (ACC <= 8 ? 2 : 1);
-};
-
-template <int R>
-__device__ __forceinline__ void lds(const float* p, float (&v)[R]) {
-  if constexpr (R == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (R == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// Stage rows [t0, t0 + NC) of T clients starting at k0 into s[row*P + r][i].
-// A warp covers 4 clients x 8 consecutive (row, col) entries: 4 fully used
-// 32-byte sectors per load on contiguous input, 32 distinct banks per store.
-template <int P, int T, int L, int NC>
-__device__ __forceinline__ void stage(float (*s)[L], const float* __restrict__ U,
-                                      long long sk, long long sn, long long sp,
-                                      int K, int n, int k0, int t0, int tid) {
-  constexpr int kOcts = NC * P / 8;
-  constexpr int kItems = T * NC * P;
-  for (int e = tid; e < kItems; e += kThreads) {
-    const int lane = e & 31;
-    const int w = e >> 5;
-    const int i = (w / kOcts) * 4 + (lane >> 3);
-    const int rowidx = (w % kOcts) * 8 + (lane & 7);
-    const int t = rowidx / P;
-    const int r = rowidx - t * P;
-    const int k = k0 + i;
-    const int row = t0 + t;
-    float v = 0.f;
-    if (k < K && row < n) v = U[k * sk + row * sn + r * sp];
-    s[rowidx][i] = v;
-  }
-}
 
 template <int P>
 __device__ __forceinline__ float eq3_reduce(const double (&gd)[P]) {
@@ -200,124 +171,29 @@ __device__ __forceinline__ float eq2_reduce(const double (&gd)[P * Q]) {
   return acosf(smax) * kDegPerRad;
 }
 
-template <int P, int Q>
-struct Shape {
-  static constexpr int ACC = P * Q;
-  static constexpr int RA = Micro<ACC>::RA;
-  static constexpr int RB = Micro<ACC>::RB;
-  static constexpr int TA = kTy * RA;
-  static constexpr int TB = kTx * RB;
-  static constexpr int LA = TA + 4;  // row pad: keeps 16-byte alignment
-  static constexpr int LB = TB + 4;
-  static constexpr int NC = 16 * (P * LA + Q * LB) * 4 <= 48 * 1024 ? 16 : 8;
-};
+// ---------------------------------------------------------------------------
+// Shared by the tensor-core kernels (eq3_tc, eq2_tc)
+// ---------------------------------------------------------------------------
 
-template <int P, int Q>
-__global__ void __launch_bounds__(kThreads)
-proximity_eq2_kernel(const float* __restrict__ Ua, long long sak, long long san,
-                 long long sap, int Ka, const float* __restrict__ Ub,
-                 long long sbk, long long sbn, long long sbq, int Kb, int n,
-                 float* __restrict__ C, long long ldc) {
-  using S = Shape<P, Q>;
-  constexpr int RA = S::RA, RB = S::RB, NC = S::NC, ACC = S::ACC;
-  __shared__ __align__(16) float sA[NC * P][S::LA];
-  __shared__ __align__(16) float sB[NC * Q][S::LB];
+constexpr int kStageRows = 16;   // rows of n per stage: one k16 mma step
+constexpr int kStages = 3;       // stages in the cp.async ring
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTx + tx;
-  const int a0 = blockIdx.y * S::TA;
-  const int b0 = blockIdx.x * S::TB;
-
-  double acc[RA][RB][ACC];
-#pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int j = 0; j < RB; ++j)
-#pragma unroll
-      for (int x = 0; x < ACC; ++x) acc[i][j][x] = 0.0;
-
-  for (int t0 = 0; t0 < n; t0 += NC) {
-    stage<P, S::TA, S::LA, NC>(sA, Ua, sak, san, sap, Ka, n, a0, t0, tid);
-    stage<Q, S::TB, S::LB, NC>(sB, Ub, sbk, sbn, sbq, Kb, n, b0, t0, tid);
-    __syncthreads();
-    float part[RA][RB][ACC];
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j)
-#pragma unroll
-        for (int x = 0; x < ACC; ++x) part[i][j][x] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < NC; ++t) {
-      float va[P][RA], vb[Q][RB];
-#pragma unroll
-      for (int r = 0; r < P; ++r) lds<RA>(&sA[t * P + r][ty * RA], va[r]);
-#pragma unroll
-      for (int s = 0; s < Q; ++s) lds<RB>(&sB[t * Q + s][tx * RB], vb[s]);
-#pragma unroll
-      for (int i = 0; i < RA; ++i)
-#pragma unroll
-        for (int j = 0; j < RB; ++j) {
-#pragma unroll
-          for (int r = 0; r < P; ++r)
-#pragma unroll
-            for (int s = 0; s < Q; ++s)
-              part[i][j][r * Q + s] =
-                  fmaf(va[r][i], vb[s][j], part[i][j][r * Q + s]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j)
-#pragma unroll
-        for (int x = 0; x < ACC; ++x) acc[i][j][x] += part[i][j][x];
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RA; ++i) {
-    const int a = a0 + ty * RA + i;
-#pragma unroll
-    for (int j = 0; j < RB; ++j) {
-      const int b = b0 + tx * RB + j;
-      if (a < Ka && b < Kb) {
-        C[a * ldc + b] = eq2_reduce<P, Q>(acc[i][j]);
-      }
-    }
-  }
+// A stage holds each client's kStageRows rows x R columns as one row of LS
+// floats (client-major, as they lie in device memory).  LS: a multiple of 4
+// (16-byte copies) at least kStageRows * R such that a fragment load (8
+// clients x 4 k-rows, word g * LS + k * R) hits 32 distinct banks, where one
+// exists.
+constexpr bool stage_conflict_free(int ls, int rank) {
+  for (int x = 0; x < 32; ++x)
+    for (int y = x + 1; y < 32; ++y)
+      if (((x >> 2) * ls + (x & 3) * rank) % 32 == ((y >> 2) * ls + (y & 3) * rank) % 32)
+        return false;
+  return true;
 }
-
-template <int P, int Q>
-int launch_eq2(const float* Ua, long long sak, long long san, long long sap,
-               int Ka, const float* Ub, long long sbk, long long sbn,
-               long long sbq, int Kb, int n, float* C, long long ldc,
-               cudaStream_t stream) {
-  using S = Shape<P, Q>;
-  const long long gx = (Kb + S::TB - 1) / S::TB;
-  const long long gy = (Ka + S::TA - 1) / S::TA;
-  if (gy > 65535 || gx > 2147483647LL) return cudaErrorInvalidValue;
-  proximity_eq2_kernel<P, Q><<<dim3((unsigned)gx, (unsigned)gy),
-                               dim3(kTx, kTy), 0, stream>>>(
-      Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc);
-  return (int)cudaGetLastError();
-}
-
-template <int P>
-int pick_q(int q, const float* Ua, long long sak, long long san,
-           long long sap, int Ka, const float* Ub, long long sbk,
-           long long sbn, long long sbq, int Kb, int n, float* C,
-           long long ldc, cudaStream_t stream) {
-#define PROX_Q(QQ)                                                           \
-  case QQ:                                                                   \
-    return launch_eq2<P, QQ>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb,   \
-                             n, C, ldc, stream);
-  switch (q) {
-    PROX_Q(1) PROX_Q(2) PROX_Q(3) PROX_Q(4)
-    PROX_Q(5) PROX_Q(6) PROX_Q(7) PROX_Q(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef PROX_Q
+constexpr int stage_row(int rank) {
+  for (int ls = kStageRows * rank; ls < kStageRows * rank + 32; ls += 4)
+    if (stage_conflict_free(ls, rank)) return ls;
+  return kStageRows * rank + 4;
 }
 
 // ---------------------------------------------------------------------------
@@ -335,25 +211,8 @@ template <int P> struct Eq3Tile {
   static constexpr int WA = 2, WB = 2, MA = 1, MB = 2;
   static constexpr int TA = 16 * WA * MA, TB = 8 * WB * MB;
   static constexpr int THREADS = 32 * WA * WB;
-  static constexpr int NC = 16;   // rows of n per stage: one k16 step
-  static constexpr int NS = 3;    // stages in the cp.async ring
-  // A stage holds each client's NC rows x P columns as one row of LS floats
-  // (client-major, as they lie in device memory).  LS: a multiple of 4 (16-
-  // byte copies) at least NC * P such that a fragment load (8 clients x 4
-  // k-rows, word g * LS + k * P) hits 32 distinct banks, where one exists.
-  static constexpr bool conflict_free(int ls) {
-    for (int x = 0; x < 32; ++x)
-      for (int y = x + 1; y < 32; ++y)
-        if (((x >> 2) * ls + (x & 3) * P) % 32 == ((y >> 2) * ls + (y & 3) * P) % 32)
-          return false;
-    return true;
-  }
-  static constexpr int pick_ls() {
-    for (int ls = NC * P; ls < NC * P + 32; ls += 4)
-      if (conflict_free(ls)) return ls;
-    return NC * P + 4;
-  }
-  static constexpr int LS = pick_ls();
+  static constexpr int NC = kStageRows, NS = kStages;
+  static constexpr int LS = stage_row(P);
   static constexpr int STAGE = TA * LS;   // floats per operand per stage
   static constexpr int SMEM = 2 * NS * STAGE * 4;
   static_assert(TA == TB, "the symmetric grid mirrors square tiles");
@@ -557,6 +416,13 @@ eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
   }
 }
 
+// 1 where a stack's client rows are contiguous and 16-byte aligned, so the
+// kernels stage them in 16-byte copies (stage_async's vec path).
+int stage_vec(const float* U, long long sk, long long sn, long long sp, int rank) {
+  return sn == rank && sp == 1 && sk % 4 == 0 &&
+         reinterpret_cast<unsigned long long>(U) % 16 == 0;
+}
+
 template <int P>
 int launch_eq3_tc(const float* Ua, long long sak, long long san, long long sap,
                   int Ka, const float* Ub, long long sbk, long long sbn,
@@ -589,15 +455,298 @@ int launch_eq3_tc(const float* Ua, long long sak, long long san, long long sap,
     if (gy > 65535 || gx > 2147483647LL) return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
   }
-  // 16-byte staging where each client's rows are contiguous and aligned
-  auto vec = [](const float* U, long long sk, long long sn, long long sp) {
-    return sn == P && sp == 1 && sk % 4 == 0 &&
-           reinterpret_cast<unsigned long long>(U) % 16 == 0;
-  };
   eq3_tc<P><<<grid, T::THREADS, T::SMEM, stream>>>(
       Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc, sym ? 1 : 0,
-      vec(Ua, sak, san, sap) ? 1 : 0, vec(Ub, sbk, sbn, sbq) ? 1 : 0);
+      stage_vec(Ua, sak, san, sap, P), stage_vec(Ub, sbk, sbn, sbq, P));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// eq2 on the FP64 tensor cores: the p x q Gram of every pair.
+// ---------------------------------------------------------------------------
+
+// FP64 registers a lane may give to the Gram phase: its accumulators (RG
+// rows x q entries for each of its 4 pairs) and one k16 step's fragments
+// (q B-fragments of 4 and one A-fragment of 8), 160 of its 255 registers.
+constexpr int kEq2Doubles = 80;
+
+// Rows r of the Gram a block accumulates: all p where they fit in
+// kEq2Doubles, else the largest divisor of p that fits (the other rows are
+// other blocks, the grid's z dimension).  Mirrored by
+// kernels/proximity/proximity.py::eq2_row_group.
+constexpr int eq2_row_group(int p, int q) {
+  for (int d = p; d > 1; --d)
+    if (p % d == 0 && 4 * d * q + 4 * q + 8 <= kEq2Doubles) return d;
+  return 1;
+}
+
+// Block tile: 32 x 32 client pairs, 8 warps (2 along a, 4 along b), each
+// warp one 16 x 8 mma tile of pairs holding RG x Q Gram entries a pair: 4
+// pairs a lane, RG * Q * 4 FP64 accumulators.
+template <int P, int Q> struct Eq2Tile {
+  static constexpr int WA = 2, WB = 4;
+  static constexpr int TA = 16 * WA, TB = 8 * WB;
+  static constexpr int PAIRS = TA * TB;
+  static constexpr int THREADS = 32 * WA * WB;
+  static constexpr int NC = kStageRows, NS = kStages;
+  static constexpr int RG = eq2_row_group(P, Q);
+  static constexpr int GROUPS = P / RG;
+  static constexpr int LSA = stage_row(P), LSB = stage_row(Q);
+  static constexpr int STA = TA * LSA, STB = TB * LSB;   // floats per stage
+  static constexpr int SMEM = NS * (STA + STB) * 4;
+  static_assert(TA == TB, "the symmetric grid walks square tiles");
+};
+
+// C[a, b] from the pair's Gram G (p x q, FP64 sums): the Jacobi of G^T G.
+// On the symmetric grid (Ua is Ub, so p == q) the pair also gives C[b, a],
+// the Jacobi of G G^T, as the full rectangle would from its own Gram of
+// (b, a), which is G^T; the diagonal tiles compute only a <= b.
+template <int P, int Q>
+__device__ __forceinline__ void eq2_store(const double (&gd)[P * Q], int a, int b,
+                                          int Ka, int Kb, bool sym, bool diag,
+                                          float* __restrict__ C, long long ldc) {
+  if (a >= Ka || b >= Kb || (sym && diag && a > b)) return;
+  C[a * ldc + b] = eq2_reduce<P, Q>(gd);
+  if constexpr (P == Q) {
+    if (sym && a != b) {
+      double gt[P * Q];
+#pragma unroll
+      for (int r = 0; r < P; ++r)
+#pragma unroll
+        for (int s = 0; s < Q; ++s) gt[s * P + r] = gd[r * Q + s];
+      C[b * ldc + a] = eq2_reduce<Q, P>(gt);
+    }
+  }
+}
+
+// The tile (bi, bj) of block tile index x: the upper triangle on the
+// symmetric grid, else row-major over ceil(Kb / TB) tile columns.
+__device__ __forceinline__ void eq2_tile(long long x, int sym, int Kb, int tb,
+                                         int& bi, int& bj) {
+  if (sym) {
+    triangle_tile(x, bi, bj);
+  } else {
+    const long long ntb = (Kb + tb - 1) / tb;
+    bi = static_cast<int>(x / ntb);
+    bj = static_cast<int>(x - bi * ntb);
+  }
+}
+
+// Block (tile, split, group): the FP64 Gram entries of rows r in
+// [group * RG, (group + 1) * RG) of the tile's pairs, summed over the
+// split's rows [split * split_rows, ...) of n (a multiple of 16).  ws null
+// (one split, one group): the Jacobi epilogue in registers, into C.  Else
+// the partial Grams go to ws[split][tile][r * Q + s][pair], pair = 32 *
+// (a - a0) + (b - b0), for eq2_reduce_ws.
+template <int P, int Q>
+__global__ void __launch_bounds__(Eq2Tile<P, Q>::THREADS)
+eq2_tc(const float* __restrict__ Ua, long long sak, long long san,
+       long long sap, int Ka, const float* __restrict__ Ub, long long sbk,
+       long long sbn, long long sbq, int Kb, int n, float* __restrict__ C,
+       long long ldc, int sym, int vec_a, int vec_b, int split_rows,
+       double* __restrict__ ws) {
+  using T = Eq2Tile<P, Q>;
+  constexpr int NC = T::NC, NS = T::NS, RG = T::RG;
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;                  // [NS][TA][LSA]
+  float* sB = smem + NS * T::STA;    // [NS][TB][LSB]
+
+  const long long tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int r0 = blockIdx.z * RG;
+  int bi, bj;
+  eq2_tile(tile, sym, Kb, T::TB, bi, bj);
+  const int a0 = bi * T::TA, b0 = bj * T::TB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wa = warp / T::WB, wb = warp - (warp / T::WB) * T::WB;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int fa = wa * 16 + g;   // A fragment client; + 8
+  const int fb = wb * 8 + g;    // B fragment client
+
+  double acc[RG][Q][4];
+#pragma unroll
+  for (int r = 0; r < RG; ++r)
+#pragma unroll
+    for (int s = 0; s < Q; ++s)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[r][s][x] = 0.0;
+
+  const int lo = split * split_rows;
+  const int hi = min(n, lo + split_rows);
+  const int nchunks = (hi - lo + NC - 1) / NC;
+  auto stage = [&](int c) {
+    const int slot = c % NS;
+    stage_async<P, T::TA, T::LSA, NC, T::THREADS>(sA + slot * T::STA, Ua, sak,
+                                                  san, sap, Ka, n, a0,
+                                                  lo + c * NC, tid, vec_a);
+    stage_async<Q, T::TB, T::LSB, NC, T::THREADS>(sB + slot * T::STB, Ub, sbk,
+                                                  sbn, sbq, Kb, n, b0,
+                                                  lo + c * NC, tid, vec_b);
+  };
+#pragma unroll
+  for (int c = 0; c < NS - 1; ++c) {
+    if (c < nchunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (c + NS - 1 < nchunks) stage(c + NS - 1);
+    cp_async_commit();
+    const float* xa = sA + (c % NS) * T::STA;
+    const float* xb = sB + (c % NS) * T::STB;
+    // Q B-fragments, then per row r one A-fragment and Q mmas
+    double fb_[Q][4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int s = 0; s < Q; ++s)
+        fb_[s][x] = static_cast<double>(xb[fb * T::LSB + (t4 + 4 * x) * Q + s]);
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      double fa_[8];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int col = (t4 + 4 * x) * P + r0 + r;
+        fa_[2 * x] = static_cast<double>(xa[fa * T::LSA + col]);
+        fa_[2 * x + 1] = static_cast<double>(xa[(fa + 8) * T::LSA + col]);
+      }
+#pragma unroll
+      for (int s = 0; s < Q; ++s) mma_f64(acc[r][s], fa_, fb_[s]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // lane (g, t4) holds pairs (wa * 16 + g + 8 (x / 2), wb * 8 + 2 t4 + x % 2)
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int al = wa * 16 + g + 8 * (x >> 1);
+    const int bl = wb * 8 + 2 * t4 + (x & 1);
+    if (ws != nullptr) {
+      double* dst = ws + (static_cast<long long>(split) * gridDim.x + tile) *
+                             (P * Q * T::PAIRS) + al * T::TB + bl;
+#pragma unroll
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int s = 0; s < Q; ++s)
+          dst[static_cast<long long>((r0 + r) * Q + s) * T::PAIRS] = acc[r][s][x];
+    } else {
+      if constexpr (T::GROUPS == 1) {
+        double gd[P * Q];
+#pragma unroll
+        for (int r = 0; r < P; ++r)
+#pragma unroll
+          for (int s = 0; s < Q; ++s) gd[r * Q + s] = acc[r][s][x];
+        eq2_store<P, Q>(gd, a0 + al, b0 + bl, Ka, Kb, sym != 0, bi == bj, C, ldc);
+      }
+    }
+  }
+}
+
+// Second pass of a split (or grouped) eq2 grid.  A block takes 32 pairs of
+// a tile: its threads add the splits' partial Grams in split order, one
+// (entry, pair) at a time with the pairs across lanes (coalesced reads,
+// several splits' loads in flight), into shared memory; then one warp runs
+// the epilogue, a pair a lane.  No atomics: the result is the same bitwise
+// from run to run.
+constexpr int kReduceThreads = 256;
+constexpr int kReducePairs = 32;
+
+template <int P, int Q>
+__global__ void __launch_bounds__(kReduceThreads)
+eq2_reduce_ws(const double* __restrict__ ws, long long tiles, int splits,
+              int Ka, int Kb, int sym, float* __restrict__ C, long long ldc) {
+  using T = Eq2Tile<P, Q>;
+  constexpr int PQ = P * Q, CHUNKS = T::PAIRS / kReducePairs;
+  __shared__ double g[PQ][kReducePairs + 1];
+  const long long tile = blockIdx.x / CHUNKS;
+  const int p0 = static_cast<int>(blockIdx.x % CHUNKS) * kReducePairs;
+  const long long stride = static_cast<long long>(PQ) * T::PAIRS;  // a split's tile
+  const long long split_stride = tiles * stride;
+  const double* src = ws + tile * stride + p0;
+  for (int item = threadIdx.x; item < PQ * kReducePairs; item += kReduceThreads) {
+    const int e = item / kReducePairs, pl = item - (item / kReducePairs) * kReducePairs;
+    const double* x = src + e * T::PAIRS + pl;
+    double v = x[0];
+#pragma unroll 8
+    for (int sp = 1; sp < splits; ++sp) v += x[sp * split_stride];
+    g[e][pl] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x >= kReducePairs) return;
+  int bi, bj;
+  eq2_tile(tile, sym, Kb, T::TB, bi, bj);
+  const int pair = p0 + static_cast<int>(threadIdx.x);
+  double gd[PQ];
+#pragma unroll
+  for (int e = 0; e < PQ; ++e) gd[e] = g[e][threadIdx.x];
+  eq2_store<P, Q>(gd, bi * T::TA + pair / T::TB, bj * T::TB + pair % T::TB, Ka, Kb,
+                  sym != 0, bi == bj, C, ldc);
+}
+
+// The host plan (kernels/proximity/proximity.py::eq2_plan) gives split_rows,
+// splits and the tile count it sized ws for; the launch refuses a plan that
+// does not match this grid.  ws: FP64 (splits, tiles, p * q, 32 * 32), or
+// null when the plan has one split and one row group.
+template <int P, int Q>
+int launch_eq2_tc(const float* Ua, long long sak, long long san, long long sap,
+                  int Ka, const float* Ub, long long sbk, long long sbn,
+                  long long sbq, int Kb, int n, float* C, long long ldc,
+                  int split_rows, int splits, long long plan_tiles, double* ws,
+                  cudaStream_t stream) {
+  using T = Eq2Tile<P, Q>;
+  static int done[kMaxDevices];  // smem attribute: 0 unset, 1 set, else -(error)
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev] == 0) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        eq2_tc<P, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM));
+    done[dev] = rc == 0 ? 1 : -rc;
+  }
+  if (done[dev] != 1) return -done[dev];
+  // the same stack on both sides: upper-triangle tiles only
+  const bool sym = Ua == Ub && Ka == Kb && sak == sbk && san == sbn &&
+                   sap == sbq && P == Q;
+  const long long nta = (Ka + T::TA - 1) / T::TA, ntb = (Kb + T::TB - 1) / T::TB;
+  const long long tiles = sym ? nta * (nta + 1) / 2 : nta * ntb;
+  const bool two_pass = splits > 1 || T::GROUPS > 1;
+  if (tiles != plan_tiles || tiles > 2147483647LL || split_rows <= 0 ||
+      split_rows % T::NC != 0 || splits > 65535 ||
+      splits != (n + split_rows - 1) / split_rows || two_pass != (ws != nullptr))
+    return cudaErrorInvalidValue;
+  eq2_tc<P, Q><<<dim3(static_cast<unsigned>(tiles), splits, T::GROUPS),
+                 T::THREADS, T::SMEM, stream>>>(
+      Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc, sym ? 1 : 0,
+      stage_vec(Ua, sak, san, sap, P), stage_vec(Ub, sbk, sbn, sbq, Q),
+      split_rows, ws);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || !two_pass) return rc;
+  const long long blocks = tiles * (T::PAIRS / kReducePairs);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  eq2_reduce_ws<P, Q><<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
+      ws, tiles, splits, Ka, Kb, sym ? 1 : 0, C, ldc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int pick_q(int q, const float* Ua, long long sak, long long san,
+           long long sap, int Ka, const float* Ub, long long sbk,
+           long long sbn, long long sbq, int Kb, int n, float* C,
+           long long ldc, int split_rows, int splits, long long plan_tiles,
+           double* ws, cudaStream_t stream) {
+#define PROX_Q(QQ)                                                           \
+  case QQ:                                                                   \
+    return launch_eq2_tc<P, QQ>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq,    \
+                                Kb, n, C, ldc, split_rows, splits,           \
+                                plan_tiles, ws, stream);
+  switch (q) {
+    PROX_Q(1) PROX_Q(2) PROX_Q(3) PROX_Q(4)
+    PROX_Q(5) PROX_Q(6) PROX_Q(7) PROX_Q(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef PROX_Q
 }
 
 // ---------------------------------------------------------------------------
@@ -768,15 +917,18 @@ extern "C" {
 
 // Ua (Ka, n, p) and Ub (Kb, n, q) float32 with element strides; C (Ka, Kb)
 // float32 with row stride ldc.  Any p, q >= 1.  eq2 != 0 selects Eq. 2, else
-// Eq. 3 (p == q).  Eq. 3 at ranks up to kMaxRank runs on the FP64 tensor
-// cores (eq3_tc; upper-triangle tiles when Ua and Ub are one stack), Eq. 2
-// there the unrolled templates; larger ranks take the runtime-rank path.
-// Returns cudaGetLastError() after the launch (nonzero: not launched).
+// Eq. 3 (p == q).  Up to kMaxRank both run on the FP64 tensor cores (eq3_tc,
+// eq2_tc; upper-triangle tiles when Ua and Ub are one stack); larger ranks
+// take the runtime-rank path.  split_rows, splits, tiles and ws are eq2's
+// plan (kernels/proximity/proximity.py::eq2_plan) and its FP64 workspace
+// (null when the plan has one split and one row group); the other routes
+// ignore them.  Returns cudaGetLastError() after the launch(es) (nonzero:
+// not launched).
 int proximity_cross_f32(const float* Ua, long long sak, long long san,
                         long long sap, int Ka, const float* Ub, long long sbk,
                         long long sbn, long long sbq, int Kb, int n, int p,
-                        int q, int eq2, float* C, long long ldc,
-                        void* stream) {
+                        int q, int eq2, float* C, long long ldc, int split_rows,
+                        int splits, long long tiles, double* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Ka <= 0 || Kb <= 0 || n <= 0 || p <= 0 || q <= 0)
     return cudaErrorInvalidValue;
@@ -787,7 +939,7 @@ int proximity_cross_f32(const float* Ua, long long sak, long long san,
 #define PROX_P(PP)                                                           \
   case PP:                                                                   \
     return eq2 ? pick_q<PP>(q, Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, \
-                            n, C, ldc, st)                                   \
+                            n, C, ldc, split_rows, splits, tiles, ws, st)    \
                : launch_eq3_tc<PP>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, \
                                    Kb, n, C, ldc, st);
   switch (p) {

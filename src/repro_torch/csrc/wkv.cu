@@ -17,9 +17,24 @@
 // S times one step's latency.  Two routes, chosen by the host
 // (kernels/wkv/wkv.py::wkv_plan):
 //
-// Recurrent (decode, short S): wkv_step, one block per (h, b) with hd
-// threads; thread j holds column j of the state in registers; kTc time steps
-// of r, k, w and u * k are staged in shared memory per barrier pair.
+// Recurrent (decode, short S): wkv_step.  At decode (S = 1) it is bounded
+// by bytes: the (hd, hd) float32 states, read and written once (2 MB each
+// way at rwkv6-1.6b's batch 4), while r, k, v, w are a few KB; the
+// arithmetic is 5 flops a state entry.  So the state's loads must all be in
+// flight at once and 16 bytes wide, and the step must not wait on a
+// barrier.  Columns are independent at a step: out[j] and S[:, j] need only
+// column j plus r, k, u, w and v[j].  A warp holds 2 column quads (8
+// columns) over 16 row groups: lane (g, x) holds the 4 state columns of
+// quad x of the rows i = g + 16 m (m < hd / 16) in registers, loaded and
+// stored as float4 (bfloat16 r, k are read as the 32-bit words that hold
+// them: 16-bit loads made the step 13% slower); a block is 2 warps (16
+// columns), so rwkv6's decode launches 4 x 32 x 4 = 512 blocks of 64
+// threads.  out[j] sums over rows in a fixed order: each thread's rows in
+// order, then the 16 row groups, all lanes of one warp, by an xor-shuffle
+// tree (pairwise, lower group on the left), so the kernel is deterministic
+// and needs no shared memory or barrier (kernels/wkv/ref.py::
+// wkv_recurrent_ref repeats that order).  For S > 1 the next step's r, k,
+// w, v are loaded while the current one is computed.
 //
 // Chunked (prefill): the sequence is cut into chunks of C steps (a multiple
 // of kT = 16), and each chunk into sub-blocks of kT steps.  With
@@ -55,7 +70,6 @@
 
 namespace {
 
-constexpr int kTc = 16;          // recurrent route: time steps per staging
 constexpr int kT = 16;           // chunked route: steps per sub-block
 constexpr int kRowsPerThread = 32;  // chunked route: state rows a thread holds
 constexpr int kRegs = 128;          // chunked route: registers a thread may use
@@ -63,9 +77,13 @@ constexpr int kScanThreads = 256;
 constexpr int kScanBatch = 4;     // chunks whose loads the scan starts at once
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// One element, as float.  bfloat16: the aligned 32-bit word holding it (it
+// and its neighbour), its half picked by the element's parity.
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  const auto a = reinterpret_cast<unsigned long long>(p);
+  const unsigned wd = *reinterpret_cast<const unsigned*>(a & ~3ull);
+  return __uint_as_float((a & 2) ? (wd & 0xffff0000u) : (wd << 16));
 }
 // Four consecutive elements (16-byte aligned for float, 8 for bfloat16).
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -82,66 +100,100 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // Recurrent route
 // ---------------------------------------------------------------------------
 
+// Block shape of the recurrent route: a warp holds QW column quads (4
+// state columns each) over G row groups, lane = QW * g + x for quad x; a
+// block WARPS warps, so COLS state columns of one (h, b).
+template <int HD>
+struct Step {
+  static constexpr int G = 16;                    // row groups: a thread's rows g + 16 m
+  static constexpr int RPT = HD / G;              // state rows a thread holds
+  static constexpr int QW = 32 / G;               // column quads a warp
+  static constexpr int WARPS = 2;
+  static constexpr int NT = 32 * WARPS;           // threads per block
+  static constexpr int COLS = 4 * QW * WARPS;     // state columns a block
+  static_assert(HD % G == 0 && HD % COLS == 0, "wkv_step shape");
+};
+
 template <int HD, typename TI>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(Step<HD>::NT)
 wkv_step(const TI* __restrict__ r, const TI* __restrict__ k,
          const TI* __restrict__ v, const float* __restrict__ w,
          const float* __restrict__ u, const float* __restrict__ state0,
          float* __restrict__ out, float* __restrict__ stateT, int S, int H) {
-  __shared__ __align__(16) float sr[kTc][HD];
-  __shared__ __align__(16) float sk[kTc][HD];
-  __shared__ __align__(16) float suk[kTc][HD];
-  __shared__ __align__(16) float sw[kTc][HD];
-  __shared__ float sv[kTc][HD];
+  using T = Step<HD>;
+  constexpr int G = T::G, RPT = T::RPT, QW = T::QW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / QW;
+  const int c = 4 * ((blockIdx.x * T::WARPS + warp) * QW + lane % QW);   // first column
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long sbase = (static_cast<long long>(b) * H + h) * HD * HD + c;
 
-  const int j = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long sbase = (static_cast<long long>(b) * H + h) * HD * HD;
-  const float uj = u[h * HD + j];
-
-  float st[HD];
+  float4 st[RPT];
+  float uu[RPT];
 #pragma unroll
-  for (int i = 0; i < HD; ++i)
-    st[i] = state0 != nullptr ? state0[sbase + i * HD + j] : 0.f;
+  for (int m = 0; m < RPT; ++m) {
+    const int i = g + G * m;
+    uu[m] = u[h * HD + i];
+    st[m] = state0 != nullptr
+                ? *reinterpret_cast<const float4*>(state0 + sbase + i * HD)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
-  for (int t0 = 0; t0 < S; t0 += kTc) {
-    const int nt = min(kTc, S - t0);
-    __syncthreads();
-    for (int t = 0; t < nt; ++t) {
-      const long long idx =
-          ((static_cast<long long>(b) * S + t0 + t) * H + h) * HD + j;
-      const float kj = to_f(k[idx]);
-      sr[t][j] = to_f(r[idx]);
-      sk[t][j] = kj;
-      suk[t][j] = uj * kj;
-      sw[t][j] = w[idx];
-      sv[t][j] = to_f(v[idx]);
+  // step t's operands: r, k, w of the thread's rows, v of its columns
+  float rr[RPT], kk[RPT], ww[RPT];
+  float4 vv;
+  auto fetch = [&](int t, float (&r_)[RPT], float (&k_)[RPT], float (&w_)[RPT],
+                   float4& v_) {
+    const long long base = ((static_cast<long long>(b) * S + t) * H + h) * HD;
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int i = g + G * m;
+      r_[m] = load1(r + base + i);
+      k_[m] = load1(k + base + i);
+      w_[m] = w[base + i];
     }
-    __syncthreads();
-    for (int t = 0; t < nt; ++t) {
-      const float vj = sv[t][j];
-      float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
+    v_ = load4(v + base + c);
+  };
+  fetch(0, rr, kk, ww, vv);
+
+  for (int t = 0; t < S; ++t) {
+    float nr[RPT], nk[RPT], nw[RPT];
+    float4 nv;
+    if (t + 1 < S) fetch(t + 1, nr, nk, nw, nv);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int i = 0; i < HD; i += 4) {
-        const float4 rr = *reinterpret_cast<const float4*>(&sr[t][i]);
-        const float4 kk = *reinterpret_cast<const float4*>(&sk[t][i]);
-        const float4 uk = *reinterpret_cast<const float4*>(&suk[t][i]);
-        const float4 ww = *reinterpret_cast<const float4*>(&sw[t][i]);
-        o0 = fmaf(rr.x, st[i] + uk.x * vj, o0);
-        o1 = fmaf(rr.y, st[i + 1] + uk.y * vj, o1);
-        o2 = fmaf(rr.z, st[i + 2] + uk.z * vj, o2);
-        o3 = fmaf(rr.w, st[i + 3] + uk.w * vj, o3);
-        st[i] = fmaf(ww.x, st[i], kk.x * vj);
-        st[i + 1] = fmaf(ww.y, st[i + 1], kk.y * vj);
-        st[i + 2] = fmaf(ww.z, st[i + 2], kk.z * vj);
-        st[i + 3] = fmaf(ww.w, st[i + 3], kk.w * vj);
-      }
-      out[((static_cast<long long>(b) * S + t0 + t) * H + h) * HD + j] =
-          (o0 + o1) + (o2 + o3);
+    for (int m = 0; m < RPT; ++m) {
+      const float uk = uu[m] * kk[m];
+      o.x = fmaf(rr[m], st[m].x + uk * vv.x, o.x);
+      o.y = fmaf(rr[m], st[m].y + uk * vv.y, o.y);
+      o.z = fmaf(rr[m], st[m].z + uk * vv.z, o.z);
+      o.w = fmaf(rr[m], st[m].w + uk * vv.w, o.w);
+      st[m].x = fmaf(ww[m], st[m].x, kk[m] * vv.x);
+      st[m].y = fmaf(ww[m], st[m].y, kk[m] * vv.y);
+      st[m].z = fmaf(ww[m], st[m].z, kk[m] * vv.z);
+      st[m].w = fmaf(ww[m], st[m].w, kk[m] * vv.w);
+    }
+    // the 16 row groups of a column quad are lanes of one warp: pairwise
+    // tree, lower group on the left; no shared memory, no barrier
+#pragma unroll
+    for (int off = QW; off < 32; off <<= 1) {
+      o.x += __shfl_xor_sync(0xffffffffu, o.x, off);
+      o.y += __shfl_xor_sync(0xffffffffu, o.y, off);
+      o.z += __shfl_xor_sync(0xffffffffu, o.z, off);
+      o.w += __shfl_xor_sync(0xffffffffu, o.w, off);
+    }
+    if (g == 0)
+      *reinterpret_cast<float4*>(
+          out + ((static_cast<long long>(b) * S + t) * H + h) * HD + c) = o;
+    if (t + 1 < S) {
+#pragma unroll
+      for (int m = 0; m < RPT; ++m) { rr[m] = nr[m]; kk[m] = nk[m]; ww[m] = nw[m]; }
+      vv = nv;
     }
   }
 #pragma unroll
-  for (int i = 0; i < HD; ++i) stateT[sbase + i * HD + j] = st[i];
+  for (int m = 0; m < RPT; ++m)
+    *reinterpret_cast<float4*>(stateT + sbase + (g + G * m) * HD) = st[m];
 }
 
 // ---------------------------------------------------------------------------
@@ -519,8 +571,8 @@ int launch(const TI* r, const TI* k, const TI* v, const float* w,
     if (chunk > 0)                                                           \
       return launch_chunked<D, TI>(r, k, v, w, u, state0, out, stateT, ws,   \
                                    wd, B, S, H, chunk, stream);              \
-    wkv_step<D, TI><<<dim3(H, B), D, 0, stream>>>(r, k, v, w, u, state0,     \
-                                                  out, stateT, S, H);        \
+    wkv_step<D, TI><<<dim3(D / Step<D>::COLS, H, B), Step<D>::NT, 0,         \
+                      stream>>>(r, k, v, w, u, state0, out, stateT, S, H);   \
     return static_cast<int>(cudaGetLastError());
   switch (hd) {
     WKV_HD(16) WKV_HD(32) WKV_HD(64) WKV_HD(128)

@@ -177,11 +177,13 @@ def run_federation(
 
     ``init_fn(seed)`` gives initial parameters (default
     ``model.init_params(seed, device)``).  Deterministic for a fixed
-    ``(seed, device)``: the sampled client sets are the reference's exactly
-    (same NumPy stream), so PACFL's labels and every strategy's
-    communication bytes equal the reference's.  Training and evaluation
-    compute in float32, as the reference does (``_device.float32_math``: no
-    TF32 in the model's matmuls and convolutions).
+    ``(seed, device)``, bitwise on the card as on the CPU: the sampled
+    client sets are the reference's exactly (same NumPy stream), so PACFL's
+    labels and every strategy's communication bytes equal the reference's,
+    and training and evaluation compute in float32 with deterministic
+    algorithms, as the reference does (``_device.float32_math``: no TF32 in
+    the model's matmuls and convolutions, cuDNN's deterministic algorithms
+    only), so two runs of one seed give the same parameters and accuracies.
     """
     dev = resolve_device(device)
     with float32_math():

@@ -1,4 +1,4 @@
-"""Cross proximity kernel wrapper and its plain PyTorch twin.
+"""Cross proximity kernel wrapper, its eq2 plan and its plain PyTorch twin.
 
 Ports ``repro.kernels.proximity.proximity`` (``_proximity_kernel`` /
 ``proximity_pallas``).  The CUDA kernel (``repro_torch/csrc/proximity.cu``)
@@ -6,11 +6,14 @@ computes the principal-angle block ``(Ka, n, p) x (Kb, n, q) -> (Ka, Kb)``
 in degrees; the square matrix is the case ``Ua is Ub`` followed by the
 hygiene pass (:func:`repro_torch.kernels.proximity.ops.proximity`).  Unlike
 the TPU kernel it is not square-only and does not zero-pad K: it masks the
-ragged edge itself.  Like the TPU kernel it takes any basis rank.  Eq. 3 at
-ranks up to 8 runs on the FP64 tensor cores; when both operands are one
-stack, only the upper-triangle tiles of the square are launched
-(:func:`triangle_tile`) and each value is mirrored.  Eq. 2 runs unrolled
-templates up to rank 8; larger ranks take a runtime-rank path.
+ragged edge itself.  Like the TPU kernel it takes any basis rank.  At ranks
+up to 8 both measures run on the FP64 tensor cores; when both operands are
+one stack, only the upper-triangle tiles of the square are launched
+(:func:`triangle_tile`).  Eq. 3 mirrors each value; eq. 2 runs its Jacobi
+on both ``G^T G`` and ``G G^T`` of each unordered pair.  Eq. 2 splits n
+where its tiles cannot fill the card (:func:`eq2_plan`, a pure host
+function whose numbers the kernel takes as arguments).  Larger ranks take a
+runtime-rank path.
 
 :func:`proximity_cross` takes the plain twin only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +32,16 @@ from repro_torch.kernels import _build
 # Clients per side of the eq3 tensor-core kernel's square block tile
 # (csrc/proximity.cu ``Eq3Tile``), at every rank.
 EQ3_TILE = 32
+# The eq2 tensor-core kernel (csrc/proximity.cu ``Eq2Tile``): 32 x 32 client
+# pairs a block; n staged 16 rows (one k16 mma step) at a time; FP64
+# registers a lane gives its Gram rows (``kEq2Doubles``); a split takes at
+# least four k16 steps, so its copy ring has work.
+EQ2_TILE = 32
+EQ2_K_STEP = 16
+EQ2_DOUBLES = 80
+EQ2_MIN_SPLIT_ROWS = 64
+# Largest rank of the tensor-core kernels; larger take the runtime-rank path.
+MAX_TC_RANK = 8
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -35,7 +49,8 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -56,6 +71,73 @@ def triangle_tiles(K: int) -> int:
     """Blocks of the symmetric eq3 grid for K clients."""
     nt = -(-K // EQ3_TILE)
     return nt * (nt + 1) // 2
+
+
+class Eq2Plan(NamedTuple):
+    """The eq2 kernel's grid: ``tiles`` blocks of 32 x 32 client pairs (the
+    upper triangle when ``sym``), the Gram rows r in ``groups`` of
+    ``row_group``, and n in ``splits`` of ``split_rows`` rows (split s
+    covers ``[s * split_rows, min((s + 1) * split_rows, n))``).  With more
+    than one split or group each block writes FP64 partial Grams to a
+    workspace that a second pass adds in split order."""
+    sym: bool
+    tiles: int
+    row_group: int
+    groups: int
+    splits: int
+    split_rows: int
+
+    @property
+    def workspace(self) -> bool:
+        return self.splits > 1 or self.groups > 1
+
+    def workspace_doubles(self, p: int, q: int) -> int:
+        """FP64 entries of the workspace: (splits, tiles, p * q, 32 * 32)."""
+        if not self.workspace:
+            return 0
+        return self.splits * self.tiles * p * q * EQ2_TILE * EQ2_TILE
+
+
+def eq2_row_group(p: int, q: int) -> int:
+    """Gram rows a block accumulates: all p where a lane's accumulators (4
+    pairs x rows x q) and one step's fragments (4 q + 8) fit in
+    ``EQ2_DOUBLES``, else the largest divisor of p that fits (the kernel's
+    ``eq2_row_group``)."""
+    for d in range(p, 1, -1):
+        if p % d == 0 and 4 * d * q + 4 * q + 8 <= EQ2_DOUBLES:
+            return d
+    return 1
+
+
+def eq2_plan(Ka: int, Kb: int, n: int, p: int, q: int, sym: bool,
+             sm_count: int = _build.H100_SMS) -> Eq2Plan:
+    """The eq2 kernel's plan for ``(Ka, n, p) x (Kb, n, q)`` (``sym``: one
+    stack on both sides, so ``Ka == Kb``, ``p == q``).
+
+    The kernel runs one 256-thread block per SM (its registers), so where
+    tiles x groups blocks fill at least a wave of ``sm_count`` SMs (K = 1024
+    gives 528 triangle tiles) n stays whole: one split, one kernel.  Else n
+    is cut into splits of whole k16 steps, at least ``EQ2_MIN_SPLIT_ROWS``
+    rows each, as many as one wave holds: tiles x groups x splits <=
+    ``sm_count``, as close to it as the rows allow (K = 97: 10 triangle
+    tiles x 13 splits of 240 rows, 130 blocks)."""
+    if min(Ka, Kb, n, p, q) < 1:
+        raise ValueError(f"empty eq2 problem: Ka={Ka} Kb={Kb} n={n} p={p} q={q}")
+    if sym and (Ka != Kb or p != q):
+        raise ValueError(f"a symmetric grid needs Ka == Kb and p == q, got "
+                         f"{Ka}, {Kb}, {p}, {q}")
+    nta, ntb = -(-Ka // EQ2_TILE), -(-Kb // EQ2_TILE)
+    tiles = nta * (nta + 1) // 2 if sym else nta * ntb
+    row_group = eq2_row_group(p, q)
+    groups = p // row_group
+    def whole_steps(rows: int) -> int:
+        return -(-rows // EQ2_K_STEP) * EQ2_K_STEP
+
+    wave = sm_count // (tiles * groups)   # splits one wave of blocks holds
+    rows = whole_steps(n)
+    if wave > 1:
+        rows = min(rows, max(EQ2_MIN_SPLIT_ROWS, whole_steps(-(-n // wave))))
+    return Eq2Plan(sym, tiles, row_group, groups, -(-n // rows), rows)
 
 
 def _lib() -> ctypes.CDLL:
@@ -97,10 +179,11 @@ def proximity_plain(
     """Plain PyTorch twin of the kernel: (Ka, n, p) x (Kb, n, q) -> (Ka, Kb).
 
     Same function as the kernel: the Gram entries of the float32 inputs,
-    summed without float32 cancellation (float64 here; FP64 tensor-core sums
-    for eq3 and FP32 chunk sums with FP64 totals for eq2 in the kernel) and
-    rounded to float32, then the measure core's clipped-arccos (eq3) /
-    packed-Jacobi (eq2) reduction in float32.
+    summed without float32 cancellation (float64 here, FP64 tensor-core sums
+    in the kernel) and rounded to float32, then the measure core's
+    clipped-arccos (eq3) / packed-Jacobi (eq2) reduction in float32.  The
+    kernel's eq2 schedule (splits, both epilogues of the symmetric grid) is
+    emulated by :func:`repro_torch.kernels.proximity.ref.proximity_eq2_schedule_ref`.
     """
     Ua, Ub = Ua.float().double(), Ub.float().double()
     if measure == "eq3":
@@ -126,6 +209,15 @@ def proximity_cuda(
     Ka, n, p = (int(s) for s in Ua.shape)
     Kb, _, q = (int(s) for s in Ub.shape)
     C = torch.empty((Ka, Kb), dtype=torch.float32, device=Ua.device)
+    plan, ws = None, None
+    if measure == "eq2" and max(p, q) <= MAX_TC_RANK:
+        # the kernel's symmetric test: one stack, same strides, on both sides
+        sym = (Ua.data_ptr() == Ub.data_ptr() and Ua.shape == Ub.shape
+               and Ua.stride() == Ub.stride())
+        plan = eq2_plan(Ka, Kb, n, p, q, sym, _build.sm_count(Ua.device.index))
+        if plan.workspace:
+            ws = torch.empty(plan.workspace_doubles(p, q), dtype=torch.float64,
+                             device=Ua.device)
     lib = _lib()
     with torch.cuda.device(Ua.device):
         stream = torch.cuda.current_stream(Ua.device).cuda_stream
@@ -133,13 +225,16 @@ def proximity_cuda(
             Ua.data_ptr(), *Ua.stride(), Ka,
             Ub.data_ptr(), *Ub.stride(), Kb,
             n, p, q, int(measure == "eq2"),
-            C.data_ptr(), C.stride(0), stream,
+            C.data_ptr(), C.stride(0),
+            plan.split_rows if plan else 0, plan.splits if plan else 0,
+            plan.tiles if plan else 0, None if ws is None else ws.data_ptr(),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"proximity kernel launch failed: "
             f"{lib.proximity_error_string(rc).decode()} "
-            f"(Ka={Ka}, Kb={Kb}, n={n}, p={p}, q={q}, {measure})"
+            f"(Ka={Ka}, Kb={Kb}, n={n}, p={p}, q={q}, {measure}, {plan})"
         )
     _build.LAUNCHES["proximity"] += 1
     _build.ROUTE_LAUNCHES["proximity", measure] += 1

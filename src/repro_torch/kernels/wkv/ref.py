@@ -1,11 +1,14 @@
 """Plain oracles for the WKV6 recurrence kernel (port of ``repro.kernels.wkv.ref``).
 
 :func:`wkv_ref` steps the recurrence one time step at a time, as the
-reference does.  :func:`wkv_chunked_ref` computes the same function by the
-CUDA kernel's chunked route (``repro_torch/csrc/wkv.cu``), in plain PyTorch:
-per-chunk state contributions, a scan over the chunks, then per-chunk
-outputs, each chunk walked in sub-blocks.  Every decay factor is a product
-of w's, never a quotient, so no factor overflows however fast the decay.
+reference does.  :func:`wkv_recurrent_ref` steps it as the CUDA kernel's
+recurrent route (``wkv_step``, decode) does, with the kernel's split of
+each state over threads and its order of the ``out[j]`` reduction.
+:func:`wkv_chunked_ref` computes the same function by the CUDA kernel's
+chunked route (``repro_torch/csrc/wkv.cu``), in plain PyTorch: per-chunk
+state contributions, a scan over the chunks, then per-chunk outputs, each
+chunk walked in sub-blocks.  Every decay factor is a product of w's, never
+a quotient, so no factor overflows however fast the decay.
 """
 from __future__ import annotations
 
@@ -31,6 +34,43 @@ def wkv_ref(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[None, :, :, None] * kv))
         s = w[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+# The recurrent kernel's split of a state (csrc/wkv.cu ``Step``): 16 row
+# groups, a thread holding rows g + 16 m of 4 columns, the 16 groups of a
+# column in one warp.
+STEP_ROW_GROUPS = 16
+
+
+def wkv_recurrent_ref(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
+    """The WKV6 recurrence as the recurrent CUDA kernel computes it, float32.
+
+    Same arguments and result as :func:`wkv_ref`.  Per step, ``out[j]`` is
+    summed over the state rows in the kernel's order: each row group g's
+    rows ``i = g + 16 m`` in order of m, then the 16 row groups by a
+    pairwise tree, lower group on the left.  The state update is
+    elementwise.
+    """
+    B, S, H, hd = r.shape
+    G = STEP_ROW_GROUPS
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    u = u.float()
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    outs = []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]          # (B, H, hd)
+        uk = (u[None] * kt)[..., None]
+        terms = rt[..., None] * (s + uk * vt[:, :, None, :])         # (B, H, i, j)
+        terms = terms.reshape(B, H, hd // G, G, hd)                  # i = g + G m
+        part = terms[:, :, 0]
+        for m in range(1, hd // G):
+            part = part + terms[:, :, m]                              # (B, H, g, j)
+        while part.shape[2] > 1:
+            part = part[:, :, 0::2] + part[:, :, 1::2]
+        outs.append(part[:, :, 0])
+        s = wt[..., None] * s + kt[..., None] * vt[:, :, None, :]
     return torch.stack(outs, dim=1), s
 
 

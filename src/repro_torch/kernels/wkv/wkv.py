@@ -2,10 +2,11 @@
 
 Ports ``repro.kernels.wkv.wkv`` (``_wkv_kernel`` / ``wkv_pallas``).  The CUDA
 source (``repro_torch/csrc/wkv.cu``) has two routes, chosen explicitly by
-:func:`wkv_plan` from the sequence length: the recurrent one (each (batch,
-head) state in registers, one block per state; decode and short sequences)
-and the chunked one (chunk contributions, a scan over chunks, chunk outputs:
-three kernels under one call; prefill).  Both read r, k, v as float32 or
+:func:`wkv_plan` from the sequence length: the recurrent one (``wkv_step``:
+each (batch, head) state in registers as 16-byte column quads, the 16 row
+groups of a column in one warp; decode and short sequences) and the chunked one
+(chunk contributions, a scan over chunks, chunk outputs: three kernels
+under one call; prefill).  Both read r, k, v as float32 or
 bfloat16 and compute in float32.
 
 :func:`repro_torch.kernels.wkv.ops.wkv` takes the plain twin only for tensors
@@ -50,7 +51,9 @@ class WkvPlan(NamedTuple):
 
 def wkv_plan(S: int) -> WkvPlan:
     """The route for a sequence of ``S`` steps: the recurrent kernel below
-    ``CHUNKED_MIN_S`` steps (decode is S = 1), else chunks of ``CHUNK``."""
+    ``CHUNKED_MIN_S`` steps (decode is S = 1; one kernel body for every such
+    S, stepping the sequence with the state in registers), else chunks of
+    ``CHUNK``."""
     if S < 1:
         raise ValueError(f"S must be positive, got {S}")
     if S < CHUNKED_MIN_S:

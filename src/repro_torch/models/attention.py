@@ -26,7 +26,7 @@ from repro_torch.models.layers import dense_init, mm, param
 
 NEG_INF = -1e30
 
-NOT_PORTED = "ROADMAP Queue 1 item 1 (the rest of the LM zoo)"
+NOT_PORTED = "ROADMAP Queue 1, the rest of the LM zoo"
 
 
 # ---------------------------------------------------------------------------

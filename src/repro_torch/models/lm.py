@@ -15,7 +15,7 @@ updated in place).  The logits keep the padded vocabulary
 (``cfg.vocab_padded``), as the reference's do.
 
 Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-Queue 1 item 1: MoE blocks, Mamba2 / zamba2, sliding-window ring caches
+Queue 1's "the rest of the LM zoo": MoE blocks, Mamba2 / zamba2, sliding-window ring caches
 (gemma3), encoder-decoder (whisper), the vision stub (internvl2) and the
 training step (``mode="train"``, ``lm_loss``, ``make_train_step``).
 """

@@ -7,7 +7,7 @@ with each (batch, head) state on chip, in place of the reference's two-level
 ``lax.scan``; on the CPU its plain twin steps the same recurrence.
 
 The Mamba2 half (``MambaState``, ``mamba_ssd``, ``mamba_decode``) is not
-ported yet: ROADMAP Queue 1 item 1.
+ported yet: ROADMAP Queue 1, the rest of the LM zoo.
 """
 from __future__ import annotations
 

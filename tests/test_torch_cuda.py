@@ -12,7 +12,10 @@ bfloat16 (``tests/test_kernels.py``), and bfloat16 also within 1e-2 of the
 largest |output| (one bfloat16 step of it is at most 2^-7); WKV within 1e-5
 of the largest |output| and |state| (the state barely decays, so the scale
 grows with S), by both routes (sequences on each side of the plan's
-threshold) and with fast decays (w down to ~6e-4).
+threshold) and with fast decays (w down to ~6e-4).  The eq2 proximity
+kernel and the recurrent WKV kernel (decode) are also required to give the
+same bits when launched twice, and a small mix4 federation the same
+labels, accuracies and parameters when run twice with one seed.
 """
 import numpy as np
 import pytest
@@ -413,6 +416,95 @@ def test_proximity_eq3_strided_stacks(cuda, layout):
             assert torch.equal(got, got.T)
             got, want = got[off], want[off]
         assert (got - want).abs().max().item() <= TOL_DEG
+
+
+# (Ka, Kb, p): the eq2 plan's cases on the FL path at n = 3072 -- mix4's
+# square (10 triangle tiles, split over n), the churn admission's cross
+# block and square (split down to 64-row splits), PACFL's K = 1024 square
+# (one kernel, no workspace) -- and a square whose Gram rows come in groups
+EQ2_PLAN_SHAPES = [(97, None, 3), (93, 8, 3), (8, None, 3), (1024, None, 3), (97, None, 4)]
+
+
+@pytest.mark.parametrize("Ka,Kb,p", EQ2_PLAN_SHAPES)
+def test_eq2_kernel_at_plan_shapes_matches_plain_and_repeats(cuda, Ka, Kb, p):
+    from repro_torch.core.angles import _hygiene
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+    from repro_torch.kernels.proximity.proximity import eq2_plan
+
+    Ua = _signatures(Ka, 3072, p, seed=Ka + p, spread=0.3).to(cuda)
+    Ub = Ua if Kb is None else _signatures(Kb, 3072, p, seed=Kb, spread=0.3).to(cuda)
+    plan = eq2_plan(Ua.shape[0], Ub.shape[0], 3072, p, p, sym=Ua is Ub)
+    assert plan.workspace == (Ka != 1024)
+    before = _build.LAUNCHES["proximity"]
+    got = proximity_cuda(Ua, Ub, "eq2")
+    again = proximity_cuda(Ua, Ub, "eq2")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["proximity"] == before + 2   # one count a call, whatever the plan
+    assert torch.equal(got, again)
+    want = proximity_plain(Ua, Ub, "eq2")
+    if Ua is Ub:
+        got, want = _hygiene(got), _hygiene(want)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_DEG
+
+
+def test_eq2_square_is_the_rectangle(cuda):
+    """The symmetric eq2 grid (upper-triangle tiles, both epilogues) gives
+    what the full rectangle of the stack against a copy of itself gives,
+    where both take one split (K = 1000: 528 and 1024 tiles)."""
+    from repro_torch.kernels.proximity import proximity_cuda
+
+    U = _signatures(1000, 300, 3, seed=5, spread=0.3).to(cuda)
+    square = proximity_cuda(U, U, "eq2")
+    cross = proximity_cuda(U, U.clone(), "eq2")
+    torch.cuda.synchronize()
+    assert torch.equal(square, cross)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(4, 1, 32, 64), (2, 1, 3, 16), (2, 1, 3, 32), (2, 1, 3, 128),
+                                      (4, 16, 32, 64), (2, 47, 4, 64), (3, 9, 2, 128)])
+def test_wkv_recurrent_route_matches_plain_and_repeats(cuda, B, S, H, hd, dtype):
+    """The recurrent kernel (decode and S < CHUNKED_MIN_S) from a carried
+    state: within 1e-5 of the largest |output| and |state| of the plain
+    twin, and within the same of its own emulation (wkv_recurrent_ref, the
+    kernel's reduction order), the same bits twice."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan, wkv_recurrent_ref
+
+    assert wkv_plan(S).route == "recurrent"
+    ops, s0 = _wkv_operands(cuda, B, S, H, hd, B + S + hd, "fast", True, dtype)
+    got = wkv_cuda(*ops, s0)
+    again = wkv_cuda(*ops, s0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tuple(a.float() for a in ops)
+    _assert_wkv_close(got, wkv_plain(*plain, s0))
+    _assert_wkv_close(got, wkv_recurrent_ref(*plain, s0))
+
+
+def test_mix4_federation_repeats_bitwise(cuda):
+    """mix4 PACFL (eq2, LeNet-5 at 16x16x3) run twice with one seed on the
+    card: the same labels, round accuracies, final accuracies and cluster
+    parameters, bit for bit."""
+    from repro_torch.fl import run_federation
+    from repro_torch.launch.fl_train import build_clients, fl_config
+    from repro_torch.models.cnn import build_model
+
+    clients, n_classes = build_clients("mix4", 30, 768, 600)
+    model = build_model("lenet5", dim=768, n_classes=n_classes)
+
+    def run():
+        res = run_federation("pacfl", clients, model, fl_config("mix4", 3), seed=3,
+                             eval_every=1, device=cuda)
+        st = res.strategy_obj
+        return res, st.labels.copy(), {k: v.clone() for k, v in st.cluster_params.items()}
+
+    (a, la, pa), (b, lb, pb) = run(), run()
+    assert [r.mean_acc for r in a.records] == [r.mean_acc for r in b.records]
+    np.testing.assert_array_equal(la, lb)
+    np.testing.assert_array_equal(a.final_accs, b.final_accs)
+    assert pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])

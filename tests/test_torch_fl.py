@@ -442,6 +442,32 @@ def test_run_federation_computes_in_float32():
     assert after == (True, True)
 
 
+def test_run_federation_holds_cudnn_to_deterministic_algorithms():
+    """Inside ``run_federation`` cuDNN takes deterministic algorithms only,
+    chosen without benchmarking, so two runs of one seed on the card give
+    the same bits (the card test ``test_mix4_federation_repeats_bitwise``);
+    the caller's settings come back afterwards."""
+    clients = label_skew(make_dataset("cifar10s", n_train=200, n_test=50, dim=16), 4)
+    model = MLP(16, 10, hidden=(8,))
+    cudnn = torch.backends.cudnn
+    seen = []
+
+    def init_fn(seed):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return model.init_params(seed, "cpu")
+
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = False, True
+    try:
+        run_federation("fedavg", clients, model, FLConfig(rounds=1), init_fn=init_fn,
+                       device="cpu")
+        after = cudnn.deterministic, cudnn.benchmark
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    assert seen and set(seen) == {(True, False)}
+    assert after == (False, True)
+
+
 def test_fl_modules_import_without_jax():
     """The slice's modules import with ``jax`` blocked."""
     script = (

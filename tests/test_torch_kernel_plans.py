@@ -12,6 +12,18 @@ sequences and decode, chunks for prefill) must cover every time step
 exactly once, and the proximity kernel's symmetric eq3 grid
 (``triangle_tile``) every unordered pair of client tiles exactly once.
 
+The eq2 proximity kernel's plan (``eq2_plan``: 32 x 32 pair tiles, the
+upper triangle for a square, Gram rows in register-sized groups, n split
+where the tiles cannot fill the card) must cover every (pair, Gram entry,
+row of n) exactly once, for the square (unordered pairs) and the cross;
+at the FL path's K = 97 it fills one wave of the card's 132 SMs (one
+block an SM), at K = 1024 it takes no split.  ``proximity_eq2_schedule_ref`` follows the kernel's schedule in
+plain PyTorch (FP64 partial Grams per split, added in split order, both
+Jacobi epilogues on the triangle); on numpy-seeded signatures with planted
+near-identical subspaces (angles of 5-9 degrees) it agrees with the
+reference's Pallas kernel (interpret mode) and ``measure_pair`` within
+``TOL_DEG`` = 1e-3 degrees.
+
 ``merge_partials`` is the formula of the kernel's combine step, in plain
 PyTorch beside the twin.  Partial states from ``attention_partials`` over a
 plan's key ranges, merged, must equal the reference's ``attention_ref``
@@ -25,7 +37,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.measures import measure_pair as ref_measure_pair
 from repro.kernels.flash_attention import attention_ref as ref_attention_ref
+from repro.kernels.proximity.proximity import proximity_pallas
+from repro_torch.core.angles import _hygiene
 from repro_torch.kernels._build import H100_SMS
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_SPLITS,
@@ -39,7 +54,18 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
     merge_partials,
 )
-from repro_torch.kernels.proximity.proximity import EQ3_TILE, triangle_tile, triangle_tiles
+from repro_torch.kernels.proximity.proximity import (
+    EQ2_DOUBLES,
+    EQ2_K_STEP,
+    EQ2_MIN_SPLIT_ROWS,
+    EQ2_TILE,
+    EQ3_TILE,
+    eq2_plan,
+    eq2_row_group,
+    triangle_tile,
+    triangle_tiles,
+)
+from repro_torch.kernels.proximity.ref import proximity_eq2_schedule_ref
 from repro_torch.kernels.tsgemm.tsgemm import SLABS, TS_K, TS_ROWS, split_k_plan
 from repro_torch.kernels.wkv.wkv import CHUNK, CHUNKED_MIN_S, SUB_BLOCK, WkvPlan, wkv_plan
 
@@ -187,6 +213,149 @@ def test_triangle_tile_at_large_indices():
         assert triangle_tile(first) == (0, j)
         assert triangle_tile(first - 1) == (j - 1, j - 1)
         assert triangle_tile(first + j) == (j, j)
+
+
+# ---------------------------------------------------------------------------
+# eq2 proximity plan and schedule
+# ---------------------------------------------------------------------------
+
+TOL_DEG = 1e-3
+EQ2_PLAN_CASES = [
+    (K, p, q, n, form)
+    for K in (1, 31, 32, 97, 1024)
+    for p, q in ((1, 1), (3, 3), (3, 5), (8, 8))
+    for n in (16, 3072)
+    for form in ("square", "cross")
+    if form == "cross" or p == q
+]
+
+
+def _eq2_tile_of(plan, x, Kb):
+    return triangle_tile(x) if plan.sym else divmod(x, -(-Kb // EQ2_TILE))
+
+
+@pytest.mark.parametrize("K,p,q,n,form", EQ2_PLAN_CASES)
+def test_eq2_plan_covers_every_pair_entry_and_row_once(K, p, q, n, form):
+    """Tiles x groups x splits is the grid; each block covers its tile's
+    pairs, its group's Gram rows and its split's rows of n.  The square
+    covers each unordered pair (a <= b) once, C[b, a] coming from the
+    second epilogue; the cross (against 37 clients) each ordered pair."""
+    Ka, Kb = (K, K) if form == "square" else (K, 37)
+    plan = eq2_plan(Ka, Kb, n, p, q, sym=form == "square")
+    pairs = np.zeros((Ka, Kb), dtype=np.int64)
+    for x in range(plan.tiles):
+        bi, bj = _eq2_tile_of(plan, x, Kb)
+        a = np.arange(bi * EQ2_TILE, min((bi + 1) * EQ2_TILE, Ka))
+        b = np.arange(bj * EQ2_TILE, min((bj + 1) * EQ2_TILE, Kb))
+        assert a.size and b.size, "a tile past the clients"
+        done = np.ones((a.size, b.size), dtype=np.int64)
+        if plan.sym and bi == bj:
+            done = np.triu(done)   # the diagonal tile computes a <= b only
+        pairs[a[0]:a[-1] + 1, b[0]:b[-1] + 1] += done
+    want = np.triu(np.ones((Ka, Kb), dtype=np.int64)) if plan.sym else 1
+    assert (pairs == want).all()
+    entries = np.zeros(p, dtype=np.int64)
+    for grp in range(plan.groups):
+        entries[grp * plan.row_group:(grp + 1) * plan.row_group] += 1
+    assert (entries == 1).all()
+    rows = np.zeros(n, dtype=np.int64)
+    for s in range(plan.splits):
+        lo, hi = s * plan.split_rows, min((s + 1) * plan.split_rows, n)
+        assert lo < n, "a split past n"
+        rows[lo:hi] += 1
+    assert (rows == 1).all()
+    assert plan.split_rows % EQ2_K_STEP == 0
+    if plan.splits > 1:
+        # one wave of blocks (one per SM), as full as the rows allow
+        wave = H100_SMS // (plan.tiles * plan.groups)
+        assert plan.split_rows >= EQ2_MIN_SPLIT_ROWS
+        assert plan.splits <= wave
+        assert plan.split_rows == EQ2_MIN_SPLIT_ROWS or (
+            plan.split_rows - EQ2_K_STEP) * wave < n   # one step fewer would need more splits
+    assert plan.workspace == (plan.splits > 1 or plan.groups > 1)
+    assert plan.workspace_doubles(p, q) == (
+        plan.splits * plan.tiles * p * q * EQ2_TILE ** 2 if plan.workspace else 0)
+
+
+def test_eq2_plan_at_the_fl_path_shapes():
+    """mix4's square (K = 97): 10 triangle tiles, split 13 ways over n =
+    3072 into one wave of 130 blocks on the 132 SMs; the churn admission's
+    93 x 8 cross block and 8 x 8 square split too (the square down to the
+    fewest rows a split takes); PACFL's K = 1024 square takes one kernel,
+    no workspace."""
+    sq97 = eq2_plan(97, 97, 3072, 3, 3, sym=True)
+    assert (sq97.tiles, sq97.groups, sq97.splits, sq97.split_rows) == (10, 1, 13, 240)
+    assert H100_SMS - 10 < sq97.tiles * sq97.splits <= H100_SMS
+    cross = eq2_plan(93, 8, 3072, 3, 3, sym=False)
+    assert (cross.tiles, cross.splits, cross.split_rows) == (3, 39, 80)
+    square8 = eq2_plan(8, 8, 3072, 3, 3, sym=True)   # one tile: splits of the fewest rows
+    assert (square8.tiles, square8.splits, square8.split_rows) == (1, 48, EQ2_MIN_SPLIT_ROWS)
+    big = eq2_plan(1024, 1024, 3072, 3, 3, sym=True)
+    assert (big.tiles, big.splits, big.workspace) == (528, 1, False)
+    assert eq2_plan(97, 97, 3072, 3, 3, sym=True, sm_count=8).splits == 1
+    with pytest.raises(ValueError):
+        eq2_plan(97, 96, 3072, 3, 3, sym=True)
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_eq2_row_group_fits_the_register_budget(p):
+    for q in range(1, 9):
+        rg = eq2_row_group(p, q)
+        assert p % rg == 0
+        assert rg == 1 or 4 * rg * q + 4 * q + 8 <= EQ2_DOUBLES
+        # no larger divisor of p would fit
+        assert all(4 * d * q + 4 * q + 8 > EQ2_DOUBLES
+                   for d in range(rg + 1, p + 1) if p % d == 0)
+    assert eq2_row_group(3, 3) == 3   # the FL path's rank: one group, in registers
+
+
+def _planted_signatures(K, n, p, seed, noise_seed=None, n_bases=3, spread=0.1, rank=None):
+    """K orthonormal (n, p) bases, each a perturbed copy of the first p
+    columns of one of n_bases planted (n, rank) subspaces (from ``seed``;
+    the perturbation from ``noise_seed``): angles within a planted subspace
+    of 5-9 degrees."""
+    rng = np.random.default_rng(seed)
+    bases = [np.linalg.qr(rng.normal(size=(n, rank or p)))[0][:, :p] for _ in range(n_bases)]
+    rng = np.random.default_rng(seed if noise_seed is None else noise_seed)
+    return np.stack([
+        np.linalg.qr(bases[k % n_bases] + spread / np.sqrt(n) * rng.normal(size=(n, p)))[0]
+        for k in range(K)
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("K,n,p", [(40, 512, 3), (13, 500, 3), (33, 300, 5), (9, 256, 1)])
+def test_eq2_schedule_square_matches_reference(K, n, p):
+    U = _planted_signatures(K, n, p, seed=K + n + p)
+    plan = eq2_plan(K, K, n, p, p, sym=True)
+    assert plan.splits > 1   # the schedule under test splits n
+    t = torch.from_numpy(U)
+    raw = proximity_eq2_schedule_ref(t, t)
+    got = _hygiene(raw).numpy()
+    pallas = np.asarray(proximity_pallas(jnp.asarray(U), measure="eq2"))
+    pair = np.array(ref_measure_pair(jnp.asarray(U), jnp.asarray(U), "eq2"))
+    off = ~np.eye(K, dtype=bool)
+    np.testing.assert_allclose(got, pallas, atol=TOL_DEG)
+    np.testing.assert_allclose(got[off], pair[off], atol=TOL_DEG)
+    # the two epilogues of a pair are two Jacobis, not one mirrored value
+    assert np.isfinite(raw.numpy()).all()
+    within = np.array([[a != b and a % 3 == b % 3 for b in range(K)] for a in range(K)])
+    if p > 1:
+        assert 3.0 < got[within].min() and got[within].max() < 12.0
+
+
+@pytest.mark.parametrize("Ka,Kb,n,p,q", [(40, 7, 512, 3, 3), (9, 33, 300, 3, 5),
+                                          (30, 2, 700, 2, 3)])
+def test_eq2_schedule_cross_matches_reference(Ka, Kb, n, p, q):
+    """Both stacks perturb the same planted subspaces (ranks p and q of one
+    rank-max(p, q) basis), with their own noise."""
+    rank = max(p, q)
+    Ua = _planted_signatures(Ka, n, p, seed=Ka + n, noise_seed=1, rank=rank)
+    Ub = _planted_signatures(Kb, n, q, seed=Ka + n, noise_seed=2, rank=rank)
+    plan = eq2_plan(Ka, Kb, n, p, q, sym=False)
+    assert plan.splits > 1
+    got = proximity_eq2_schedule_ref(torch.from_numpy(Ua), torch.from_numpy(Ub)).numpy()
+    want = np.asarray(ref_measure_pair(jnp.asarray(Ua), jnp.asarray(Ub), "eq2"))
+    np.testing.assert_allclose(got, want, atol=TOL_DEG)
 
 
 # ---------------------------------------------------------------------------

@@ -104,9 +104,9 @@ def test_full_sequence_logits_match_reference(arch):
 @pytest.mark.parametrize("arch", NOT_SERVED)
 def test_families_not_ported_raise(arch):
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the rest of the LM zoo"):
         lm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the rest of the LM zoo"):
         lm.check_supported(cfg)
 
 

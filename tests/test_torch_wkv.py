@@ -14,8 +14,12 @@ than the absolute 2e-5: the port's stepwise twin itself is 4.6e-5 from the
 reference there.  The chunked cases are therefore held to ATOL plus
 SCALE_RTOL of the largest |value| (a few float32 ulps of it).  The port's ``rwkv_time_mix`` and
 ``rwkv_channel_mix`` are held against the reference's with the reference's
-own parameters, in prefill and in decode (S = 1, carried state).  Inputs are
-numpy-seeded.
+own parameters, in prefill and in decode (S = 1, carried state).
+``wkv_recurrent_ref`` steps the recurrence as the recurrent CUDA kernel
+(decode) does, with its split of each state over 16 row groups of 4-column
+threads and its order of the ``out[j]`` sum; it is held to ATOL against the
+reference's Pallas kernel at S = 1 with a carried state and at small S, at
+every head dim the kernel takes.  Inputs are numpy-seeded.
 """
 import jax
 import jax.numpy as jnp
@@ -28,7 +32,14 @@ from repro.kernels.wkv import wkv as ref_wkv
 from repro.kernels.wkv import wkv_ref as ref_wkv_ref
 from repro.models import ssm as ref_ssm
 from repro_torch.configs import get_config
-from repro_torch.kernels.wkv import wkv, wkv_chunked_ref, wkv_cuda, wkv_plain, wkv_ref
+from repro_torch.kernels.wkv import (
+    wkv,
+    wkv_chunked_ref,
+    wkv_cuda,
+    wkv_plain,
+    wkv_recurrent_ref,
+    wkv_ref,
+)
 from repro_torch.kernels.wkv.wkv import CHUNK
 from repro_torch.models import ssm
 
@@ -73,6 +84,31 @@ def test_plain_matches_pallas_and_oracle(B, S, H, hd, with_state):
         np.testing.assert_allclose(state.numpy(), np.asarray(want_s), atol=ATOL)
     o2, s2 = wkv_ref(*t)
     assert torch.equal(o2, out) and torch.equal(s2, state)
+
+
+# (B, S, H, hd): decode (S = 1) at rwkv6-1.6b's heads and at every head dim
+# (1 to 8 rows a thread, 1 to 8 blocks a state), and short sequences
+RECURRENT_SHAPES = [(4, 1, 32, 64), (2, 1, 3, 16), (2, 1, 3, 32), (1, 1, 2, 128),
+                    (2, 7, 2, 64), (1, 12, 2, 32), (2, 5, 1, 128), (3, 16, 2, 16)]
+
+
+@pytest.mark.parametrize("regime", ["slow", "fast"])
+@pytest.mark.parametrize("B,S,H,hd", RECURRENT_SHAPES)
+def test_recurrent_ref_matches_pallas_with_carried_state(B, S, H, hd, regime):
+    ops = _operands(B, S, H, hd, seed=B * 10 + S + hd, with_state=True, regime=regime)
+    want_o, want_s = ref_wkv(*(jnp.asarray(a) for a in ops))
+    out, state = wkv_recurrent_ref(*(torch.from_numpy(a) for a in ops))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_o), atol=ATOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_s), atol=ATOL)
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 3, 2, 64), (1, 1, 2, 16)])
+def test_recurrent_ref_from_a_zero_state(B, S, H, hd):
+    ops = _operands(B, S, H, hd, seed=S + hd, with_state=False)
+    want_o, want_s = ref_wkv(*(None if a is None else jnp.asarray(a) for a in ops))
+    out, state = wkv_recurrent_ref(*(None if a is None else torch.from_numpy(a) for a in ops))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_o), atol=ATOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_s), atol=ATOL)
 
 
 def _assert_close_to_scale(got, want):
