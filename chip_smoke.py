@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    proximity (upper-triangle tiles) against the full rectangle; eq2 also at
    its plan's cases (printed): mix4's K = 97 square (split over n), the
    churn admission's cross block and square, K = 1024 (no split), each
-   launched twice and required bitwise equal; the recurrent WKV kernel
+   launched twice and required bitwise equal; eq3 and eq2 at the signature
+   families' dimensions (n = 256, 192 and a ragged 200) at K = 97 and 100,
+   each launched twice and required bitwise equal; the recurrent WKV kernel
    (decode) at S = 1, 16 and 32 from a carried state;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
@@ -65,15 +67,27 @@ Phases, each printing its own lines; any failure exits nonzero:
 8. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call
    (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
-   the M = 1024 bucket; proximity eq2 also at mix4's K = 97; WKV decode
-   replayed from a CUDA graph, and prefill also with float32 r, k, v).
+   the M = 1024 bucket; proximity eq2 also at mix4's K = 97, and the
+   runtime-rank path, eq3 and eq2, at K = 1024, p = 16; WKV decode
+   replayed from a CUDA graph, and prefill also with float32 r, k, v);
+9. model-based signature families (run after phase 5, at most 150 s):
+   ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192) on
+   phase 5's mix4 clients with LeNet-5 at 32x32x3, the experiment suite's
+   settings (``beta_quantile`` 0.1, eq2): per family the one-shot
+   signatures (timed, and twice bitwise equal), ``one_shot_clustering``
+   and a 10-round ``run_federation``, each through eq2; the first 16
+   clients on the card against the CPU from one set of CPU draws; a
+   3-round ``weight_delta`` run with phase 5's churn event; a
+   ``DriftTracker`` observation of phase 4's engine after a fused ``move``,
+   and the Table-6 distances (BD, KL, MMD) at d = 256, each against the CPU.
 
 Launch counts are set to 0 just before each main path (phase 4, each
-federation and each server call of phase 5, each architecture of 6) and
-read just after; launches that only check a result (phase 5's
-``admit_oracle`` and its newcomers' signatures) fall outside every window.
-The kernels line sums phases 4 and 5's windows and splits the proximity
-launches by route (eq3, eq2).  The second-to-last line
+federation and each server call of phase 5, each architecture of 6, each
+family call, federation and the move of 9) and read just after; launches
+that only check a result (phase 5's ``admit_oracle`` and its newcomers'
+signatures, phase 9's repeats and card-against-CPU work) fall outside every
+window.  The kernels line sums phases 4, 5 and 9's windows and splits the
+proximity launches by route (eq3, eq2).  The second-to-last line
 is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``.  Nothing of the JAX package is imported.
 
@@ -81,8 +95,9 @@ is the ``{"kernels": [...]}`` record, the last
 
 builds the four kernels of the ``repro_torch`` under the directory SRC,
 times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
-and eq2 at K = 1024, eq2 at K = 97) at phase 8's main-path shapes with
-phase 8's timers and prints one JSON line of milliseconds.
+and eq2 at K = 1024, eq2 at K = 97, the runtime-rank path at p = 16) at
+phase 8's shapes with phase 8's timers and prints one JSON line of
+milliseconds.
 
     python3 chip_smoke.py --time-fl SRC
 
@@ -139,6 +154,7 @@ NOISE = 0.02
 SEED = 0
 
 PROX_TOL_DEG = 1e-3        # the reference's TOL_DEG
+ANY_RANK_P = 16            # phase 8 times the runtime-rank proximity path here
 F32_RTOL, BF16_RTOL = 1e-5, 2e-2   # tests/test_kernels.py, atol = 10 * rtol
 FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
 # bfloat16 flash attention is held, besides, to max|kernel - plain| <= this
@@ -453,6 +469,25 @@ def check_proximity(torch, fed, errs: list) -> None:
         torch.cuda.synchronize()
         require(torch.equal(first, second), f"proximity eq2 {label}: two launches differ")
         log("kernels", f"proximity eq2 {label}: two launches bitwise equal")
+    # the model-based signature families' ambient dimensions (phase 9): the
+    # weight-delta sketch (n = 256), the inference probe (48 rows x 4
+    # datasets = 192) and a ragged probe (200), at mix4's K = 97 (eq2 split
+    # over n) and label20's K = 100; each launched twice, bitwise equal
+    gen = torch.Generator(device=fed.device).manual_seed(SEED + 9)
+    for n in FAMILY_DIMS:
+        for K in (MIX4_K, 100):
+            U = torch.linalg.qr(torch.randn((K, n, RANK), generator=gen, device=fed.device))[0]
+            U = U.contiguous()
+            for measure in ("eq3", "eq2"):
+                label = f"square K={K} n={n}"
+                if measure == "eq2":
+                    log("kernels", f"proximity eq2 {label}: "
+                        f"{eq2_plan(K, K, n, RANK, RANK, True)}")
+                compare(label, U, U, measure, True)
+                first, second = proximity_cuda(U, U, measure), proximity_cuda(U, U, measure)
+                torch.cuda.synchronize()
+                require(torch.equal(first, second), f"proximity {measure} {label}: two launches differ")
+            log("kernels", f"proximity eq3 and eq2 square K={K} n={n}: two launches bitwise equal")
     # the square launches only the upper-triangle tiles (eq3 mirrors each
     # value, eq2 runs both epilogues of a pair): it must equal the full
     # rectangle of the stack against a copy of itself, where both take one
@@ -958,6 +993,309 @@ def phase_fl(torch, device, main) -> dict:
     require(elapsed <= FL_BUDGET_S, f"phase 5 took {elapsed:.1f} s")
     out["routes"] = dict(totals["routes"])
     out["launches"] = dict(totals["launches"])
+    out.update(mix4_clients=clients, mix4_labels=strat.labels.copy(), newcomers=newcomers)
+    return out
+
+
+# Model-based signature families (phase 9) on phase 5's mix4 federation: the
+# experiment suite's settings (experiments/run_fl_suite.py, FAMILY_PARAMS and
+# fam_pacfl's beta_quantile 0.1) with the launcher's other settings.
+FAMILY_PARAMS = {"weight_delta": {"segments": 4, "steps": 8, "sketch_dim": 256},
+                 "inference": {"probe_per_dataset": 48, "steps": 16}}
+FAMILY_QUANTILE = 0.1
+FAMILY_DIMS = (256, 192, 200)   # the sketch, the probe (48 x 4 datasets), a ragged probe
+FAMILY_ROUNDS, FAMILY_CHURN_ROUNDS = 10, 3
+FAMILY_CHECK_K = 16             # clients of the card-against-CPU check
+# The card against the CPU, from one set of draws (theta_0, minibatch
+# indices, sketch), on the first FAMILY_CHECK_K clients.  The two differ only
+# in the order of float32 sums (cuDNN and cuBLAS against the CPU's), but 32
+# (weight_delta) or 16 (inference) SGD steps of a ReLU / max-pool network
+# carry such differences along and let some cross a gate, and a signature's
+# last direction sits on a small singular gap (the sketched deltas' third and
+# fourth singular values are ~1/20 and ~1/30 of the first), so they grow.
+# On an H100 with LeNet-5 at 32x32x3 the sketched weight deltas differ by a
+# median 1e-4 (relative) after the first segment of 8 steps and 3e-3 after
+# the fourth, and the card alone moves a client's basis by up to 5.5 degrees
+# (median 0.1) when theta_0's nonzero entries move by one ulp (the floor,
+# printed beside).  So the checks are:
+# - weight_delta's first segment, before most of the growth: the median
+#   client's sketched delta within 1e-3 relative (TF32 products, ~1e-3 each,
+#   or a wrong reduction give 1e-2 and more);
+# - each client's largest principal angle: median within 5 degrees, max
+#   within 20 (unrelated subspaces, from a wrong draw or layout, are ~90);
+# - beta_quantile labels bitwise equal where the card and the CPU cluster the
+#   same float32 signatures (the card's), under each measure that resolves
+#   the family's distances (FAMILY_LABEL_MEASURES).  Each side's labels from
+#   its own signatures are printed, not required equal: a quantile's
+#   threshold sits among the distances, and the inference family's floor
+#   (up to 0.6 degrees) moves merges across it.
+FAMILY_SEGMENT_RTOL = 1e-3
+FAMILY_ANGLE_MEDIAN_TOL_DEG, FAMILY_ANGLE_MAX_TOL_DEG = 5.0, 20.0
+# eq2 (the smallest principal angle) barely tells inference signatures
+# apart: every client's prediction matrix shares its leading direction (the
+# mean prediction), so the 16 clients' eq2 distances all fall in 0.19-0.63
+# degrees (LeNet-5 at 32x32x3 on an H100; 0-0.04 at 16x16x3), where a float32
+# arccos near 1 resolves ~1e-3 degree, about the gap between neighbouring
+# distances: the card's kernel and the CPU's twin put a quantile's threshold
+# among them differently.  Its eq2 labels are printed; eq3 (all p angles,
+# 26-106 degrees apart there) is held.
+FAMILY_LABEL_MEASURES = {"weight_delta": ("eq2", "eq3"), "inference": ("eq3",)}
+DRIFT_MOVERS = 8
+# Table-6 distances on the card against the CPU: two synthetic datasets at
+# d = 256 (covariance condition numbers ~1e4); float32 solves and
+# log-determinants in another order agree to ~1e-6 x the conditioning.
+SIM_DIM, SIM_SAMPLES, SIM_RTOL = 256, 400, 1e-3
+FAMILY_BUDGET_S = 150.0
+
+
+def client_angles_deg(torch, Ua, Ub) -> list:
+    """Each client's largest principal angle, in degrees, between the column
+    spans of two (K, n, p) stacks: the arcsine of the spectral norm of
+    ``Ub - Ua Ua^T Ub``, in float64 on the host."""
+    import math
+
+    Ua, Ub = Ua.detach().double().cpu(), Ub.detach().double().cpu()
+    R = Ub - Ua @ (Ua.transpose(1, 2) @ Ub)
+    return [math.degrees(math.asin(min(1.0, s))) for s in torch.linalg.matrix_norm(R, ord=2).tolist()]
+
+
+def rand_index(a, b) -> float:
+    """Share of client pairs on which two labelings agree (same / apart)."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    same_a, same_b = a[:, None] == a[None], b[:, None] == b[None]
+    iu = np.triu_indices(a.size, 1)
+    return float((same_a == same_b)[iu].mean())
+
+
+def phase_families(torch, device, main, fl) -> dict:
+    """Phase 9: the model-based signature families, drift and Table 6.
+
+    For ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192)
+    on mix4's 97 clients with LeNet-5 at 32x32x3 and 40 classes, each call
+    in its own launch window: the one-shot signatures (timed), one-shot
+    clustering through at least one eq2 launch, and a 10-round
+    ``run_federation`` to a finite accuracy through eq2 (printing its
+    clusters and their agreement with the svd family's partition of phase
+    5).  Checks outside the windows: the 97 signatures again with one seed,
+    bitwise equal; the first 16 clients on the card and on the CPU from
+    draws made once on the CPU (the limits and why: above
+    ``FAMILY_SEGMENT_RTOL``).  Then a 3-round ``weight_delta`` run in
+    which 8 fmnists clients join and 4 leave (the admission's cross block
+    and square: two more eq2 launches at n = 256); one ``DriftTracker``
+    observation of phase 4's engine after a fused ``move`` on the card,
+    against the same move and observation on a CPU copy; and BD, KL and
+    MMD at d = 256 on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import similarity
+    from repro_torch.core.engine import DriftTracker
+    from repro_torch.core.pacfl import cluster_clients, compute_signatures, one_shot_clustering
+    from repro_torch.core.signatures import (
+        FamilyContext, get_family, inference, payloads_from_stacked, weight_delta)
+    from repro_torch.core.signatures.warmup import warmup_indices
+    from repro_torch.data import make_dataset
+    from repro_torch.fl import ChurnEvent, run_federation
+    from repro_torch.fl.client import stack_clients
+    from repro_torch.launch.fl_train import fl_config
+    from repro_torch.models.cnn import build_model
+
+    t_phase = time.perf_counter()
+    totals = {"launches": collections.Counter(), "routes": collections.Counter()}
+    cpu = torch.device("cpu")
+    clients, svd_labels = fl["mix4_clients"], fl["mix4_labels"]
+    model = build_model("lenet5", dim=FL_DIM, n_classes=40)
+    n_params = sum(p.numel() for p in model.parameters())
+    payloads = payloads_from_stacked(stack_clients(clients))
+    out = {"signature_s": {}, "angle_deg": {}, "floor_deg": {}}
+
+    def family_cfg(family, rounds):
+        cfg = fl_config("mix4", rounds)
+        return dataclasses.replace(cfg, pacfl=dataclasses.replace(
+            cfg.pacfl, family=family, beta_quantile=FAMILY_QUANTILE,
+            family_params=dict(FAMILY_PARAMS[family])))
+
+    run_eq2 = {}
+    for family, module, n in (("weight_delta", weight_delta, 256), ("inference", inference, 192)):
+        cfg = family_cfg(family, FAMILY_ROUNDS)
+        pcfg = cfg.pacfl
+        ctx = get_family(family).prepare_context(
+            payloads, pcfg, FamilyContext(model=model, seed0=SEED))
+
+        def signatures():
+            return compute_signatures(payloads, pcfg, seed=SEED, context=ctx, device=device)
+
+        U, t_sig, _, _ = _counted(torch, device, signatures, totals)
+        require(tuple(U.shape) == (MIX4_K, n, RANK) and bool(torch.isfinite(U).all()),
+                f"{family}: signatures {tuple(U.shape)}")
+        again = signatures()
+        require(torch.equal(U, again), f"{family}: two signature calls with one seed differ")
+        clu, t_one, _, routes = _counted(torch, device, lambda: one_shot_clustering(
+            payloads, pcfg, seed=SEED, context=ctx, device=device), totals)
+        require(routes[EQ2] >= 1, f"{family}: one-shot clustering launched no eq2 kernel")
+        res, t_run, _, routes_run = _counted(torch, device, lambda: run_federation(
+            "pacfl", clients, model, cfg, seed=SEED, eval_every=FAMILY_ROUNDS, device=device),
+            totals)
+        strat = res.strategy_obj
+        run_eq2[family] = routes_run[EQ2]
+        require(bool(np.isfinite(res.final_accs).all()), f"{family}: non-finite accuracy")
+        require(routes_run[EQ2] >= 1, f"{family}: the federation launched no eq2 kernel")
+        require(tuple(strat.clustering.U.shape) == (MIX4_K, n, RANK),
+                f"{family}: the federation's signatures {tuple(strat.clustering.U.shape)}")
+        out["signature_s"][family] = t_sig
+        log("families", f"{family} on mix4 ({MIX4_K} clients, LeNet-5 {model.in_hw}x{model.in_ch}, "
+            f"{n_params} parameters): one-shot signatures ({MIX4_K}, {n}, {RANK}) in {t_sig:.3f} s "
+            f"(host clock after a sync; again with one seed: bitwise equal); one-shot clustering "
+            f"{t_one:.3f} s, {clu.n_clusters} clusters, proximity launches by route "
+            f"{dict(routes)}; run_federation {FAMILY_ROUNDS} rounds {t_run:.2f} s, "
+            f"{strat.clustering.n_clusters} clusters, final mean accuracy {res.final_mean:.4f}, "
+            f"proximity launches by route {dict(routes_run)}; pair agreement with the svd "
+            f"family's partition {rand_index(strat.labels, svd_labels):.3f}")
+
+        # -- the card against the CPU, from one set of draws made on the CPU --
+        hp = module._params(pcfg)
+        segments = hp.get("segments", 1)
+        sub = payloads[:FAMILY_CHECK_K]
+        theta0 = model.init_params(SEED, cpu)
+        idx = warmup_indices(torch.as_tensor([len(p.y_train) for p in sub]), segments=segments,
+                             steps=hp["steps"], batch_size=hp["batch_size"], seed=SEED)
+        proj = (weight_delta.sketch_projection(n_params, hp["sketch_dim"], SEED, cpu)
+                if family == "weight_delta" else None)
+
+        def on(dev, theta):
+            fctx = FamilyContext(model=model, probe=ctx.probe, indices=idx.to(dev),
+                                 theta0={k: v.to(dev) for k, v in theta.items()},
+                                 projection=None if proj is None else proj.to(dev))
+            return compute_signatures(sub, pcfg, context=fctx, device=dev)
+
+        U_card, U_cpu = on(device, theta0), on(cpu, theta0)
+        ulp = {k: torch.where(v != 0, torch.nextafter(v, torch.full_like(v, float("inf"))), v)
+               for k, v in theta0.items()}
+        U_ulp = on(device, ulp)
+        angles = client_angles_deg(torch, U_card, U_cpu)
+        floor = client_angles_deg(torch, U_card, U_ulp)
+        med, top = statistics.median(angles), max(angles)
+        out["angle_deg"][family] = {"median": med, "max": top}
+        out["floor_deg"][family] = {"median": statistics.median(floor), "max": max(floor)}
+        log("families", f"{family} card against CPU, first {FAMILY_CHECK_K} clients from one set "
+            f"of CPU draws: shapes {tuple(U_card.shape)} / {tuple(U_cpu.shape)}; each client's "
+            f"largest principal angle, median {med:.3e} deg (limit {FAMILY_ANGLE_MEDIAN_TOL_DEG}), "
+            f"max {top:.3e} deg (limit {FAMILY_ANGLE_MAX_TOL_DEG}), all "
+            f"{[float(f'{a:.2e}') for a in angles]}; floor, theta_0 moved one ulp on the card: "
+            f"median {statistics.median(floor):.3e}, max {max(floor):.3e} deg")
+        require(U_card.shape == U_cpu.shape and med <= FAMILY_ANGLE_MEDIAN_TOL_DEG
+                and top <= FAMILY_ANGLE_MAX_TOL_DEG,
+                f"{family}: card and CPU signatures apart by median {med}, max {top} deg")
+        if family == "weight_delta":
+            def trajectory(dev):
+                """The sketched deltas after each segment, (K, sketch, segments)."""
+                from repro_torch._device import float32_math
+                from repro_torch.core.signatures.warmup import flatten_params, warmup_segments
+
+                with float32_math():
+                    theta = {k: v.to(dev) for k, v in theta0.items()}
+                    flat0 = flatten_params({k: v[None] for k, v in theta.items()})
+                    cols = [(flatten_params(params) - flat0) @ proj.to(dev)
+                            for _, params in warmup_segments(
+                                sub, model=model, theta0=theta, indices=idx.to(dev),
+                                steps=hp["steps"], batch_size=hp["batch_size"], lr=hp["lr"],
+                                momentum=hp["momentum"], device=dev)]
+                return torch.stack(cols, dim=-1).cpu()
+
+            D_card, D_cpu = trajectory(device), trajectory(cpu)
+            rel = ((D_card - D_cpu).norm(dim=1) / D_cpu.norm(dim=1)).median(dim=0).values
+            sv = torch.linalg.svdvals(D_cpu).median(dim=0).values
+            log("families", f"weight_delta sketched deltas, card against CPU, median over the "
+                f"clients of the relative difference after each segment: "
+                f"{[float(f'{r:.2e}') for r in rel.tolist()]} (first segment's limit "
+                f"{FAMILY_SEGMENT_RTOL}); median singular values "
+                f"{[float(f'{v:.3g}') for v in sv.tolist()]}")
+            require(rel[0].item() <= FAMILY_SEGMENT_RTOL,
+                    f"weight_delta: the first segment's deltas differ by {rel[0].item()}")
+        # the same float32 signatures clustered on the card and on the CPU
+        for measure in ("eq2", "eq3"):
+            mcfg = dataclasses.replace(pcfg, measure=measure)
+            clu_card = cluster_clients(U_card, mcfg, device=device)
+            lab_card, A = clu_card.labels, clu_card.A
+            lab_same = cluster_clients(U_card.cpu(), mcfg, device=cpu).labels
+            lab_own = cluster_clients(U_cpu, mcfg, device=cpu).labels
+            off = A[~np.eye(A.shape[0], dtype=bool)]
+            held = measure in FAMILY_LABEL_MEASURES[family]
+            log("families", f"{family} {measure} beta_quantile labels of the card's signatures "
+                f"(distances {off.min():.3g}-{off.max():.3g} deg), on the card and on the CPU: "
+                f"bitwise equal {np.array_equal(lab_card, lab_same)} ({'required' if held else 'not required'}) "
+                f"{lab_card.tolist()}; from the CPU's own signatures: the same partition "
+                f"{same_partition(lab_own, lab_card)}, pair agreement "
+                f"{rand_index(lab_own, lab_card):.3f} {lab_own.tolist()}")
+            require(not held or np.array_equal(lab_card, lab_same),
+                    f"{family} {measure}: one set of signatures clustered differently on the "
+                    f"card and the CPU")
+
+    # -- churn for weight_delta: 8 fmnists join, 4 leave ------------------------
+    cfg = family_cfg("weight_delta", FAMILY_CHURN_ROUNDS)
+    res, t_run, _, routes = _counted(torch, device, lambda: run_federation(
+        "pacfl", clients, model, cfg, seed=SEED, eval_every=FAMILY_CHURN_ROUNDS,
+        churn=[ChurnEvent(rnd=2, join=fl["newcomers"], leave=list(CHURN_LEAVES))],
+        device=device), totals)
+    s_ = res.strategy_obj
+    K_after = MIX4_K - len(CHURN_LEAVES) + CHURN_JOINS
+    log("families", f"weight_delta churn: {CHURN_JOINS} fmnists joined (eager signature_one at "
+        f"enqueue), {len(CHURN_LEAVES)} left, {FAMILY_CHURN_ROUNDS} rounds in {t_run:.2f} s; "
+        f"K = {len(res.final_accs)}, newcomer labels {[int(x) for x in s_.labels[-CHURN_JOINS:]]}; "
+        f"eq2 launches {routes[EQ2]} (the 10-round run without churn: {run_eq2['weight_delta']}; "
+        f"the admission's {MIX4_K - len(CHURN_LEAVES)}x{CHURN_JOINS} cross block and "
+        f"{CHURN_JOINS}x{CHURN_JOINS} square at n = 256)")
+    require(len(res.final_accs) == K_after and bool(np.isfinite(res.final_accs).all()),
+            "weight_delta churn: wrong client count or non-finite accuracy")
+    require(tuple(s_.clustering.engine.U.shape) == (K_after, 256, RANK),
+            f"weight_delta churn: engine signatures {tuple(s_.clustering.engine.U.shape)}")
+    require(routes[EQ2] >= run_eq2["weight_delta"] + 2,
+            "weight_delta churn: the admission launched no eq2 kernel")
+
+    # -- drift: phase 4's engine after a fused move, on the card and the CPU ----
+    engine = main["engine"]
+    engine_cpu = engine.copy()
+    engine_cpu.device, engine_cpu.U = cpu, engine.U.cpu()
+    movers = engine.ids[:DRIFT_MOVERS].copy()
+    fed = Federation(torch, device, seed=SEED + 21)
+    U_mv = fed.signatures([(c + 5) % N_CLUSTERS for c in range(DRIFT_MOVERS)])
+    _, t_move, launches, _ = _counted(torch, device, lambda: engine.move(movers, U_mv), totals)
+    engine_cpu.move(movers, U_mv.cpu())
+    rep, rep_cpu = DriftTracker().observe(engine), DriftTracker().observe(engine_cpu)
+    spread = max(max(abs(a.mean_intra_deg - b.mean_intra_deg), abs(a.max_intra_deg - b.max_intra_deg))
+                 for a, b in zip(rep.clusters, rep_cpu.clusters))
+    same = (np.array_equal(engine.labels, engine_cpu.labels)
+            and [(c.label, c.size) for c in rep.clusters] == [(c.label, c.size) for c in rep_cpu.clusters]
+            and rep.split_candidates == rep_cpu.split_candidates
+            and [m[:2] for m in rep.merge_candidates] == [m[:2] for m in rep_cpu.merge_candidates])
+    log("families", f"drift: move of {DRIFT_MOVERS} clients on phase 4's engine ({engine.n_clients} "
+        f"clients) {t_move * 1e3:.1f} ms, {launches['proximity']} proximity launches; "
+        f"DriftTracker.observe: {len(rep.clusters)} clusters, splits {rep.split_candidates}, "
+        f"{len(rep.merge_candidates)} merge candidates; against the CPU: labels, sizes and "
+        f"candidates equal {same}, dispersions within {spread:.2e} deg (limit {PROX_TOL_DEG})")
+    require(launches["proximity"] > 0, "drift: the move launched no proximity kernel")
+    require(same and spread <= PROX_TOL_DEG, "drift: the card's report differs from the CPU's")
+
+    # -- Table-6 distances at d = 256 -------------------------------------------
+    a, b = (make_dataset(name, n_train=SIM_SAMPLES, n_test=8, dim=SIM_DIM).x_train
+            for name in ("cifar10s", "svhns"))
+    for fn in (similarity.bhattacharyya_gaussian, similarity.kl_gaussian, similarity.mmd_rbf):
+        got = float(fn(torch.as_tensor(a, device=device), torch.as_tensor(b, device=device)))
+        want = float(fn(torch.as_tensor(a), torch.as_tensor(b)))
+        rel = abs(got - want) / max(abs(want), 1e-30)
+        log("families", f"{fn.__name__} cifar10s vs svhns, {SIM_SAMPLES} samples at d = {SIM_DIM}: "
+            f"card {got:.6g}, CPU {want:.6g}, relative difference {rel:.2e} (limit {SIM_RTOL})")
+        require(np.isfinite(got) and rel <= SIM_RTOL, f"{fn.__name__}: card {got} vs CPU {want}")
+
+    elapsed = time.perf_counter() - t_phase
+    log("families", f"phase 9 took {elapsed:.1f} s (budget {FAMILY_BUDGET_S:.0f} s); launches "
+        f"summed over its counted runs {dict(totals['launches'])}, by route {dict(totals['routes'])}")
+    require(elapsed <= FAMILY_BUDGET_S, f"phase 9 took {elapsed:.1f} s")
+    out["launches"] = dict(totals["launches"])
+    out["routes"] = dict(totals["routes"])
     return out
 
 
@@ -1105,6 +1443,7 @@ def wkv_decode_bound(B: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, st
 
 
 def phase_timings(torch, fed, launches, errs) -> list:
+    from repro_torch.core.angles import _hygiene
     from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
     from repro_torch.kernels.tsgemm import tsgemm_cuda, tsgemm_plain
 
@@ -1121,6 +1460,23 @@ def phase_timings(torch, fed, launches, errs) -> list:
         t[label] = (ms, plain_ms, b_ms, b_by)
         log("time", f"proximity {label} n={n} p={p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+    # the runtime-rank path (p > 8), which no main path takes (p = 3)
+    U16 = Federation(torch, fed.device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(K))
+    for measure in ("eq3", "eq2"):
+        got, want = proximity_cuda(U16, U16, measure), proximity_plain(U16, U16, measure)
+        err = (_hygiene(got) - _hygiene(want)).abs().max().item()
+        del got, want
+        # a warp a pair over the full rectangle: tens to hundreds of ms a call
+        ms = time_ms(torch, lambda: proximity_cuda(U16, U16, measure), warmup=1, iters=5)
+        plain_ms = time_ms(torch, lambda: proximity_plain(U16, U16, measure), warmup=1, iters=3)
+        b_ms, b_by = prox_bound(K, n, ANY_RANK_P, measure)
+        t[f"any-rank {measure}"] = (ms, plain_ms, b_ms, b_by)
+        log("time", f"proximity any-rank {measure} K={K} n={n} p={ANY_RANK_P}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound; "
+            f"max|kernel - plain| = {err:.3e} deg (limit {PROX_TOL_DEG})")
+        require(err <= PROX_TOL_DEG, f"proximity any-rank {measure} K={K}: err {err}")
+        errs["proximity"].append(err)
+    del U16
     ms, plain_ms, b_ms, b_by = t[f"eq3 K={K}"]
     row = {
         "name": "proximity", "route": "cuda",
@@ -1132,7 +1488,8 @@ def phase_timings(torch, fed, launches, errs) -> list:
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
     }
-    for key, label in (("eq2", f"eq2 K={K}"), ("eq2_k97", f"eq2 K={MIX4_K} (mix4)")):
+    for key, label in (("eq2", f"eq2 K={K}"), ("eq2_k97", f"eq2 K={MIX4_K} (mix4)"),
+                       ("any_rank_eq3", "any-rank eq3"), ("any_rank_eq2", "any-rank eq2")):
         ms, plain_ms, b_ms, b_by = t[label]
         row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": b_ms,
                     f"{key}_bound_by": b_by})
@@ -1346,6 +1703,11 @@ def time_kernels(torch) -> dict:
             key = f"proximity {measure} K={K}"
             ms[key] = time_ms(torch, lambda: proximity_cuda(U, U, measure))
             bounds[key] = prox_bound(K, N_FEATURES, RANK, measure)[0]
+    U = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(N_CLIENTS))
+    for measure in ("eq3", "eq2"):
+        key = f"proximity any-rank {measure} K={N_CLIENTS} p={ANY_RANK_P}"
+        ms[key] = time_ms(torch, lambda: proximity_cuda(U, U, measure), warmup=1, iters=5)
+        bounds[key] = prox_bound(N_CLIENTS, N_FEATURES, ANY_RANK_P, measure)[0]
     return {"ms": ms, "bound_ms": bounds}
 
 
@@ -1514,10 +1876,13 @@ def main(argv=None) -> int:
     check_wkv(torch, fed.device, errs["wkv"])
     main_path = phase_main_path(torch, fed)
     fl = phase_fl(torch, fed.device, main_path)
-    # the PACFL and FL paths' launches, each counted from 0 over its run
+    families = phase_families(torch, fed.device, main_path, fl)
+    # the PACFL, FL and family paths' launches, each counted from 0 over its run
     launches = dict(collections.Counter(main_path["launches"])
-                    + collections.Counter(fl["launches"]))
-    routes = collections.Counter(main_path["routes"]) + collections.Counter(fl["routes"])
+                    + collections.Counter(fl["launches"])
+                    + collections.Counter(families["launches"]))
+    routes = (collections.Counter(main_path["routes"]) + collections.Counter(fl["routes"])
+              + collections.Counter(families["routes"]))
     launches["proximity_by_route"] = {m: routes[("proximity", m)] for m in ("eq3", "eq2")}
     lm_launches = phase_lm_serving(torch, fed.device)
     phase_lm_float32(torch, fed.device)

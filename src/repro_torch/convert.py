@@ -188,3 +188,27 @@ def cnn_params_from_numpy(
                 f"{name}: reference {tuple(out[name].shape[lead:])} vs port {tuple(p.shape)}"
             )
     return {name: out[name] for name in want}
+
+
+def projection_from_numpy(
+    proj: np.ndarray, model: torch.nn.Module, device: DeviceLike = None
+) -> torch.Tensor:
+    """The reference ``weight_delta`` sketch ``(n_params, sketch_dim)`` as
+    ``FamilyContext.projection`` takes it for ``model``.
+
+    The port flattens parameters in the reference's leaf order and layout
+    (``core.signatures.warmup.flatten_params``), so rows map one to one.
+    A reference LeNet-5 tree also carries its ``_meta`` leaf (``in_ch``, then
+    the two ``in_hw``: 3 values, first in its sorted leaf order); where the
+    projection has those 3 rows more than the module's parameters, they are
+    dropped (``_meta`` never trains, so its delta is zero).
+    """
+    proj = np.asarray(proj, dtype=np.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    meta_rows = model.meta_bytes // 4 if hasattr(model, "meta_bytes") else 0
+    if proj.ndim == 2 and meta_rows and proj.shape[0] == n_params + meta_rows:
+        proj = proj[meta_rows:]
+    if proj.ndim != 2 or proj.shape[0] != n_params:
+        raise ValueError(
+            f"projection {proj.shape} has no row for each of the module's {n_params} parameters")
+    return as_f32(proj, resolve_device(device))

@@ -9,6 +9,7 @@ from repro_torch.core.engine.dendrogram import (
     filter_script_for_depart,
     replay,
 )
+from repro_torch.core.engine.drift import ClusterDrift, DriftReport, DriftTracker
 from repro_torch.core.engine.engine import (
     AdmitResult,
     ClusterEngine,
@@ -24,9 +25,12 @@ from repro_torch.core.engine.store_backends import RamSegments, Segment, Spilled
 __all__ = [
     "AdmitResult",
     "BandedRowCache",
+    "ClusterDrift",
     "ClusterEngine",
     "CondensedDistances",
     "DepartResult",
+    "DriftReport",
+    "DriftTracker",
     "EngineConfig",
     "MembershipSnapshot",
     "MemoryPolicy",

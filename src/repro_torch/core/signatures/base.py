@@ -3,8 +3,9 @@
 Port of ``repro.core.signatures.base``.  Everything above the one-shot
 signature phase only ever sees a (K, n, p) stack of per-client orthonormal
 bases and the distances between them; a :class:`SignatureFamily` is the
-pluggable client-side extractor that produces that stack.  This slice of
-the port carries the paper's ``svd`` family only.
+pluggable client-side extractor that produces that stack: ``svd`` (the
+paper's raw-data bases), ``weight_delta`` (local-update deltas of a shared
+model) and ``inference`` (the shared model's predictions on a probe set).
 
 The contract every family satisfies:
 
@@ -30,15 +31,31 @@ from repro_torch.core.svd import signature_upload_bytes
 class FamilyContext:
     """Server-side resources a model-based family may need.
 
-    ``seed0`` seeds the shared init of the model-based families (the
-    reference's ``key0``); ``probe`` overrides the ``inference`` family's
-    probe set.
+    ``model`` is the shared ``nn.Module`` the ``weight_delta`` and
+    ``inference`` families warm up (the FL strategy passes its own; core
+    callers may omit it to get a small default MLP), ``init_fn(seed) ->
+    {name: tensor}`` its initial parameters (default
+    ``model.init_params``), and ``seed0`` seeds the shared init theta_0
+    (the reference's ``key0``): every client must warm up from the *same*
+    init or weight deltas are not comparable.  ``probe`` overrides the
+    ``inference`` family's probe set.
+
+    The draws a family would otherwise make on the device may be given
+    instead, so that a run can replay another's (tests feed the
+    reference's ``jax.random`` draws, θ₀ and the sketch converted by
+    ``repro_torch.convert``): ``theta0`` the shared init, ``indices`` the
+    warmup's integer minibatch indices ``(K, segments, steps, batch)`` for
+    the K payloads of one call, and ``projection`` the ``weight_delta``
+    sketch ``(n_params, sketch_dim)``.
     """
 
-    apply_fn: Optional[Callable] = None
-    init_fn: Optional[Callable] = None
+    model: Optional[torch.nn.Module] = None
+    init_fn: Optional[Callable[[int], dict]] = None
     seed0: Optional[int] = None
     probe: Optional[np.ndarray] = None
+    theta0: Optional[dict] = None
+    indices: Optional[torch.Tensor] = None
+    projection: Optional[torch.Tensor] = None
 
     def base_seed(self) -> int:
         return self.seed0 if self.seed0 is not None else 0

@@ -687,7 +687,7 @@ class PACFL(Strategy):
         payloads = self._family_payloads(data)
         self._fam_ctx = self._family.prepare_context(
             payloads, pcfg,
-            FamilyContext(init_fn=self.init_fn, seed0=self._seed),
+            FamilyContext(model=self.model, init_fn=self.init_fn, seed0=self._seed),
         )
         U = compute_signatures(
             payloads, pcfg, seed=self._seed, context=self._fam_ctx, device=self.device
@@ -716,27 +716,32 @@ class PACFL(Strategy):
             return self._client_mats(data)
         return payloads_from_stacked(data)
 
+    def _payload(self, client):
+        """One client's payload in the family's form: the (features,
+        samples) matrix for svd, the client itself (``x_train``,
+        ``y_train``) for the model-based families."""
+        return client.x_train.T if self.cfg.pacfl.family == "svd" else client
+
     def _signatures(self, clients, seed: int) -> torch.Tensor:
-        payloads = (
-            [c.x_train.T for c in clients]
-            if self.cfg.pacfl.family == "svd" else list(clients)
-        )
         return compute_signatures(
-            payloads, self.cfg.pacfl, seed=seed, context=self._fam_ctx,
-            device=self.device,
+            [self._payload(c) for c in clients], self.cfg.pacfl, seed=seed,
+            context=self._fam_ctx, device=self.device,
         )
 
     def churn_signature_fn(self):
         """Eager per-client signature for the async queue: every family's
         extractor is membership-independent, so it runs at enqueue time and
         overlaps the in-flight round.  Seeds come from a deterministic
-        per-strategy stream (exact SVD ignores them; randomized SVD stays
-        reproducible)."""
+        per-strategy stream (exact SVD ignores them; randomized SVD and the
+        model-warmup families stay reproducible)."""
 
         def signature(client) -> torch.Tensor:
             seed = derive_seed(self._seed, 1_000_003 + self._sig_seq)
             self._sig_seq += 1
-            return self._signatures([client], seed)[0]
+            return self._family.signature_one(
+                self._payload(client), self.cfg.pacfl, seed=seed,
+                context=self._fam_ctx, device=self.device,
+            )
 
         return signature
 

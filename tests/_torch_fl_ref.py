@@ -47,6 +47,45 @@ def ref_draws(key, n, steps, batch, perfed=False):
     return torch.as_tensor(np.asarray(out, dtype=np.int64))
 
 
+def ref_warmup_draws(key, n, segments, steps, batch, client_offset=0):
+    """The reference warmup's minibatch indices ``(K, segments, steps,
+    batch)``: client ``k``'s key is ``fold_in(key, client_offset + k)``,
+    its segment ``s`` key ``fold_in`` of that with ``s`` (``warmup.py``),
+    and ``local_sgd`` splits a segment key per step and draws ``randint(0,
+    max(n_k, 1))``."""
+    out = []
+    for k, n_k in enumerate(n):
+        key_k = jax.random.fold_in(key, client_offset + k)
+        hi = max(int(n_k), 1)
+        out.append([
+            [np.asarray(jax.random.randint(key_t, (batch,), 0, hi))
+             for key_t in jax.random.split(jax.random.fold_in(key_k, s), steps)]
+            for s in range(segments)
+        ])
+    return np.asarray(out, dtype=np.int64)
+
+
+def ref_projection(key0, n_params, sketch_dim):
+    """The reference ``weight_delta`` sketch (``weight_delta.py``): normal
+    draws from ``fold_in(key0, 0x5EED)`` over ``sqrt(sketch_dim)``."""
+    import jax.numpy as jnp
+
+    return np.asarray(jax.random.normal(
+        jax.random.fold_in(key0, 0x5EED), (n_params, sketch_dim), dtype=jnp.float32,
+    ) / np.sqrt(sketch_dim))
+
+
+def max_angle_deg(Ua, Ub) -> float:
+    """Largest principal angle, in degrees, between the column spans of two
+    (K, n, p) stacks, over clients: the arcsine of the spectral norm of
+    ``Ub - Ua Ua^T Ub`` in float64 (accurate near 0 degrees, where an
+    arccos of a float32 cosine has a floor of ~0.02 degrees)."""
+    Ua, Ub = (np.asarray(U, dtype=np.float64) for U in (Ua, Ub))
+    R = Ub - Ua @ np.einsum("knp,knq->kpq", Ua, Ub)
+    sin = np.linalg.norm(R, ord=2, axis=(1, 2)).max()
+    return float(np.degrees(np.arcsin(min(sin, 1.0))))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """Run a module's port calls on one intra-op thread: its tensors are

@@ -15,7 +15,11 @@ grows with S), by both routes (sequences on each side of the plan's
 threshold) and with fast decays (w down to ~6e-4).  The eq2 proximity
 kernel and the recurrent WKV kernel (decode) are also required to give the
 same bits when launched twice, and a small mix4 federation the same
-labels, accuracies and parameters when run twice with one seed.
+labels, accuracies and parameters when run twice with one seed.  The
+model-based signature families give the same bits twice on the card and
+stay within chip_smoke.py's principal-angle limits of the CPU from the same
+draws; the Table-6 distances within 1e-3 relative of the CPU; a drift
+observation after a fused move the CPU's labels and candidates.
 """
 import numpy as np
 import pytest
@@ -530,3 +534,136 @@ def test_lm_serving_on_cuda_matches_cpu(cuda, arch):
         want, _ = lm.forward(cpu, prompt.cpu())
     assert (got.cpu() - want).abs().max().item() <= 1e-4
     assert toks.shape == (2, 5)
+
+
+@pytest.mark.parametrize("measure", ["eq3", "eq2"])
+@pytest.mark.parametrize("K", [97, 100])
+@pytest.mark.parametrize("n", [256, 192, 200])
+def test_proximity_at_family_dims_matches_plain_and_repeats(cuda, n, K, measure):
+    """The model-based families' ambient dimensions (the weight-delta
+    sketch, the inference probe, a ragged probe) at mix4's and label20's K:
+    within TOL_DEG of the twin, the same bits twice."""
+    from repro_torch.core.angles import _hygiene
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+
+    U = _signatures(K, n, 3, seed=n + K, spread=0.3).to(cuda)
+    got, again = proximity_cuda(U, U, measure), proximity_cuda(U, U, measure)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (_hygiene(got) - _hygiene(proximity_plain(U, U, measure))).abs().max().item()
+    assert err <= TOL_DEG
+
+
+def _client_angles_deg(Ua, Ub):
+    """Each client's largest principal angle (degrees, float64)."""
+    Ua, Ub = Ua.double().cpu(), Ub.double().cpu()
+    R = Ub - Ua @ (Ua.transpose(1, 2) @ Ub)
+    return np.degrees(np.arcsin(np.minimum(1.0, torch.linalg.matrix_norm(R, ord=2).numpy())))
+
+
+@pytest.mark.parametrize("family", ["weight_delta", "inference"])
+def test_family_signatures_on_cuda_repeat_and_match_cpu(cuda, family):
+    """A model family's signatures (LeNet-5 at 16x16x3, 12 mix4 clients):
+    the same bits twice on the card; from one set of CPU draws, each
+    client's largest principal angle to the CPU's has a median within 5
+    degrees and a maximum within 20 (chip_smoke.py's limits: rounding grows
+    over the warmup's SGD steps, and a gate that flips under it moves a
+    client by degrees); the card's signatures clustered on the card and on
+    the CPU give the same labels under each measure that resolves the
+    family's distances (eq2 barely tells inference signatures apart: they
+    share their leading direction, so every eq2 distance is within a degree
+    of 0, where a float32 arccos near 1 resolves ~1e-3 degree)."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.core.pacfl import PACFLConfig, cluster_clients, compute_signatures
+    from repro_torch.core.signatures import FamilyContext, get_family, payloads_from_stacked
+    from repro_torch.core.signatures import inference, weight_delta
+    from repro_torch.core.signatures.warmup import warmup_indices
+    from repro_torch.fl.client import stack_clients
+    from repro_torch.launch.fl_train import build_clients
+    from repro_torch.models.cnn import build_model
+
+    clients, n_classes = build_clients("mix4", 12, 768, 600)
+    model = build_model("lenet5", dim=768, n_classes=n_classes)
+    payloads = payloads_from_stacked(stack_clients(clients))
+    params = {"weight_delta": {"segments": 4, "steps": 8, "sketch_dim": 256},
+              "inference": {"probe_per_dataset": 48, "steps": 16}}[family]
+    cfg = PACFLConfig(p=3, measure="eq2", family=family, beta_quantile=0.1,
+                      family_params=params)
+    ctx = get_family(family).prepare_context(payloads, cfg, FamilyContext(model=model, seed0=0))
+    U = compute_signatures(payloads, cfg, seed=0, context=ctx, device=cuda)
+    assert torch.equal(U, compute_signatures(payloads, cfg, seed=0, context=ctx, device=cuda))
+    module = weight_delta if family == "weight_delta" else inference
+    hp = module._params(cfg)
+    cpu = torch.device("cpu")
+    idx = warmup_indices(torch.as_tensor([len(p.y_train) for p in payloads]),
+                         segments=hp.get("segments", 1), steps=hp["steps"],
+                         batch_size=hp["batch_size"], seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    proj = (weight_delta.sketch_projection(n_params, 256, 0, cpu)
+            if family == "weight_delta" else None)
+    theta0 = model.init_params(0, cpu)
+
+    def on(dev):
+        fctx = FamilyContext(model=model, probe=ctx.probe, indices=idx.to(dev),
+                             theta0={k: v.to(dev) for k, v in theta0.items()},
+                             projection=None if proj is None else proj.to(dev))
+        return compute_signatures(payloads, cfg, context=fctx, device=dev)
+
+    U_card = on(cuda)
+    angles = _client_angles_deg(U_card, on(cpu))
+    assert statistics.median(angles.tolist()) <= 5.0 and angles.max() <= 20.0
+    for measure in {"weight_delta": ("eq2", "eq3"), "inference": ("eq3",)}[family]:
+        mcfg = dataclasses.replace(cfg, measure=measure)
+        np.testing.assert_array_equal(cluster_clients(U_card, mcfg, device=cuda).labels,
+                                      cluster_clients(U_card.cpu(), mcfg, device=cpu).labels)
+
+
+def test_similarity_on_cuda_matches_cpu(cuda):
+    """BD, KL and MMD at d = 256 on two synthetic datasets: the card within
+    1e-3 relative of the CPU (covariance condition numbers ~1e4)."""
+    from repro_torch.core import similarity
+    from repro_torch.data import make_dataset
+
+    a, b = (make_dataset(name, n_train=400, n_test=8, dim=256).x_train
+            for name in ("cifar10s", "svhns"))
+    for fn in (similarity.bhattacharyya_gaussian, similarity.kl_gaussian, similarity.mmd_rbf):
+        got = float(fn(torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)))
+        want = float(fn(torch.as_tensor(a), torch.as_tensor(b)))
+        assert np.isfinite(got) and abs(got - want) <= 1e-3 * abs(want)
+
+
+def test_drift_after_move_on_cuda_matches_cpu(cuda):
+    """A fused move on an engine on the card, then DriftTracker.observe at
+    three thresholds, against the same on a CPU engine adopting the same
+    matrix: two planted clusters (eq3 within <= 1.4 degrees, between >= 264;
+    beta 60), 8 movers from one to the other; equal labels, sizes and
+    candidates, dispersions within TOL_DEG."""
+    from repro_torch.core.engine import ClusterEngine, DriftTracker, EngineConfig
+    from repro_torch.kernels.proximity import proximity_plain
+
+    U = _signatures(64, 3072, 3, seed=11, spread=0.3)
+    U = torch.cat([U, _signatures(64, 3072, 3, seed=12, spread=0.3)])
+    A = proximity_plain(U, U, "eq3").numpy()
+    A = 0.5 * (A + A.T)
+    np.fill_diagonal(A, 0.0)
+    cfg = EngineConfig(beta=60.0, measure="eq3")
+    gpu = ClusterEngine.from_proximity(A, U, cfg, device=cuda)
+    cpu = ClusterEngine.from_proximity(A, U, cfg, device="cpu")
+    movers = np.arange(4, 12, dtype=np.int64)
+    U_mv = _signatures(8, 3072, 3, seed=12, spread=0.3)
+    gpu.move(movers, U_mv.to(cuda))
+    cpu.move(movers, U_mv)
+    np.testing.assert_array_equal(gpu.labels, cpu.labels)
+    assert np.bincount(gpu.labels).tolist() == [56, 72]
+    for thr in (None, 1.0, 300.0):   # the engine's beta; every cluster splits; all merge
+        got, want = DriftTracker(thr).observe(gpu), DriftTracker(thr).observe(cpu)
+        assert [(c.label, c.size) for c in got.clusters] == [(c.label, c.size) for c in want.clusters]
+        assert got.split_candidates == want.split_candidates
+        assert [m[:2] for m in got.merge_candidates] == [m[:2] for m in want.merge_candidates]
+        for a, b in zip(got.clusters, want.clusters):
+            assert abs(a.mean_intra_deg - b.mean_intra_deg) <= TOL_DEG
+            assert abs(a.max_intra_deg - b.max_intra_deg) <= TOL_DEG
+    assert DriftTracker(1.0).observe(gpu).split_candidates == (0, 1)
+    assert len(DriftTracker(300.0).observe(gpu).merge_candidates) == 1
