@@ -10,8 +10,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    (one ``nvcc`` per source, in parallel) into ``build/kernels/``, printing
    each source's ``nvcc`` time, the count of tensor-core instructions in
    the SASS of the bfloat16 flash-attention kernel (``HMMA``) and of the
-   eq3 and eq2 proximity kernels (``DMMA``), and the registers and stack of
-   the main paths' eq2 and WKV decode instantiations (no stack allowed);
+   eq3 and eq2 proximity kernels (``DMMA``; also of each instantiation the
+   p = 16 routes of phase 4b launch, with its registers and stack), and
+   the registers and stack of the main paths' eq2, the any-rank eq2 reduce
+   (``eq2_form_any``, ``eq2_jacobi_any``) and WKV decode (no stack allowed);
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
    at the main paths' shapes plus ragged, cross, windowed, high-rank,
    split-KV / split-K, bfloat16 and fast-decay cases, and the square
@@ -20,8 +22,11 @@ Phases, each printing its own lines; any failure exits nonzero:
    churn admission's cross block and square, K = 1024 (no split), each
    launched twice and required bitwise equal; eq3 and eq2 at the signature
    families' dimensions (n = 256, 192 and a ragged 200) at K = 97 and 100,
-   each launched twice and required bitwise equal; the recurrent WKV kernel
-   (decode) at S = 1, 16 and 32 from a carried state;
+   each launched twice and required bitwise equal; the any-rank route
+   (p or q > 8) at p = 9, 12, 16, ragged K, 3 x 12 and 12 x 3 cross blocks
+   and column views of a p = 20 stack, each launched twice and required
+   bitwise equal, and the p = 16 square against the full rectangle; the
+   recurrent WKV kernel (decode) at S = 1, 16 and 32 from a carried state;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -29,6 +34,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    cache — checking that the planted clusters are recovered and every
    newcomer and query lands in its own, and that the proximity and tsgemm
    kernels ran;
+4b. PACFL at p = 16: phase 4's path on rank-16 planted clusters (16
+   singular values from 40 down to 1), once under eq3 and once under eq2,
+   each required to recover the clusters, place every newcomer and query
+   in its own and launch the proximity kernel's any-rank route;
 5. federated-learning main path and the assignment server (at most 120 s),
    every federation through ``run_federation`` (float32 convolutions, the
    entry point's own setting): mix4 at CIFAR-10 geometry
@@ -67,8 +76,9 @@ Phases, each printing its own lines; any failure exits nonzero:
 8. timings: each kernel's median time at its main-path shape beside its
    bound at the card's peak rates, its plain twin and the library call
    (flash attention also at llama3.2-3b's heads; tsgemm also at Q^T @ D and
-   the M = 1024 bucket; proximity eq2 also at mix4's K = 97, and the
-   runtime-rank path, eq3 and eq2, at K = 1024, p = 16; WKV decode
+   the M = 1024 bucket; proximity eq2 also at mix4's K = 97, eq3 at
+   label20's K = 100, and the any-rank route, eq3 and eq2, at K = 1024, p =
+   16 and 12 and the 1024 x 256 cross block at p = 3 x q = 12; WKV decode
    replayed from a CUDA graph, and prefill also with float32 r, k, v);
 9. model-based signature families (run after phase 5, at most 150 s):
    ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192) on
@@ -82,22 +92,24 @@ Phases, each printing its own lines; any failure exits nonzero:
    and the Table-6 distances (BD, KL, MMD) at d = 256, each against the CPU.
 
 Launch counts are set to 0 just before each main path (phase 4, each
-federation and each server call of phase 5, each architecture of 6, each
-family call, federation and the move of 9) and read just after; launches
-that only check a result (phase 5's ``admit_oracle`` and its newcomers'
-signatures, phase 9's repeats and card-against-CPU work) fall outside every
-window.  The kernels line sums phases 4, 5 and 9's windows and splits the
-proximity launches by route (eq3, eq2).  The second-to-last line
-is the ``{"kernels": [...]}`` record, the last
-``{"ok": true, "device": {...}}``.  Nothing of the JAX package is imported.
+measure of 4b, each federation and each server call of phase 5, each
+architecture of 6, each family call, federation and the move of 9) and read
+just after; launches that only check a result (phase 5's ``admit_oracle``
+and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
+fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
+windows and splits the proximity launches by route (eq3, eq2 and, above
+rank 8, eq3_any_rank, eq2_any_rank). The second-to-last line is the
+``{"kernels": [...]}`` record, the last ``{"ok": true, "device": {...}}``.
+Nothing of the JAX package is imported.
 
     python3 chip_smoke.py --time-kernels SRC
 
 builds the four kernels of the ``repro_torch`` under the directory SRC,
 times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
-and eq2 at K = 1024, eq2 at K = 97, the runtime-rank path at p = 16) at
-phase 8's shapes with phase 8's timers and prints one JSON line of
-milliseconds.
+and eq2 at K = 1024, eq2 at K = 97, eq3 at K = 100, the any-rank route at
+p = 16 and 12 and at 3 x 12) at phase 8's shapes with phase 8's timers and
+prints one JSON line of milliseconds, with each source's ``nvcc`` seconds
+where this call built it.
 
     python3 chip_smoke.py --time-fl SRC
 
@@ -113,11 +125,13 @@ session, e.g. on a parent unpacked with ``git archive`` into
 
     python3 chip_smoke.py --sweep-wkv
     python3 chip_smoke.py --sweep-eq2
+    python3 chip_smoke.py --sweep-any-rank
 
-time WKV by chunk length and by route at short sequences, and eq2 at mix4's
-K = 97 by split count with its device time by kernel, the numbers behind
-``wkv_plan``'s constants and ``eq2_plan``'s one-wave split; each prints one
-JSON line.
+time WKV by chunk length and by route at short sequences, eq2 at mix4's
+K = 97 by split count, and eq2 at K = 1024, p = 16 by Gram piece shape,
+reduce job count and workspace cap, each with its device time by kernel:
+the numbers behind ``wkv_plan``'s constants, ``eq2_plan``'s one-wave split
+and its any-rank pieces; each prints one JSON line.
 """
 from __future__ import annotations
 
@@ -154,7 +168,14 @@ NOISE = 0.02
 SEED = 0
 
 PROX_TOL_DEG = 1e-3        # the reference's TOL_DEG
-ANY_RANK_P = 16            # phase 8 times the runtime-rank proximity path here
+# PACFL at p = 16 (phase 4b): the proximity kernel's any-rank route.  Its
+# planted clusters get 16 singular values from 40 down to 1 (each 0.78 of the
+# last, so every direction stands well apart from its neighbours and from
+# the noise); planted within-cluster eq3 ~150-250 deg, eq2 ~1.5, between
+# ~1420 and ~81 (CPU sizing at K = 48).
+ANY_RANK_P = 16
+ANY_RANK_SPECTRUM = tuple(40.0 * (1.0 / 40.0) ** (r / 15) for r in range(16))
+ANY_RANK_BETA = {"eq3": 700.0, "eq2": 30.0}
 F32_RTOL, BF16_RTOL = 1e-5, 2e-2   # tests/test_kernels.py, atol = 10 * rtol
 FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
 # bfloat16 flash attention is held, besides, to max|kernel - plain| <= this
@@ -188,7 +209,7 @@ LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
 # times are in PERF.md section 6).
 REDESIGNED_IN = {"flash_attention": 13, "tsgemm": 13,
                  "wkv": {"prefill": 14, "decode": 16},
-                 "proximity": {"eq3": 14, "eq2": 16, "any_rank": None}}
+                 "proximity": {"eq3": 14, "eq2": 16, "any_rank": 18}}
 
 
 def log(phase: str, msg: str) -> None:
@@ -212,11 +233,11 @@ def require(cond: bool, what: str) -> None:
 class Federation:
     """Clients drawn from N_CLUSTERS planted p-dim subspaces of R^n."""
 
-    def __init__(self, torch, device, p=RANK, seed=SEED):
+    def __init__(self, torch, device, p=RANK, seed=SEED, spectrum=SPECTRUM):
         self.torch, self.device, self.n, self.p = torch, device, N_FEATURES, p
         self.gen = torch.Generator(device=device).manual_seed(seed)
         self.bases = torch.linalg.qr(self._randn(N_CLUSTERS, self.n, p))[0]
-        self.spectrum = torch.tensor(SPECTRUM[:p], device=device)
+        self.spectrum = torch.tensor(spectrum[:p], device=device)
 
     def _randn(self, *shape):
         return self.torch.randn(shape, generator=self.gen, device=self.device)
@@ -404,9 +425,20 @@ def phase_build() -> None:
         dmma = count_mma(_build.library_path("proximity"), kernel, ("DMMA",))
         log("build", f"proximity kernel {kernel}: {dmma} DMMA instructions in its SASS")
         require(dmma > 0, f"the proximity kernel {kernel} has no FP64 tensor-core instructions")
-    # the main paths' instantiations keep their state in registers
+    # the instantiations the p = 16 routes launch (phase 4b): eq3's column
+    # chunks and eq2's Gram pieces, each with FP64 tensor-core instructions
+    for label, mangled in any_rank_instantiations():
+        dmma = count_mma(_build.library_path("proximity"), mangled, ("DMMA",))
+        usage = resource_usage(_build.library_path("proximity"), mangled)
+        log("build", f"p={ANY_RANK_P} route's {label}: {dmma} DMMA instructions; "
+            f"{usage[0]} registers a thread, {usage[1]} bytes of stack")
+        require(dmma > 0, f"{label} has no FP64 tensor-core instructions")
+    # the main paths' instantiations (and the any-rank reduce, whose q x q
+    # matrices live in shared memory) keep their state off the stack
     for name, label, mangled in (("proximity", "eq2_tc<3, 3>", "eq2_tcILi3ELi3E"),
                                  ("proximity", "eq2_reduce_ws<3, 3>", "eq2_reduce_wsILi3ELi3E"),
+                                 ("proximity", "eq2_form_any", "eq2_form_any"),
+                                 ("proximity", "eq2_jacobi_any", "eq2_jacobi_any"),
                                  ("wkv", "wkv_step<64, bf16>", "wkv_stepILi64E13__nv_bfloat16E")):
         usage = resource_usage(_build.library_path(name), mangled)
         if usage is None:
@@ -414,6 +446,20 @@ def phase_build() -> None:
             continue
         log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
         require(usage[1] == 0, f"{label} spills to the stack ({usage[1]} bytes)")
+
+
+def any_rank_instantiations() -> list:
+    """(label, mangled-name substring) of the kernel templates that eq3 and
+    eq2 launch at K = 1024, n = 3072, p = ANY_RANK_P: eq3_tc on chunks of
+    8 columns (and the rest), eq2_tc on the plan's Gram pieces."""
+    from repro_torch.kernels.proximity.proximity import MAX_TC_RANK, eq2_plan
+
+    chunks = {min(MAX_TC_RANK, ANY_RANK_P - r0) for r0 in range(0, ANY_RANK_P, MAX_TC_RANK)}
+    plan = eq2_plan(N_CLIENTS, N_CLIENTS, N_FEATURES, ANY_RANK_P, ANY_RANK_P, True)
+    out = [(f"eq3_tc<{w}>", f"eq3_tcILi{w}E") for w in sorted(chunks)]
+    out += [(f"eq2_tc<{pc.rows}, {pc.cols}>", f"eq2_tcILi{pc.rows}ELi{pc.cols}E")
+            for pc in plan.pieces()]
+    return out
 
 
 def check_proximity(torch, fed, errs: list) -> None:
@@ -444,12 +490,34 @@ def check_proximity(torch, fed, errs: list) -> None:
         compare("cross 1024x37 p=3", U3, newcomers, measure, False)
     compare("cross 1024x1024 p=3 x q=5", U3, U5, "eq2", False)
     compare("cross 37x1024 p=3 x q=5", newcomers, U5, "eq2", False)
-    # ranks above the templates' 8: the runtime-rank path
+    # ranks above the templates' 8: the any-rank route (eq3 in column chunks,
+    # eq2 in Gram pieces) at p = 9, 12, 16, ragged K, mixed ranks and
+    # column views of a wider stack (16-byte row quads at offset 4, element
+    # copies at offset 2); each launched twice, bitwise equal
     fed12 = Federation(torch, fed.device, p=12, seed=SEED + 4)
     U12 = fed12.signatures(planted(256))
-    for measure in ("eq3", "eq2"):
-        compare("square K=256 p=12", U12, U12, measure, True)
-    compare("cross 1024x256 p=3 x q=12", U3, U12, "eq2", False)
+    U16 = Federation(torch, fed.device, p=16, seed=SEED + 5).signatures(planted(N_CLIENTS))
+    U20 = Federation(torch, fed.device, p=20, seed=SEED + 6).signatures(planted(200))
+    U9 = Federation(torch, fed.device, p=9, seed=SEED + 12).signatures(planted(256))
+    high = [(f"square K=256 p={p}", U, U) for p, U in ((9, U9), (12, U12), (16, U16[:256]))]
+    high += [("square ragged K=250 p=12", U12[:250], U12[:250]),
+             ("square K=200 p=16 column view [4:20] of p=20", U20[:, :, 4:], U20[:, :, 4:]),
+             ("square K=200 p=16 column view [2:18] of p=20", U20[:, :, 2:18], U20[:, :, 2:18]),
+             ("cross 200x37 p=16 column views", U20[:, :, 4:], U20[:37, :, 2:18])]
+    for label, Ua, Ub in high:
+        for measure in ("eq3", "eq2"):
+            compare(label, Ua, Ub, measure, Ua is Ub)
+            first, second = proximity_cuda(Ua, Ub, measure), proximity_cuda(Ua, Ub, measure)
+            torch.cuda.synchronize()
+            require(torch.equal(first, second), f"proximity {measure} {label}: two launches differ")
+        log("kernels", f"proximity eq3 and eq2 {label}: two launches bitwise equal")
+    for label, Ua, Ub in (("cross 1024x256 p=3 x q=12", U3, U12), ("cross 256x1024 p=12 x q=3", U12, U3),
+                          ("cross 37x256 p=3 x q=12", newcomers, U12)):
+        compare(label, Ua, Ub, "eq2", False)
+        first, second = proximity_cuda(Ua, Ub, "eq2"), proximity_cuda(Ua, Ub, "eq2")
+        torch.cuda.synchronize()
+        require(torch.equal(first, second), f"proximity eq2 {label}: two launches differ")
+    del U9, U20
     # eq2 at its plan's cases: mix4's square (split over n), the churn
     # admission's cross block and square (phase 5), PACFL's K = 1024 square
     # (one kernel, no split); a split call is the same bitwise twice
@@ -494,7 +562,8 @@ def check_proximity(torch, fed, errs: list) -> None:
     # split (eq3's square is also exactly symmetric)
     for label, U, measure in (("K=1024 p=3", U3, "eq3"), ("ragged K=1000 p=3", U3[:1000], "eq3"),
                               ("K=1024 p=5", U5, "eq3"), ("K=1024 p=3", U3, "eq2"),
-                              ("ragged K=1000 p=3", U3[:1000], "eq2")):
+                              ("ragged K=1000 p=3", U3[:1000], "eq2"),
+                              ("K=1024 p=16", U16, "eq3"), ("K=1024 p=16", U16, "eq2")):
         square = proximity_cuda(U, U, measure)
         cross = proximity_cuda(U, U.clone(), measure)
         torch.cuda.synchronize()
@@ -678,36 +747,46 @@ def check_wkv(torch, device, errs: list) -> None:
             tuple(a[:, :1000] if i < 4 else a for i, a in enumerate(fast)), state0)
 
 
-def phase_main_path(torch, fed) -> dict:
-    from repro_torch.core.pacfl import PACFLConfig, compute_signatures, one_shot_clustering
+def planted_data(torch, fed) -> dict:
+    """Phase 4's clients, newcomers and queries, drawn from ``fed``'s
+    planted clusters, with each one's planted cluster id."""
+    truth = planted(N_CLIENTS)
+    new_truth = [(3 * t + 1) % N_CLUSTERS for t in range(N_NEWCOMERS)]
+    q_truth = [(5 * t + 2) % N_CLUSTERS for t in range(N_QUERIES)]
+    data = {"truth": truth, "clients": fed.clients(truth), "new_truth": new_truth,
+            "newcomers": fed.clients(new_truth), "q_truth": q_truth,
+            "queries": fed.clients(q_truth)}
+    sync(torch, fed.device)
+    return data
+
+
+def pacfl_path(torch, fed, config, data, tag) -> dict:
+    """One-shot clustering of ``data``'s clients, PME admission of its
+    newcomers and its queries served in batches of QUERY_BATCH through the
+    medoid representative cache, with the kernel launches of the run
+    (counts set to 0 just before it, read just after); checks that the
+    planted clusters are recovered and every newcomer and query lands in
+    its own, and prints the proximity's within- and between-cluster ranges."""
+    from repro_torch.core.pacfl import compute_signatures, one_shot_clustering
     from repro_torch.kernels import _build
     from repro_torch.serving import RepresentativeCache, serve_assign
 
-    truth = planted(N_CLIENTS)
-    data = fed.clients(truth)
-    new_truth = [(3 * t + 1) % N_CLUSTERS for t in range(N_NEWCOMERS)]
-    new_data = fed.clients(new_truth)
-    q_truth = [(5 * t + 2) % N_CLUSTERS for t in range(N_QUERIES)]
-    q_data = fed.clients(q_truth)
-    sync(torch, fed.device)
-    config = PACFLConfig(p=RANK, measure="eq3", beta=BETA_DEG,
-                         svd_method="randomized_tsgemm", proximity_backend="auto")
-    log("main", f"K={N_CLIENTS} clients n={N_FEATURES} p={RANK}, M_k in {M_RANGE}, "
+    truth, new_truth, q_truth = data["truth"], data["new_truth"], data["q_truth"]
+    log(tag, f"K={N_CLIENTS} clients n={N_FEATURES} p={config.p}, M_k in {M_RANGE}, "
         f"{N_CLUSTERS} planted clusters; {config}")
-
     _build.reset_launches()
     t0 = time.perf_counter()
-    clustering = one_shot_clustering(data, config, seed=SEED, device=fed.device)
+    clustering = one_shot_clustering(data["clients"], config, seed=SEED, device=fed.device)
     sync(torch, fed.device)
     t1 = time.perf_counter()
-    U_new = compute_signatures(new_data, config, seed=SEED + 10, device=fed.device)
+    U_new = compute_signatures(data["newcomers"], config, seed=SEED + 10, device=fed.device)
     extended = clustering.extend(U_new)
     t2 = time.perf_counter()
     cache = RepresentativeCache("medoid")
     cache.refresh(extended.engine)
     assigned, queries = [], []
     for lo in range(0, N_QUERIES, QUERY_BATCH):
-        U_q = compute_signatures(q_data[lo:lo + QUERY_BATCH], config,
+        U_q = compute_signatures(data["queries"][lo:lo + QUERY_BATCH], config,
                                  seed=SEED + 100 + lo, device=fed.device)
         idx, dmin = serve_assign(U_q, cache.rep_stack, config.measure)
         require(bool(torch.isfinite(dmin).all()), "non-finite serving distance")
@@ -716,13 +795,21 @@ def phase_main_path(torch, fed) -> dict:
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
     routes = dict(_build.ROUTE_LAUNCHES)
-    log("main", f"one-shot {t1 - t0:.2f} s, extend {t2 - t1:.2f} s, "
-        f"serve {t3 - t2:.2f} s; kernel launches {launches}")
+    log(tag, f"one-shot {t1 - t0:.2f} s, extend {t2 - t1:.2f} s, "
+        f"serve {t3 - t2:.2f} s; kernel launches {launches}, proximity by route "
+        f"{ {r: c for (k, r), c in routes.items() if k == 'proximity'} }")
 
     labels = clustering.labels
-    require(clustering.U.shape == (N_CLIENTS, N_FEATURES, RANK), "signature shape")
+    require(clustering.U.shape == (N_CLIENTS, N_FEATURES, config.p), "signature shape")
     A = clustering.A
     require(bool((A == A.T).all()) and float(abs(A.diagonal()).max()) == 0.0, "hygiene")
+    planted_ids = torch.as_tensor(truth)
+    same = planted_ids[:, None] == planted_ids[None, :]
+    off = ~torch.eye(N_CLIENTS, dtype=torch.bool)
+    At = torch.as_tensor(A)
+    log(tag, f"{config.measure} within planted clusters {float(At[same & off].min()):.3f}-"
+        f"{float(At[same & off].max()):.3f} deg, between {float(At[~same].min()):.3f}-"
+        f"{float(At[~same].max()):.3f} deg (beta {config.beta})")
     require(same_partition(labels, truth),
             f"planted clusters not recovered: {clustering.n_clusters} clusters")
     label_of = {truth[k]: int(labels[k]) for k in range(N_CLIENTS)}
@@ -734,12 +821,42 @@ def phase_main_path(torch, fed) -> dict:
     require([label_of[c] for c in q_truth] == [int(x) for x in served],
             "a query was served the wrong cluster")
     for name in ("proximity", "tsgemm"):
-        require(launches.get(name, 0) > 0, f"the {name} kernel never ran on the main path")
-    log("main", f"recovered {clustering.n_clusters} planted clusters; "
+        require(launches.get(name, 0) > 0, f"the {name} kernel never ran on the {tag} path")
+    log(tag, f"recovered {clustering.n_clusters} planted clusters; "
         f"{N_NEWCOMERS} newcomers and {N_QUERIES} queries in their clusters")
     return {"launches": launches, "routes": routes, "engine": extended.engine,
             "config": config, "queries": torch.cat(queries), "served": served,
             "label_of": label_of}
+
+
+def phase_main_path(torch, fed) -> dict:
+    from repro_torch.core.pacfl import PACFLConfig
+
+    config = PACFLConfig(p=RANK, measure="eq3", beta=BETA_DEG,
+                         svd_method="randomized_tsgemm", proximity_backend="auto")
+    return pacfl_path(torch, fed, config, planted_data(torch, fed), "main")
+
+
+def phase_any_rank(torch, device) -> dict:
+    """Phase 4b: phase 4's PACFL path at p = ANY_RANK_P (rank-16 planted
+    clusters with a 16-value spectrum), once under eq3 and once under eq2,
+    each its own launch window; both must launch the proximity kernel's
+    any-rank route."""
+    from repro_torch.core.pacfl import PACFLConfig
+
+    fed = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 11, spectrum=ANY_RANK_SPECTRUM)
+    data = planted_data(torch, fed)
+    launches, routes = collections.Counter(), collections.Counter()
+    for measure in ("eq3", "eq2"):
+        config = PACFLConfig(p=ANY_RANK_P, measure=measure, beta=ANY_RANK_BETA[measure],
+                             svd_method="randomized_tsgemm", proximity_backend="auto")
+        run = pacfl_path(torch, fed, config, data, f"p{ANY_RANK_P}")
+        route = ("proximity", f"{measure}_any_rank")
+        require(run["routes"].get(route, 0) > 0,
+                f"PACFL at p={ANY_RANK_P} under {measure} never launched the any-rank route")
+        launches.update(run["launches"])
+        routes.update(run["routes"])
+    return {"launches": dict(launches), "routes": dict(routes)}
 
 
 # FL loop (phase 5): the launcher's settings (launch/fl_train.py) on LeNet-5
@@ -1433,6 +1550,14 @@ def prox_bound(K: int, n: int, p: int, measure: str) -> tuple[float, str]:
     return bound(K * n * p * 4 + K * K * 4, 2.0 * K * (K + 1) / 2 * n * gram)
 
 
+def cross_bound(Ka: int, Kb: int, n: int, p: int, q: int, measure: str) -> tuple[float, str]:
+    """The least time of a proximity cross block: Ka x Kb pairs, each p
+    (eq3) or p * q (eq2) dot products of length n at 2 flops a term, on the
+    FP64 tensor cores; or both stacks read and the block written once."""
+    gram = p if measure == "eq3" else p * q
+    return bound((Ka * p + Kb * q) * n * 4 + Ka * Kb * 4, 2.0 * Ka * Kb * n * gram)
+
+
 def wkv_decode_bound(B: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
     """The least time of one WKV decode step: r, k, v read once, w and out
     (float32) and u once, the state read and written once; 5 flops a state
@@ -1460,23 +1585,41 @@ def phase_timings(torch, fed, launches, errs) -> list:
         t[label] = (ms, plain_ms, b_ms, b_by)
         log("time", f"proximity {label} n={n} p={p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
-    # the runtime-rank path (p > 8), which no main path takes (p = 3)
+    # eq3 at label20's K = 100 (10 triangle tiles on 132 SMs)
+    U100 = fed.signatures(planted(100))
+    ms = time_ms(torch, lambda: proximity_cuda(U100, U100, "eq3"))
+    plain_ms = time_ms(torch, lambda: proximity_plain(U100, U100, "eq3"), iters=5)
+    t["eq3 K=100"] = (ms, plain_ms) + prox_bound(100, n, p, "eq3")
+    log("time", f"proximity eq3 K=100 (label20) n={n} p={p}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {t['eq3 K=100'][2]:.4f} ms ({t['eq3 K=100'][3]}), "
+        f"{t['eq3 K=100'][2] / ms:.1%} of the bound")
+    del U100
+    # the any-rank route (p or q > 8): phase 4b's p = 16, p = 12, and the
+    # cross block at p = 3 x q = 12
     U16 = Federation(torch, fed.device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(K))
-    for measure in ("eq3", "eq2"):
-        got, want = proximity_cuda(U16, U16, measure), proximity_plain(U16, U16, measure)
-        err = (_hygiene(got) - _hygiene(want)).abs().max().item()
+    U12 = Federation(torch, fed.device, p=12, seed=SEED + 4).signatures(planted(K))
+    for key, Ua, Ub, measure in (("any-rank eq3", U16, U16, "eq3"), ("any-rank eq2", U16, U16, "eq2"),
+                                 ("any-rank eq3 p=12", U12, U12, "eq3"),
+                                 ("any-rank eq2 p=12", U12, U12, "eq2"),
+                                 ("any-rank eq2 cross", U, U12[:256], "eq2")):
+        Ka, _, pa = Ua.shape
+        Kb, _, qb = Ub.shape
+        got, want = proximity_cuda(Ua, Ub, measure), proximity_plain(Ua, Ub, measure)
+        if Ua is Ub:
+            got, want = _hygiene(got), _hygiene(want)
+        err = (got - want).abs().max().item()
         del got, want
-        # a warp a pair over the full rectangle: tens to hundreds of ms a call
-        ms = time_ms(torch, lambda: proximity_cuda(U16, U16, measure), warmup=1, iters=5)
-        plain_ms = time_ms(torch, lambda: proximity_plain(U16, U16, measure), warmup=1, iters=3)
-        b_ms, b_by = prox_bound(K, n, ANY_RANK_P, measure)
-        t[f"any-rank {measure}"] = (ms, plain_ms, b_ms, b_by)
-        log("time", f"proximity any-rank {measure} K={K} n={n} p={ANY_RANK_P}: kernel {ms:.4f} ms, "
+        ms = time_ms(torch, lambda: proximity_cuda(Ua, Ub, measure), warmup=2, iters=10)
+        plain_ms = time_ms(torch, lambda: proximity_plain(Ua, Ub, measure), warmup=1, iters=3)
+        b_ms, b_by = (prox_bound(Ka, n, pa, measure) if Ua is Ub
+                      else cross_bound(Ka, Kb, n, pa, qb, measure))
+        t[key] = (ms, plain_ms, b_ms, b_by)
+        log("time", f"proximity {key} {Ka}x{Kb} n={n} p={pa} q={qb}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound; "
             f"max|kernel - plain| = {err:.3e} deg (limit {PROX_TOL_DEG})")
-        require(err <= PROX_TOL_DEG, f"proximity any-rank {measure} K={K}: err {err}")
+        require(err <= PROX_TOL_DEG, f"proximity {key}: err {err}")
         errs["proximity"].append(err)
-    del U16
+    del U16, U12
     ms, plain_ms, b_ms, b_by = t[f"eq3 K={K}"]
     row = {
         "name": "proximity", "route": "cuda",
@@ -1489,7 +1632,11 @@ def phase_timings(torch, fed, launches, errs) -> list:
         "library_ms": None, "redesigned": REDESIGNED_IN["proximity"],
     }
     for key, label in (("eq2", f"eq2 K={K}"), ("eq2_k97", f"eq2 K={MIX4_K} (mix4)"),
-                       ("any_rank_eq3", "any-rank eq3"), ("any_rank_eq2", "any-rank eq2")):
+                       ("eq3_k100", "eq3 K=100"),
+                       ("any_rank_eq3", "any-rank eq3"), ("any_rank_eq2", "any-rank eq2"),
+                       ("any_rank_p12_eq3", "any-rank eq3 p=12"),
+                       ("any_rank_p12_eq2", "any-rank eq2 p=12"),
+                       ("any_rank_cross_eq2", "any-rank eq2 cross")):
         ms, plain_ms, b_ms, b_by = t[label]
         row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": b_ms,
                     f"{key}_bound_by": b_by})
@@ -1703,12 +1850,24 @@ def time_kernels(torch) -> dict:
             key = f"proximity {measure} K={K}"
             ms[key] = time_ms(torch, lambda: proximity_cuda(U, U, measure))
             bounds[key] = prox_bound(K, N_FEATURES, RANK, measure)[0]
-    U = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(N_CLIENTS))
-    for measure in ("eq3", "eq2"):
-        key = f"proximity any-rank {measure} K={N_CLIENTS} p={ANY_RANK_P}"
-        ms[key] = time_ms(torch, lambda: proximity_cuda(U, U, measure), warmup=1, iters=5)
-        bounds[key] = prox_bound(N_CLIENTS, N_FEATURES, ANY_RANK_P, measure)[0]
-    return {"ms": ms, "bound_ms": bounds}
+    U = fed.signatures(planted(100))
+    ms["proximity eq3 K=100"] = time_ms(torch, lambda: proximity_cuda(U, U, "eq3"))
+    bounds["proximity eq3 K=100"] = prox_bound(100, N_FEATURES, RANK, "eq3")[0]
+    # the any-rank route: p = 16 and 12 squares, the 1024 x 256 block at 3 x 12
+    U3 = fed.signatures(planted(N_CLIENTS))
+    U16 = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(N_CLIENTS))
+    U12 = Federation(torch, device, p=12, seed=SEED + 4).signatures(planted(N_CLIENTS))
+    for label, Ua, Ub, measures in ((f"K={N_CLIENTS} p={ANY_RANK_P}", U16, U16, ("eq3", "eq2")),
+                                    (f"K={N_CLIENTS} p=12", U12, U12, ("eq3", "eq2")),
+                                    (f"cross {N_CLIENTS}x256 p=3 q=12", U3, U12[:256], ("eq2",))):
+        Ka, _, p = Ua.shape
+        Kb, _, q = Ub.shape
+        for measure in measures:
+            key = f"proximity any-rank {measure} {label}"
+            ms[key] = time_ms(torch, lambda: proximity_cuda(Ua, Ub, measure), warmup=1, iters=5)
+            bounds[key] = (prox_bound(Ka, N_FEATURES, p, measure) if Ua is Ub
+                           else cross_bound(Ka, Kb, N_FEATURES, p, q, measure))[0]
+    return {"ms": ms, "bound_ms": bounds, "build_s": dict(_build.BUILD_SECONDS)}
 
 
 def time_fl(torch) -> dict:
@@ -1796,6 +1955,46 @@ def sweep_eq2(torch) -> dict:
     return out
 
 
+def sweep_any_rank(torch) -> dict:
+    """The measurements behind the any-rank eq2 plan: eq2 at K = 1024, n =
+    3072, p = 16 with each Gram piece shape (``eq2_chunks``), each job count
+    of the reduce (``reduce_jobs``) and two workspace caps, each with its
+    device time by kernel (torch.profiler).  The plan is set through the
+    module's functions."""
+    import functools
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    plan = importlib.import_module("repro_torch.kernels.proximity.proximity")
+    chunks, jobs, eq2_plan = plan.eq2_chunks, plan.reduce_jobs, plan.eq2_plan
+    _build.build_all(("proximity",))
+    device = torch.device("cuda")
+    U = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 5).signatures(planted(N_CLIENTS))
+    out = {}
+
+    def run(label):
+        out[label] = {"ms": time_ms(torch, lambda: plan.proximity_cuda(U, U, "eq2"),
+                                    warmup=1, iters=5),
+                      "kernels_ms": profile_ms(torch, lambda: plan.proximity_cuda(U, U, "eq2"),
+                                               iters=2)}
+    try:
+        for shape in ((3, 4), (4, 4), (4, 3), (2, 6), (2, 4), (1, 8), (8, 8)):
+            plan.eq2_chunks = lambda p, q, _s=shape: _s
+            run(f"pieces {shape[0]}x{shape[1]}")
+        plan.eq2_chunks = chunks
+        for j in (32, 16):
+            plan.reduce_jobs = lambda p, q, sym, _j=j: _j
+            run(f"reduce jobs {j}")
+        plan.reduce_jobs = jobs
+        for cap in (128 << 20, 2 << 30):
+            plan.eq2_plan = functools.partial(eq2_plan, workspace_bytes=cap)
+            run(f"workspace cap {cap >> 20} MiB")
+    finally:
+        plan.eq2_chunks, plan.reduce_jobs, plan.eq2_plan = chunks, jobs, eq2_plan
+    return out
+
+
 def sweep_wkv(torch) -> dict:
     """The measurements behind ``wkv_plan``'s constants, float32 at
     rwkv6-1.6b's (4, S, 32, 64) with the model's decays: the prefill at
@@ -1839,6 +2038,8 @@ def main(argv=None) -> int:
                     help="only time WKV by chunk length and route (wkv_plan's constants)")
     ap.add_argument("--sweep-eq2", action="store_true",
                     help="only time eq2 by split count at K = 97 (eq2_plan's one wave)")
+    ap.add_argument("--sweep-any-rank", action="store_true",
+                    help="only time eq2 at p = 16 by Gram piece, reduce jobs and workspace cap")
     args = ap.parse_args(argv)
     tree = args.time_kernels or args.time_fl
     src = Path(tree).resolve() if tree else ROOT / "src"
@@ -1866,6 +2067,9 @@ def main(argv=None) -> int:
     if args.sweep_eq2:
         print(json.dumps({"device": device["smi"], "eq2": sweep_eq2(torch)}))
         return 0
+    if args.sweep_any_rank:
+        print(json.dumps({"device": device["smi"], "any_rank_eq2": sweep_any_rank(torch)}))
+        return 0
     phase_build()
     fed = Federation(torch, torch.device("cuda"))
     errs = {"proximity": [], "tsgemm": [], "wkv": [],
@@ -1875,15 +2079,16 @@ def main(argv=None) -> int:
     check_flash(torch, fed.device, errs["flash_attention"])
     check_wkv(torch, fed.device, errs["wkv"])
     main_path = phase_main_path(torch, fed)
+    any_rank = phase_any_rank(torch, fed.device)
     fl = phase_fl(torch, fed.device, main_path)
     families = phase_families(torch, fed.device, main_path, fl)
-    # the PACFL, FL and family paths' launches, each counted from 0 over its run
-    launches = dict(collections.Counter(main_path["launches"])
-                    + collections.Counter(fl["launches"])
-                    + collections.Counter(families["launches"]))
-    routes = (collections.Counter(main_path["routes"]) + collections.Counter(fl["routes"])
-              + collections.Counter(families["routes"]))
-    launches["proximity_by_route"] = {m: routes[("proximity", m)] for m in ("eq3", "eq2")}
+    # the PACFL (p = 3 and p = 16), FL and family paths' launches, each
+    # counted from 0 over its run
+    paths = (main_path, any_rank, fl, families)
+    launches = dict(sum((collections.Counter(x["launches"]) for x in paths), collections.Counter()))
+    routes = sum((collections.Counter(x["routes"]) for x in paths), collections.Counter())
+    launches["proximity_by_route"] = {m: routes[("proximity", m)] for m in
+                                      ("eq3", "eq2", "eq3_any_rank", "eq2_any_rank")}
     lm_launches = phase_lm_serving(torch, fed.device)
     phase_lm_float32(torch, fed.device)
     rows = phase_timings(torch, fed, launches, errs)

@@ -66,16 +66,28 @@
 // groups, one grid layer each, through the same workspace.  Clients and
 // rows past the edge are staged as zeros and never written.
 //
-// Ranks above kMaxRank take a runtime-rank path (proximity_any_rank): one
-// warp per pair, the pair's NC-row chunks staged in the warp's slice of
-// dynamic shared memory, each lane summing its Gram entries over a chunk in
-// a fresh FP32 register and adding the chunk sums into FP64 totals kept in
-// shared memory.  The reduction is the same arithmetic with loops in place
-// of the unroll: eq3's in-order clipped arccos sum on lane 0, eq2's packed
-// G^T G and cyclic Jacobi (same plane order and sweep count) with the
-// off-plane updates of each rotation spread over the lanes.  It has no
-// pair-tile reuse, so it is far slower than the other paths per pair.
+// Ranks above kMaxRank (the largest rank a template unrolls) run on the same
+// tiles, over column views of the stacks.  eq3 takes the p columns in
+// chunks of at most 8, one eq3_tc launch each; every launch after the first
+// reads C[a, b] and goes on adding its angles to it, so the float32 sum runs
+// over r = 0 ... p - 1 in the reference's order.  A chunk's row is 8 (or
+// p mod 8) contiguous floats at stride p, staged in 16-byte copies when
+// p % 4 == 0 (kStageRowQuads).  eq2 forms each pair's p x q Gram in pieces
+// of PC rows x QC columns (eq2_tc<PC, QC> on the views Ua[:, :, r..r+PC),
+// Ub[:, :, s..s+QC); the host plan picks PC, QC <= 8), grid z enumerating
+// the pieces of one shape, at most four shapes for the ragged edges; every
+// piece writes its FP64 entries into the workspace at their place in the
+// full p x q Gram.  eq2_form_any then adds the splits in split order and
+// forms each epilogue's packed G^T G (on the symmetric grid also G G^T for
+// C[b, a]) in float32 in the reference's order, and eq2_jacobi_any runs the
+// cyclic Jacobi of each, a thread an epilogue, in shared memory with the
+// runtime order q.  The workspace is bounded by running the tiles in
+// batches (eq2_plan's batch_tiles): each batch's pieces, then its reduce.
+// At K = 1024, p = q = 16 the Gram pieces take about two thirds of the time
+// and the Jacobis (a million 16 x 16, six sweeps each) most of the rest.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -84,18 +96,20 @@ constexpr float kDegPerRad = 57.295779513082320876798f;
 constexpr int kMaxRank = 8;  // largest rank the templates unroll
 constexpr int kMaxDevices = 64;
 
+// The in-order clipped arccos sum over r; add: continue the sum `total` of
+// the columns before these (a later rank chunk), else start it here.
 template <int P>
-__device__ __forceinline__ float eq3_reduce(const double (&gd)[P]) {
+__device__ __forceinline__ float eq3_reduce(const double (&gd)[P], float total,
+                                            bool add) {
   float g[P];
 #pragma unroll
   for (int r = 0; r < P; ++r) g[r] = static_cast<float>(gd[r]);
-  float total = 0.f;
 #pragma unroll
   for (int r = 0; r < P; ++r) {
     float d = fabsf(g[r]);
     d = d > 1.f ? 1.f : d;
     const float ang = acosf(d) * kDegPerRad;
-    total = r == 0 ? ang : total + ang;
+    total = r == 0 && !add ? ang : total + ang;
   }
   return total;
 }
@@ -265,18 +279,38 @@ __device__ __forceinline__ void triangle_tile(long long x, int& bi, int& bj) {
   bi = static_cast<int>(x - j * (j + 1) / 2);
 }
 
-// Stage rows [t0, t0 + NC) of T clients from k0 into s[i * LS + t * P + r].
-// vec: the client's rows are contiguous and 16-byte aligned (sn == P,
-// sp == 1), so each thread copies 16-byte chunks, the ragged edge
-// zero-filled; else one 4-byte copy per element.  Clients and rows past the
-// edge are zeros.
+// How a stack's stage rows are copied (stage_mode picks one on the host):
+// kStageFlat, a client's rows are contiguous and 16-byte aligned (sn == P,
+// sp == 1): 16-byte chunks over the client's whole stage row;
+// kStageRowQuads, P % 4 == 0 and each row's P columns contiguous and
+// 16-byte aligned (sp == 1, sn % 4 == 0; a column view of a wider stack):
+// 16-byte chunks within each row; kStageScalar, one 4-byte copy per element.
+constexpr int kStageScalar = 0, kStageFlat = 1, kStageRowQuads = 2;
+
+// Stage rows [t0, t0 + NC) of T clients from k0 into s[i * LS + t * P + r]
+// as `mode` says.  Clients and rows past the edge are zeros.
 template <int P, int T, int LS, int NC, int THREADS>
 __device__ __forceinline__ void stage_async(float* s, const float* __restrict__ U,
                                             long long sk, long long sn,
                                             long long sp, int K, int n, int k0,
-                                            int t0, int tid, bool vec) {
+                                            int t0, int tid, int mode) {
   constexpr int kRow = NC * P;
-  if (vec) {
+  if constexpr (P % 4 == 0) {
+    if (mode == kStageRowQuads) {
+      constexpr int kQuads = P / 4;
+      constexpr int kChunks = NC * kQuads;   // 16-byte chunks a client
+      for (int e = tid; e < T * kChunks; e += THREADS) {
+        const int i = e / kChunks, rem = e - (e / kChunks) * kChunks;
+        const int t = rem / kQuads, part = rem - (rem / kQuads) * kQuads;
+        const int k = k0 + i;
+        const bool valid = k < K && t0 + t < n;
+        cp_async16(&s[i * LS + t * P + 4 * part],
+                   valid ? U + k * sk + (t0 + t) * sn + 4 * part : U, valid ? 16 : 0);
+      }
+      return;
+    }
+  }
+  if (mode == kStageFlat) {
     constexpr int kChunks = kRow / 4;
     const long long left = static_cast<long long>(n - t0) * P;  // floats
     for (int e = tid; e < T * kChunks; e += THREADS) {
@@ -305,12 +339,14 @@ __device__ __forceinline__ void stage_async(float* s, const float* __restrict__ 
 // with float32 inputs, exact FP64 products and FP64 sums.  sym != 0: Ua is
 // Ub, the grid walks the upper-triangle tiles only and each value is written
 // to C[a, b] and C[b, a] (in the diagonal tiles only a <= b is computed).
+// add != 0: these are columns after the first chunk of a wider stack, and
+// the sum goes on from C[a, b] (which only this block of the grid reads).
 template <int P>
 __global__ void __launch_bounds__(Eq3Tile<P>::THREADS)
 eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
        long long sap, int Ka, const float* __restrict__ Ub, long long sbk,
        long long sbn, long long sbq, int Kb, int n, float* __restrict__ C,
-       long long ldc, int sym, int vec_a, int vec_b) {
+       long long ldc, int sym, int mode_a, int mode_b, int add) {
   using T = Eq3Tile<P>;
   constexpr int NC = T::NC, NS = T::NS, LS = T::LS, MA = T::MA, MB = T::MB;
   extern __shared__ __align__(16) float smem[];
@@ -347,10 +383,10 @@ eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
     if (c < nchunks) {
       stage_async<P, T::TA, LS, NC, T::THREADS>(sA + c * T::STAGE, Ua, sak,
                                                 san, sap, Ka, n, a0, c * NC,
-                                                tid, vec_a);
+                                                tid, mode_a);
       stage_async<P, T::TB, LS, NC, T::THREADS>(sB + c * T::STAGE, Ub, sbk,
                                                 sbn, sbq, Kb, n, b0, c * NC,
-                                                tid, vec_b);
+                                                tid, mode_b);
     }
     cp_async_commit();
   }
@@ -363,10 +399,10 @@ eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
         const int slot = cn % NS;
         stage_async<P, T::TA, LS, NC, T::THREADS>(sA + slot * T::STAGE, Ua,
                                                   sak, san, sap, Ka, n, a0,
-                                                  cn * NC, tid, vec_a);
+                                                  cn * NC, tid, mode_a);
         stage_async<P, T::TB, LS, NC, T::THREADS>(sB + slot * T::STAGE, Ub,
                                                   sbk, sbn, sbq, Kb, n, b0,
-                                                  cn * NC, tid, vec_b);
+                                                  cn * NC, tid, mode_b);
       }
       cp_async_commit();
     }
@@ -408,7 +444,7 @@ eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
         double gd[P];
 #pragma unroll
         for (int r = 0; r < P; ++r) gd[r] = acc[r][i][j][x];
-        const float out = eq3_reduce<P>(gd);
+        const float out = eq3_reduce<P>(gd, add ? C[a * ldc + b] : 0.f, add != 0);
         C[a * ldc + b] = out;
         if (sym && a != b) C[b * ldc + a] = out;
       }
@@ -416,49 +452,93 @@ eq3_tc(const float* __restrict__ Ua, long long sak, long long san,
   }
 }
 
-// 1 where a stack's client rows are contiguous and 16-byte aligned, so the
-// kernels stage them in 16-byte copies (stage_async's vec path).
-int stage_vec(const float* U, long long sk, long long sn, long long sp, int rank) {
-  return sn == rank && sp == 1 && sk % 4 == 0 &&
-         reinterpret_cast<unsigned long long>(U) % 16 == 0;
+// The operands and output of one call: Ua (Ka, n, p), Ub (Kb, n, q) float32
+// with element strides, C (Ka, Kb) float32 with row stride ldc.
+struct Operands {
+  const float* Ua;
+  long long sak, san, sap;
+  int Ka;
+  const float* Ub;
+  long long sbk, sbn, sbq;
+  int Kb;
+  int n;
+  float* C;
+  long long ldc;
+};
+
+// How the kernels stage a stack's column view of `rank` columns at U
+// (stage_async's modes).
+int stage_mode(const float* U, long long sk, long long sn, long long sp, int rank) {
+  if (sp != 1 || sk % 4 != 0 || reinterpret_cast<unsigned long long>(U) % 16 != 0)
+    return kStageScalar;
+  if (sn == rank) return kStageFlat;
+  return rank % 4 == 0 && sn % 4 == 0 ? kStageRowQuads : kStageScalar;
 }
 
-template <int P>
-int launch_eq3_tc(const float* Ua, long long sak, long long san, long long sap,
-                  int Ka, const float* Ub, long long sbk, long long sbn,
-                  long long sbq, int Kb, int n, float* C, long long ldc,
-                  cudaStream_t stream) {
-  using T = Eq3Tile<P>;
-  static int done[kMaxDevices];  // smem attribute: 0 unset, 1 set, else -(error)
+// Sets a kernel's dynamic shared memory limit once per device: 0 or an error.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int (&done)[kMaxDevices]) {
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev] == 0) {
+  if (done[dev] < bytes) {
     rc = static_cast<int>(cudaFuncSetAttribute(
-        eq3_tc<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM));
-    done[dev] = rc == 0 ? 1 : -rc;
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+    if (rc != 0) return rc;
+    done[dev] = bytes;
   }
-  if (done[dev] != 1) return -done[dev];
-  // the same stack on both sides: upper-triangle tiles only
-  const bool sym = Ua == Ub && Ka == Kb && sak == sbk && san == sbn &&
-                   sap == sbq && T::TA == T::TB;
+  return 0;
+}
+
+// eq3 over the columns [r0, r0 + P) of both stacks; sym: they are one stack
+// (upper-triangle tiles); add: continue the sums in C (a chunk after the
+// first).
+template <int P>
+int launch_eq3_tc(const Operands& o, int r0, bool sym, bool add, cudaStream_t stream) {
+  using T = Eq3Tile<P>;
+  static int smem_set[kMaxDevices];
+  int rc = allow_smem(eq3_tc<P>, T::SMEM, smem_set);
+  if (rc != 0) return rc;
   dim3 grid;
   if (sym) {
-    const long long nt = (Ka + T::TA - 1) / T::TA;
+    const long long nt = (o.Ka + T::TA - 1) / T::TA;
     const long long tiles = nt * (nt + 1) / 2;
     if (tiles > 2147483647LL) return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(tiles));
   } else {
-    const long long gx = (Kb + T::TB - 1) / T::TB;
-    const long long gy = (Ka + T::TA - 1) / T::TA;
+    const long long gx = (o.Kb + T::TB - 1) / T::TB;
+    const long long gy = (o.Ka + T::TA - 1) / T::TA;
     if (gy > 65535 || gx > 2147483647LL) return cudaErrorInvalidValue;
     grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
   }
+  const float* Ua = o.Ua + r0 * o.sap;
+  const float* Ub = o.Ub + r0 * o.sbq;
   eq3_tc<P><<<grid, T::THREADS, T::SMEM, stream>>>(
-      Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc, sym ? 1 : 0,
-      stage_vec(Ua, sak, san, sap, P), stage_vec(Ub, sbk, sbn, sbq, P));
+      Ua, o.sak, o.san, o.sap, o.Ka, Ub, o.sbk, o.sbn, o.sbq, o.Kb, o.n, o.C,
+      o.ldc, sym ? 1 : 0, stage_mode(Ua, o.sak, o.san, o.sap, P),
+      stage_mode(Ub, o.sbk, o.sbn, o.sbq, P), add ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// eq3 at any rank p: chunks of kMaxRank columns, then the rest, each
+// launch after the first adding into C (chunks of 4 or 6 columns took
+// longer at p = 12 and 16, though eq3_tc<8> spills 56 bytes a thread).
+int launch_eq3(const Operands& o, int p, bool sym, cudaStream_t stream) {
+  for (int r0 = 0; r0 < p; r0 += kMaxRank) {
+    const int w = p - r0 < kMaxRank ? p - r0 : kMaxRank;
+    int rc;
+    switch (w) {
+#define PROX_EQ3(PP) \
+  case PP: rc = launch_eq3_tc<PP>(o, r0, sym, r0 > 0, stream); break;
+      PROX_EQ3(1) PROX_EQ3(2) PROX_EQ3(3) PROX_EQ3(4)
+      PROX_EQ3(5) PROX_EQ3(6) PROX_EQ3(7) PROX_EQ3(8)
+#undef PROX_EQ3
+      default: rc = cudaErrorInvalidValue;
+    }
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -532,28 +612,48 @@ __device__ __forceinline__ void eq2_tile(long long x, int sym, int Kb, int tb,
   }
 }
 
-// Block (tile, split, group): the FP64 Gram entries of rows r in
-// [group * RG, (group + 1) * RG) of the tile's pairs, summed over the
-// split's rows [split * split_rows, ...) of n (a multiple of 16).  ws null
-// (one split, one group): the Jacobi epilogue in registers, into C.  Else
-// the partial Grams go to ws[split][tile][r * Q + s][pair], pair = 32 *
-// (a - a0) + (b - b0), for eq2_reduce_ws.
+// Where a launch's blocks sit.  Grid x: the tiles of a batch, from tile0.
+// Grid z: pieces x GROUPS; piece x of a launch is the view whose columns
+// start at (x / col_chunks) * P of Ua and (x % col_chunks) * Q of Ub, past
+// its first piece's (the pointers the kernel gets), which is Gram row
+// r_base, column s_base.  The workspace holds each pair's full Gram, ws_q
+// columns a row, ws_entries entries.
+struct Eq2Grid {
+  long long tile0;
+  int col_chunks;
+  int r_base, s_base;
+  int ws_q, ws_entries;
+};
+
+// Block (tile, split, piece and group): the FP64 Gram entries of the
+// piece's rows r in [group * RG, (group + 1) * RG) and its Q columns, for
+// the tile's pairs, summed over the split's rows [split * split_rows, ...)
+// of n (a multiple of 16).  ws null (one split, one piece, one group): the
+// Jacobi epilogue in registers, into C.  Else the partial Grams go to
+// ws[split][tile - tile0][r * ws_q + s][pair] (r, s in the full Gram),
+// pair = 32 * (a - a0) + (b - b0), for eq2_reduce_ws or eq2_form_any.
 template <int P, int Q>
 __global__ void __launch_bounds__(Eq2Tile<P, Q>::THREADS)
 eq2_tc(const float* __restrict__ Ua, long long sak, long long san,
        long long sap, int Ka, const float* __restrict__ Ub, long long sbk,
        long long sbn, long long sbq, int Kb, int n, float* __restrict__ C,
-       long long ldc, int sym, int vec_a, int vec_b, int split_rows,
-       double* __restrict__ ws) {
+       long long ldc, int sym, int mode_a, int mode_b, int split_rows,
+       double* __restrict__ ws, Eq2Grid grid) {
   using T = Eq2Tile<P, Q>;
   constexpr int NC = T::NC, NS = T::NS, RG = T::RG;
   extern __shared__ __align__(16) float smem[];
   float* sA = smem;                  // [NS][TA][LSA]
   float* sB = smem + NS * T::STA;    // [NS][TB][LSB]
 
-  const long long tile = blockIdx.x;
+  const long long tile = grid.tile0 + blockIdx.x;
   const int split = blockIdx.y;
-  const int r0 = blockIdx.z * RG;
+  const int piece = blockIdx.z / T::GROUPS;
+  const int r0 = (blockIdx.z - piece * T::GROUPS) * RG;
+  const int pr = piece / grid.col_chunks, pc = piece - pr * grid.col_chunks;
+  Ua += static_cast<long long>(pr) * P * sap;
+  Ub += static_cast<long long>(pc) * Q * sbq;
+  const int ra = grid.r_base + pr * P;   // the piece's first Gram row
+  const int sb = grid.s_base + pc * Q;   // and column
   int bi, bj;
   eq2_tile(tile, sym, Kb, T::TB, bi, bj);
   const int a0 = bi * T::TA, b0 = bj * T::TB;
@@ -578,10 +678,10 @@ eq2_tc(const float* __restrict__ Ua, long long sak, long long san,
     const int slot = c % NS;
     stage_async<P, T::TA, T::LSA, NC, T::THREADS>(sA + slot * T::STA, Ua, sak,
                                                   san, sap, Ka, n, a0,
-                                                  lo + c * NC, tid, vec_a);
+                                                  lo + c * NC, tid, mode_a);
     stage_async<Q, T::TB, T::LSB, NC, T::THREADS>(sB + slot * T::STB, Ub, sbk,
                                                   sbn, sbq, Kb, n, b0,
-                                                  lo + c * NC, tid, vec_b);
+                                                  lo + c * NC, tid, mode_b);
   };
 #pragma unroll
   for (int c = 0; c < NS - 1; ++c) {
@@ -623,13 +723,15 @@ eq2_tc(const float* __restrict__ Ua, long long sak, long long san,
     const int al = wa * 16 + g + 8 * (x >> 1);
     const int bl = wb * 8 + 2 * t4 + (x & 1);
     if (ws != nullptr) {
-      double* dst = ws + (static_cast<long long>(split) * gridDim.x + tile) *
-                             (P * Q * T::PAIRS) + al * T::TB + bl;
+      double* dst = ws + (static_cast<long long>(split) * gridDim.x + blockIdx.x) *
+                             (static_cast<long long>(grid.ws_entries) * T::PAIRS) +
+                    al * T::TB + bl;
 #pragma unroll
       for (int r = 0; r < RG; ++r)
 #pragma unroll
         for (int s = 0; s < Q; ++s)
-          dst[static_cast<long long>((r0 + r) * Q + s) * T::PAIRS] = acc[r][s][x];
+          dst[static_cast<long long>((ra + r0 + r) * grid.ws_q + sb + s) * T::PAIRS] =
+              acc[r][s][x];
     } else {
       if constexpr (T::GROUPS == 1) {
         double gd[P * Q];
@@ -643,27 +745,27 @@ eq2_tc(const float* __restrict__ Ua, long long sak, long long san,
   }
 }
 
-// Second pass of a split (or grouped) eq2 grid.  A block takes 32 pairs of
-// a tile: its threads add the splits' partial Grams in split order, one
-// (entry, pair) at a time with the pairs across lanes (coalesced reads,
-// several splits' loads in flight), into shared memory; then one warp runs
-// the epilogue, a pair a lane.  No atomics: the result is the same bitwise
-// from run to run.
+// Second pass of a split (or grouped) eq2 grid at p, q <= kMaxRank, over a
+// batch of tiles from tile0.  A block takes 32 pairs of a tile: its threads
+// add the splits' partial Grams in split order, one (entry, pair) at a time
+// with the pairs across lanes (coalesced reads, several splits' loads in
+// flight), into shared memory; then one warp runs the epilogue, a pair a
+// lane.  No atomics: the result is the same bitwise from run to run.
 constexpr int kReduceThreads = 256;
 constexpr int kReducePairs = 32;
 
 template <int P, int Q>
 __global__ void __launch_bounds__(kReduceThreads)
-eq2_reduce_ws(const double* __restrict__ ws, long long tiles, int splits,
-              int Ka, int Kb, int sym, float* __restrict__ C, long long ldc) {
+eq2_reduce_ws(const double* __restrict__ ws, long long tile0, long long batch_tiles,
+              int splits, int Ka, int Kb, int sym, float* __restrict__ C, long long ldc) {
   using T = Eq2Tile<P, Q>;
   constexpr int PQ = P * Q, CHUNKS = T::PAIRS / kReducePairs;
   __shared__ double g[PQ][kReducePairs + 1];
-  const long long tile = blockIdx.x / CHUNKS;
+  const long long slot = blockIdx.x / CHUNKS;
   const int p0 = static_cast<int>(blockIdx.x % CHUNKS) * kReducePairs;
   const long long stride = static_cast<long long>(PQ) * T::PAIRS;  // a split's tile
-  const long long split_stride = tiles * stride;
-  const double* src = ws + tile * stride + p0;
+  const long long split_stride = batch_tiles * stride;
+  const double* src = ws + slot * stride + p0;
   for (int item = threadIdx.x; item < PQ * kReducePairs; item += kReduceThreads) {
     const int e = item / kReducePairs, pl = item - (item / kReducePairs) * kReducePairs;
     const double* x = src + e * T::PAIRS + pl;
@@ -675,7 +777,7 @@ eq2_reduce_ws(const double* __restrict__ ws, long long tiles, int splits,
   __syncthreads();
   if (threadIdx.x >= kReducePairs) return;
   int bi, bj;
-  eq2_tile(tile, sym, Kb, T::TB, bi, bj);
+  eq2_tile(tile0 + slot, sym, Kb, T::TB, bi, bj);
   const int pair = p0 + static_cast<int>(threadIdx.x);
   double gd[PQ];
 #pragma unroll
@@ -684,231 +786,351 @@ eq2_reduce_ws(const double* __restrict__ ws, long long tiles, int splits,
                   sym != 0, bi == bj, C, ldc);
 }
 
-// The host plan (kernels/proximity/proximity.py::eq2_plan) gives split_rows,
-// splits and the tile count it sized ws for; the launch refuses a plan that
-// does not match this grid.  ws: FP64 (splits, tiles, p * q, 32 * 32), or
-// null when the plan has one split and one row group.
-template <int P, int Q>
-int launch_eq2_tc(const float* Ua, long long sak, long long san, long long sap,
-                  int Ka, const float* Ub, long long sbk, long long sbn,
-                  long long sbq, int Kb, int n, float* C, long long ldc,
-                  int split_rows, int splits, long long plan_tiles, double* ws,
-                  cudaStream_t stream) {
-  using T = Eq2Tile<P, Q>;
-  static int done[kMaxDevices];  // smem attribute: 0 unset, 1 set, else -(error)
-  int dev = 0;
-  int rc = static_cast<int>(cudaGetDevice(&dev));
-  if (rc != 0) return rc;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev] == 0) {
-    rc = static_cast<int>(cudaFuncSetAttribute(
-        eq2_tc<P, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM));
-    done[dev] = rc == 0 ? 1 : -rc;
-  }
-  if (done[dev] != 1) return -done[dev];
-  // the same stack on both sides: upper-triangle tiles only
-  const bool sym = Ua == Ub && Ka == Kb && sak == sbk && san == sbn &&
-                   sap == sbq && P == Q;
-  const long long nta = (Ka + T::TA - 1) / T::TA, ntb = (Kb + T::TB - 1) / T::TB;
-  const long long tiles = sym ? nta * (nta + 1) / 2 : nta * ntb;
-  const bool two_pass = splits > 1 || T::GROUPS > 1;
-  if (tiles != plan_tiles || tiles > 2147483647LL || split_rows <= 0 ||
-      split_rows % T::NC != 0 || splits > 65535 ||
-      splits != (n + split_rows - 1) / split_rows || two_pass != (ws != nullptr))
-    return cudaErrorInvalidValue;
-  eq2_tc<P, Q><<<dim3(static_cast<unsigned>(tiles), splits, T::GROUPS),
-                 T::THREADS, T::SMEM, stream>>>(
-      Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc, sym ? 1 : 0,
-      stage_vec(Ua, sak, san, sap, P), stage_vec(Ub, sbk, sbn, sbq, Q),
-      split_rows, ws);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || !two_pass) return rc;
-  const long long blocks = tiles * (T::PAIRS / kReducePairs);
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  eq2_reduce_ws<P, Q><<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
-      ws, tiles, splits, Ka, Kb, sym ? 1 : 0, C, ldc);
-  return static_cast<int>(cudaGetLastError());
+// Second pass of the any-rank grid (p or q > kMaxRank), p and q at run
+// time, over a batch of tiles, in two kernels.  Each block of either takes
+// `pairs` pairs of a tile (jobs / 2 on the symmetric grid, else jobs) and
+// runs `jobs` epilogues: the Jacobi of G^T G (q x q) for C[a, b], and on
+// the symmetric grid of G G^T (p x p, p == q) for C[b, a].
+//
+// eq2_form_any: the block's threads add the splits' FP64 pieces in split
+// order (pairs across lanes, several loads in flight a thread), round each
+// Gram entry to float32 into shared memory, then form each epilogue's
+// matrix in float32 in the reference's order as eq2_reduce does (the packed
+// upper triangle, (i, j) at tri_row(i, m) + j) and write it back over the
+// block's own columns of the workspace's first split: entry t of job j is
+// float f = t * jobs + j of the block's columns, 2 * pairs floats a row of
+// the workspace (which has `entries` rows a tile, enough for them).
+//
+// eq2_jacobi_any: a thread an epilogue.  Its matrix is copied into its own
+// column of shared memory (interleaved by job, so a warp's accesses are
+// conflict-free) and swept there by the cyclic Jacobi with the same plane
+// order, sweep count, tangent, 1e-30 guard and rsqrt as rotate().  What
+// bounds it: the dependent chain of each rotation (two loads, sqrt, divide,
+// rsqrt) and the shared-memory traffic of its m - 2 off-plane updates, so
+// the more epilogues an SM holds the better: the Gram, which only the
+// forming needs, is not in this kernel's shared memory.  A rotation issues
+// its first kRotGroup updates' loads before the chain, and the updates
+// address their entries through one table for the block, idx[a * m + b] =
+// the packed entry (min, max) of (a, b) times jobs, whose diagonal points at
+// each job's scratch slot: the updates at k = i and k = j then need no test
+// (they write the scratch slot and (i, j), which is stored afterwards).
+// No atomics and no stack.
+constexpr int kAnyThreads = 256;   // threads of a forming block
+constexpr int kAnyJobs = 64;       // the most epilogues a block runs
+constexpr int kLoadUnroll = 4;
+constexpr int kRotGroup = 8;
+constexpr int kTilePairs = 32 * 32;   // a tile's pairs: the workspace's last axis
+
+__host__ __device__ __forceinline__ int tri_row(int i, int m) {
+  return i * m - i * (i + 1) / 2;
 }
 
-template <int P>
-int pick_q(int q, const float* Ua, long long sak, long long san,
-           long long sap, int Ka, const float* Ub, long long sbk,
-           long long sbn, long long sbq, int Kb, int n, float* C,
-           long long ldc, int split_rows, int splits, long long plan_tiles,
-           double* ws, cudaStream_t stream) {
-#define PROX_Q(QQ)                                                           \
-  case QQ:                                                                   \
-    return launch_eq2_tc<P, QQ>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq,    \
-                                Kb, n, C, ldc, split_rows, splits,           \
-                                plan_tiles, ws, stream);
-  switch (q) {
-    PROX_Q(1) PROX_Q(2) PROX_Q(3) PROX_Q(4)
-    PROX_Q(5) PROX_Q(6) PROX_Q(7) PROX_Q(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef PROX_Q
+// Shared memory of the two kernels' blocks, in 4-byte words: the Gram of
+// the block's pairs; each job's packed triangle and scratch slot and the
+// offset table.
+__host__ __device__ __forceinline__ long long form_any_words(int p, int q, int jobs, bool sym) {
+  return static_cast<long long>(p) * q * (sym ? jobs / 2 : jobs);
+}
+__host__ __device__ __forceinline__ long long jacobi_any_words(int q, int jobs) {
+  return (static_cast<long long>(q) * (q + 1) / 2 + 1) * jobs + static_cast<long long>(q) * q;
 }
 
-// ---------------------------------------------------------------------------
-// Runtime-rank path: any p, q.
-// ---------------------------------------------------------------------------
-
-constexpr int kDynChunk = 16;
-constexpr int kDynMaxWarps = 8;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-struct DynLayout {
-  int entries;        // Gram entries a pair accumulates: p (eq3) or p*q
-  size_t warp_bytes;  // FP64 totals, then staged rows of a and b, then G^T G
-  __host__ __device__ DynLayout(int p, int q, int eq2)
-      : entries(eq2 ? p * q : p),
-        warp_bytes(sizeof(double) * (eq2 ? p * q : p) +
-                   sizeof(float) * (kDynChunk * (p + q) + (eq2 ? q * q : 0))) {
-    warp_bytes = (warp_bytes + 15) / 16 * 16;
+__global__ void __launch_bounds__(kAnyThreads)
+eq2_form_any(double* __restrict__ ws, long long batch_tiles, int splits, int p, int q,
+             int entries, int jobs, int sym) {
+  extern __shared__ __align__(16) float g[];   // [pq][pairs]
+  const int pq = p * q, m = q;   // m: the matrices' order (p == q on the symmetric grid)
+  const int pairs = sym ? jobs / 2 : jobs;
+  const int chunks = kTilePairs / pairs;
+  const long long slot = blockIdx.x / chunks;
+  const int p0 = static_cast<int>(blockIdx.x - slot * chunks) * pairs;
+  const long long stride = static_cast<long long>(entries) * kTilePairs;   // a split's tile
+  const long long split_stride = batch_tiles * stride;
+  double* src = ws + slot * stride + p0;
+  const int total = pq * pairs;
+  for (int base = threadIdx.x; base < total; base += kLoadUnroll * kAnyThreads) {
+    const double* x[kLoadUnroll];
+    double v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int item = base + u * kAnyThreads;
+      const int e = item / pairs, pl = item - (item / pairs) * pairs;
+      x[u] = src + static_cast<long long>(e) * kTilePairs + pl;
+      v[u] = item < total ? x[u][0] : 0.0;
+    }
+    for (int sp = 1; sp < splits; ++sp) {
+#pragma unroll
+      for (int u = 0; u < kLoadUnroll; ++u)
+        if (base + u * kAnyThreads < total) v[u] += x[u][sp * split_stride];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u)
+      if (base + u * kAnyThreads < total) g[base + u * kAnyThreads] = static_cast<float>(v[u]);
   }
+  __syncthreads();
+  // kAnyThreads / jobs threads a job, rows i apart; X (terms x m) is G
+  // (p x q) for C[a, b], G^T (q x p) for C[b, a]
+  float* out = reinterpret_cast<float*>(src);
+  const int per_job = kAnyThreads / jobs;
+  for (int w = threadIdx.x; w < jobs * per_job; w += kAnyThreads) {
+    const int job = w % jobs, h = w / jobs;
+    const bool tr = sym && job >= pairs;
+    const int terms = tr ? q : p;
+    const int xk = (tr ? 1 : q) * pairs, xi = (tr ? q : 1) * pairs;
+    const float* X = g + (tr ? job - pairs : job);
+    for (int i = h; i < m; i += per_job) {
+      const int ri = tri_row(i, m);
+      for (int j = i; j < m; ++j) {
+        float acc = X[i * xi] * X[j * xi];
+        for (int k = 1; k < terms; ++k) acc = acc + X[k * xk + i * xi] * X[k * xk + j * xi];
+        const int f = (ri + j) * jobs + job;
+        out[2LL * (f / (2 * pairs)) * kTilePairs + f % (2 * pairs)] = acc;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAnyJobs)
+eq2_jacobi_any(const double* __restrict__ ws, long long tile0, int q, int entries, int jobs,
+               int Ka, int Kb, int sym, float* __restrict__ C, long long ldc) {
+  extern __shared__ __align__(16) float bq[];   // [tri + 1][jobs], then idx
+  const int m = q;
+  const int tri = m * (m + 1) / 2;
+  const int pairs = sym ? jobs / 2 : jobs;
+  const int chunks = kTilePairs / pairs;
+  const long long slot = blockIdx.x / chunks;
+  const int p0 = static_cast<int>(blockIdx.x - slot * chunks) * pairs;
+  const float* in = reinterpret_cast<const float*>(
+      ws + slot * static_cast<long long>(entries) * kTilePairs + p0);
+  int* idx = reinterpret_cast<int*>(bq + (tri + 1) * jobs);   // [m][m]
+  for (int f = threadIdx.x; f < tri * jobs; f += blockDim.x)
+    bq[f] = in[2LL * (f / (2 * pairs)) * kTilePairs + f % (2 * pairs)];
+  for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
+    const int r = e / m, c = e - (e / m) * m;
+    idx[e] = (r == c ? tri : (r < c ? tri_row(r, m) + c : tri_row(c, m) + r)) * jobs;
+  }
+  __syncthreads();
+  const int job = threadIdx.x;
+  if (job >= jobs) return;
+  const bool tr = sym && job >= pairs;   // the G G^T epilogue, for C[b, a]
+  const int pl = tr ? job - pairs : job;
+  int bi, bj;
+  eq2_tile(tile0 + slot, sym, Kb, 32, bi, bj);
+  const int a = bi * 32 + (p0 + pl) / 32, b = bj * 32 + (p0 + pl) % 32;
+  if (a >= Ka || b >= Kb || (sym && bi == bj && a > b) || (tr && a == b)) return;
+  float* B = bq + job;
+  float lam = B[0];
+  if (m > 1) {
+    const int sweeps = m <= 5 ? 4 : 6;
+    for (int it = 0; it < sweeps; ++it) {
+      for (int i = 0; i < m - 1; ++i) {
+        const int ri = tri_row(i, m);
+        const int* row_i = idx + i * m;
+        float bii = B[(ri + i) * jobs];   // only the planes (i, j) below change it
+        for (int j = i + 1; j < m; ++j) {
+          const int* row_j = idx + j * m;
+          const int jj = (tri_row(j, m) + j) * jobs, ij = (ri + j) * jobs;
+          float x[kRotGroup], y[kRotGroup];
+          int xo[kRotGroup], yo[kRotGroup];
+          auto load = [&](int k0) {
+#pragma unroll
+            for (int u = 0; u < kRotGroup; ++u) {
+              if (k0 + u < m) {
+                xo[u] = row_i[k0 + u];
+                yo[u] = row_j[k0 + u];
+                x[u] = B[xo[u]];
+                y[u] = B[yo[u]];
+              }
+            }
+          };
+          load(0);
+          const float bjj = B[jj], bij = B[ij];
+          const float d = bjj - bii;
+          const float e = bij + bij;
+          const float den = fabsf(d) + sqrtf(d * d + e * e) + kTiny;
+          const float sgn = d >= 0.f ? 1.f : -1.f;
+          const float t = sgn * e / den;
+          const float c = rsqrtf(1.f + t * t);
+          const float s = t * c;
+          const float tb = t * bij;
+          for (int k0 = 0; k0 < m; k0 += kRotGroup) {
+            if (k0 > 0) load(k0);
+#pragma unroll
+            for (int u = 0; u < kRotGroup; ++u) {
+              if (k0 + u < m) {
+                B[xo[u]] = c * x[u] - s * y[u];
+                B[yo[u]] = s * x[u] + c * y[u];
+              }
+            }
+          }
+          bii = bii - tb;
+          B[jj] = bjj + tb;
+          B[ij] = 0.f;
+        }
+        B[(ri + i) * jobs] = bii;
+      }
+    }
+    lam = B[0];
+    for (int i = 1; i < m; ++i) {
+      const float v = B[(tri_row(i, m) + i) * jobs];
+      lam = v > lam ? v : lam;
+    }
+  }
+  lam = lam < 0.f ? 0.f : lam;
+  float smax = sqrtf(lam);
+  smax = smax > 1.f ? 1.f : smax;
+  const float out = acosf(smax) * kDegPerRad;
+  if (tr) {
+    C[b * ldc + a] = out;
+  } else {
+    C[a * ldc + b] = out;
+  }
+}
+
+// eq2's host plan (kernels/proximity/proximity.py::eq2_plan): n in `splits`
+// of split_rows rows; the Gram in pieces of chunk_p x chunk_q (p x q: one
+// piece, the templates' route); the tiles in batches of batch_tiles, each
+// batch's pieces then its reduce; reduce_jobs epilogues a block of
+// eq2_form_any and eq2_jacobi_any; ws the FP64 workspace (splits,
+// batch_tiles, entries, 32 * 32), entries = p * q or more (see launch_eq2),
+// null when the plan has one split, one piece and one row group.
+struct Eq2Plan {
+  int split_rows, splits;
+  long long tiles, batch_tiles;
+  int chunk_p, chunk_q, reduce_jobs;
+  double* ws;
 };
 
-__global__ void __launch_bounds__(32 * kDynMaxWarps)
-proximity_any_rank(const float* __restrict__ Ua, long long sak, long long san,
-                   long long sap, int Ka, const float* __restrict__ Ub,
-                   long long sbk, long long sbn, long long sbq, int Kb, int n,
-                   int p, int q, int eq2, float* __restrict__ C,
-                   long long ldc) {
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  const DynLayout lay(p, q, eq2);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long pair =
-      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (pair >= static_cast<long long>(Ka) * Kb) return;
-  const int a = static_cast<int>(pair / Kb);
-  const int b = static_cast<int>(pair - static_cast<long long>(a) * Kb);
-
-  unsigned char* base = dyn_smem + lay.warp_bytes * warp;
-  double* tot = reinterpret_cast<double*>(base);
-  float* sa = reinterpret_cast<float*>(tot + lay.entries);  // [kDynChunk][p]
-  float* sb = sa + kDynChunk * p;                            // [kDynChunk][q]
-  float* bq = sb + kDynChunk * q;                            // [q][q]
-
-  for (int e = lane; e < lay.entries; e += 32) tot[e] = 0.0;
-  const float* A = Ua + a * sak;
-  const float* B = Ub + b * sbk;
-  for (int t0 = 0; t0 < n; t0 += kDynChunk) {
-    __syncwarp();
-    for (int e = lane; e < kDynChunk * p; e += 32) {
-      const int t = e / p, r = e - t * p;
-      sa[e] = t0 + t < n ? A[(t0 + t) * san + r * sap] : 0.f;
-    }
-    for (int e = lane; e < kDynChunk * q; e += 32) {
-      const int t = e / q, s = e - t * q;
-      sb[e] = t0 + t < n ? B[(t0 + t) * sbn + s * sbq] : 0.f;
-    }
-    __syncwarp();
-    for (int e = lane; e < lay.entries; e += 32) {
-      const int r = eq2 ? e / q : e;
-      const int s = eq2 ? e - r * q : e;
-      float part = 0.f;
-      for (int t = 0; t < kDynChunk; ++t)
-        part = fmaf(sa[t * p + r], sb[t * q + s], part);
-      tot[e] += part;
-    }
-  }
-  __syncwarp();
-
-  float out;
-  if (!eq2) {
-    float total = 0.f;
-    for (int r = 0; r < p; ++r) {
-      float d = fabsf(static_cast<float>(tot[r]));
-      d = d > 1.f ? 1.f : d;
-      const float ang = acosf(d) * kDegPerRad;
-      total = r == 0 ? ang : total + ang;
-    }
-    out = total;
-  } else {
-    // Packed upper triangle of G^T G, entry (i, j) at bq[i * q + j], i <= j.
-    for (int e = lane; e < q * q; e += 32) {
-      const int i = e / q, j = e - i * q;
-      if (i > j) continue;
-      float acc = static_cast<float>(tot[i]) * static_cast<float>(tot[j]);
-      for (int k = 1; k < p; ++k)
-        acc = acc + static_cast<float>(tot[k * q + i]) *
-                        static_cast<float>(tot[k * q + j]);
-      bq[e] = acc;
-    }
-    __syncwarp();
-    float lam = bq[0];
-    if (q > 1) {
-      const int sweeps = q <= 5 ? 4 : 6;
-      for (int it = 0; it < sweeps; ++it) {
-        for (int i = 0; i < q - 1; ++i) {
-          for (int j = i + 1; j < q; ++j) {
-            const float bii = bq[i * q + i], bjj = bq[j * q + j];
-            const float bij = bq[i * q + j];
-            const float d = bjj - bii;
-            const float e = bij + bij;
-            const float den = fabsf(d) + sqrtf(d * d + e * e) + kTiny;
-            const float sgn = d >= 0.f ? 1.f : -1.f;
-            const float t = sgn * e / den;
-            const float c = rsqrtf(1.f + t * t);
-            const float s = t * c;
-            __syncwarp();
-            for (int k = lane; k < q; k += 32) {
-              if (k == i || k == j) continue;
-              float& bik = k < i ? bq[k * q + i] : bq[i * q + k];
-              float& bjk = k < j ? bq[k * q + j] : bq[j * q + k];
-              const float x = bik, y = bjk;
-              bik = c * x - s * y;
-              bjk = s * x + c * y;
-            }
-            if (lane == 0) {
-              const float tb = t * bij;
-              bq[i * q + i] = bii - tb;
-              bq[j * q + j] = bjj + tb;
-              bq[i * q + j] = 0.f;
-            }
-            __syncwarp();
-          }
-        }
-      }
-      lam = bq[0];
-      for (int i = 1; i < q; ++i) {
-        const float v = bq[i * q + i];
-        lam = v > lam ? v : lam;
-      }
-    }
-    lam = lam < 0.f ? 0.f : lam;
-    float smax = sqrtf(lam);
-    smax = smax > 1.f ? 1.f : smax;
-    out = acosf(smax) * kDegPerRad;
-  }
-  if (lane == 0) C[a * ldc + b] = out;
+template <int P, int Q>
+int launch_eq2_tc(const Operands& o, bool sym, const Eq2Plan& plan, const Eq2Grid& grid,
+                  int row_chunks, long long tiles, cudaStream_t stream) {
+  using T = Eq2Tile<P, Q>;
+  static int smem_set[kMaxDevices];
+  int rc = allow_smem(eq2_tc<P, Q>, T::SMEM, smem_set);
+  if (rc != 0) return rc;
+  const long long z = static_cast<long long>(row_chunks) * grid.col_chunks * T::GROUPS;
+  if (z > 65535 || tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const float* Ua = o.Ua + grid.r_base * o.sap;
+  const float* Ub = o.Ub + grid.s_base * o.sbq;
+  eq2_tc<P, Q><<<dim3(static_cast<unsigned>(tiles), plan.splits, static_cast<unsigned>(z)),
+                 T::THREADS, T::SMEM, stream>>>(
+      Ua, o.sak, o.san, o.sap, o.Ka, Ub, o.sbk, o.sbn, o.sbq, o.Kb, o.n, o.C, o.ldc,
+      sym ? 1 : 0, stage_mode(Ua, o.sak, o.san, o.sap, P),
+      stage_mode(Ub, o.sbk, o.sbn, o.sbq, Q), plan.split_rows, plan.ws, grid);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int launch_any_rank(const float* Ua, long long sak, long long san,
-                    long long sap, int Ka, const float* Ub, long long sbk,
-                    long long sbn, long long sbq, int Kb, int n, int p, int q,
-                    int eq2, float* C, long long ldc, cudaStream_t stream) {
-  if (!eq2 && p != q) return cudaErrorInvalidValue;
-  const DynLayout lay(p, q, eq2);
-  if (lay.warp_bytes > kMaxSmem) return cudaErrorInvalidValue;
-  int warps = static_cast<int>(kDefaultSmem / lay.warp_bytes);
-  warps = warps < 1 ? 1 : (warps > kDynMaxWarps ? kDynMaxWarps : warps);
-  const size_t smem = lay.warp_bytes * warps;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        proximity_any_rank, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long pairs = static_cast<long long>(Ka) * Kb;
-  const long long grid = (pairs + warps - 1) / warps;
-  if (grid > 2147483647LL) return cudaErrorInvalidValue;
-  proximity_any_rank<<<static_cast<unsigned>(grid), 32 * warps, smem,
-                       stream>>>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb,
-                                 n, p, q, eq2, C, ldc);
+template <int P, int Q>
+int launch_eq2_reduce_ws(const Operands& o, bool sym, const Eq2Plan& plan, long long tile0,
+                         long long tiles, cudaStream_t stream) {
+  const long long blocks = tiles * (Eq2Tile<P, Q>::PAIRS / kReducePairs);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  eq2_reduce_ws<P, Q><<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
+      plan.ws, tile0, tiles, plan.splits, o.Ka, o.Kb, sym ? 1 : 0, o.C, o.ldc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f(integral_constant P, integral_constant Q) for runtime 1 <= P, Q <= kMaxRank.
+template <int P, typename F>
+int with_q(int q, F&& f) {
+  switch (q) {
+#define PROX_Q(QQ) \
+  case QQ: return f(std::integral_constant<int, P>{}, std::integral_constant<int, QQ>{});
+    PROX_Q(1) PROX_Q(2) PROX_Q(3) PROX_Q(4) PROX_Q(5) PROX_Q(6) PROX_Q(7) PROX_Q(8)
+#undef PROX_Q
+    default: return cudaErrorInvalidValue;
+  }
+}
+template <typename F>
+int with_pq(int p, int q, F&& f) {
+  switch (p) {
+#define PROX_P(PP) \
+  case PP: return with_q<PP>(q, f);
+    PROX_P(1) PROX_P(2) PROX_P(3) PROX_P(4) PROX_P(5) PROX_P(6) PROX_P(7) PROX_P(8)
+#undef PROX_P
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+int launch_eq2(const Operands& o, int p, int q, bool sym, const Eq2Plan& plan,
+               cudaStream_t stream) {
+  constexpr int kTile = 32;
+  const long long nta = (o.Ka + kTile - 1) / kTile, ntb = (o.Kb + kTile - 1) / kTile;
+  const long long tiles = sym ? nta * (nta + 1) / 2 : nta * ntb;
+  const bool pieces = plan.chunk_p < p || plan.chunk_q < q;
+  const bool grouped = !pieces && eq2_row_group(p, q) < p;
+  const bool two_pass = pieces || grouped || plan.splits > 1;
+  // workspace rows a tile: the Gram's p * q, or on the any-rank route enough
+  // for the forming kernel's matrices (tri(q) floats an epilogue, two doubles
+  // a float pair)
+  const long long tri_q = static_cast<long long>(q) * (q + 1) / 2;
+  const long long rows = pieces ? (tri_q * (sym ? 2 : 1) + 1) / 2 : 0;
+  const int entries = static_cast<int>(rows > static_cast<long long>(p) * q ? rows : p * q);
+  if (tiles != plan.tiles || plan.split_rows <= 0 || plan.split_rows % kStageRows != 0 ||
+      plan.splits > 65535 || plan.splits != (o.n + plan.split_rows - 1) / plan.split_rows ||
+      plan.chunk_p < 1 || plan.chunk_p > kMaxRank || plan.chunk_p > p ||
+      plan.chunk_q < 1 || plan.chunk_q > kMaxRank || plan.chunk_q > q ||
+      plan.batch_tiles < 1 || plan.batch_tiles > tiles ||
+      (!two_pass && plan.batch_tiles != tiles) || two_pass != (plan.ws != nullptr))
+    return cudaErrorInvalidValue;
+  long long form_smem = 0, jacobi_smem = 0;
+  if (pieces) {
+    const int jobs = plan.reduce_jobs;
+    form_smem = 4 * form_any_words(p, q, jobs, sym);
+    jacobi_smem = 4 * jacobi_any_words(q, jobs);
+    if (jobs < 1 || jobs > kAnyJobs || (sym && jobs % 2 != 0) ||
+        kTilePairs % (sym ? jobs / 2 : jobs) != 0 || form_smem > 232448 ||
+        jacobi_smem > 232448)
+      return cudaErrorInvalidValue;
+    static int form_set[kMaxDevices], jacobi_set[kMaxDevices];
+    int rc = allow_smem(eq2_form_any, static_cast<int>(form_smem), form_set);
+    if (rc == 0) rc = allow_smem(eq2_jacobi_any, static_cast<int>(jacobi_smem), jacobi_set);
+    if (rc != 0) return rc;
+  }
+  // the pieces: rows [0, fp) in chunks of chunk_p, then [fp, p); columns alike
+  const int fp = p - p % plan.chunk_p, fq = q - q % plan.chunk_q;
+  const int row_w[2] = {plan.chunk_p, p - fp}, row_n[2] = {p / plan.chunk_p, 1},
+            row_0[2] = {0, fp};
+  const int col_w[2] = {plan.chunk_q, q - fq}, col_n[2] = {q / plan.chunk_q, 1},
+            col_0[2] = {0, fq};
+  for (long long t0 = 0; t0 < tiles; t0 += plan.batch_tiles) {
+    const long long bt = tiles - t0 < plan.batch_tiles ? tiles - t0 : plan.batch_tiles;
+    for (int i = 0; i < 2; ++i) {
+      for (int j = 0; j < 2; ++j) {
+        if (row_w[i] == 0 || col_w[j] == 0) continue;
+        const Eq2Grid grid{t0, col_n[j], row_0[i], col_0[j], q, entries};
+        const int rc = with_pq(row_w[i], col_w[j], [&](auto P, auto Q) {
+          return launch_eq2_tc<decltype(P)::value, decltype(Q)::value>(
+              o, sym, plan, grid, row_n[i], bt, stream);
+        });
+        if (rc != 0) return rc;
+      }
+    }
+    if (!two_pass) continue;
+    int rc;
+    if (pieces) {
+      const int jobs = plan.reduce_jobs;
+      const long long blocks = bt * (kTilePairs / (sym ? jobs / 2 : jobs));
+      if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+      eq2_form_any<<<static_cast<unsigned>(blocks), kAnyThreads,
+                     static_cast<size_t>(form_smem), stream>>>(plan.ws, bt, plan.splits, p, q,
+                                                               entries, jobs, sym ? 1 : 0);
+      rc = static_cast<int>(cudaGetLastError());
+      if (rc != 0) return rc;
+      eq2_jacobi_any<<<static_cast<unsigned>(blocks), jobs, static_cast<size_t>(jacobi_smem),
+                       stream>>>(plan.ws, t0, q, entries, jobs, o.Ka, o.Kb, sym ? 1 : 0, o.C,
+                                 o.ldc);
+      rc = static_cast<int>(cudaGetLastError());
+    } else {
+      rc = with_pq(p, q, [&](auto P, auto Q) {
+        return launch_eq2_reduce_ws<decltype(P)::value, decltype(Q)::value>(o, sym, plan, t0,
+                                                                            bt, stream);
+      });
+    }
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -917,37 +1139,31 @@ extern "C" {
 
 // Ua (Ka, n, p) and Ub (Kb, n, q) float32 with element strides; C (Ka, Kb)
 // float32 with row stride ldc.  Any p, q >= 1.  eq2 != 0 selects Eq. 2, else
-// Eq. 3 (p == q).  Up to kMaxRank both run on the FP64 tensor cores (eq3_tc,
-// eq2_tc; upper-triangle tiles when Ua and Ub are one stack); larger ranks
-// take the runtime-rank path.  split_rows, splits, tiles and ws are eq2's
-// plan (kernels/proximity/proximity.py::eq2_plan) and its FP64 workspace
-// (null when the plan has one split and one row group); the other routes
-// ignore them.  Returns cudaGetLastError() after the launch(es) (nonzero:
-// not launched).
+// Eq. 3 (p == q).  Both run on the FP64 tensor cores (eq3_tc in chunks of at
+// most kMaxRank columns; eq2_tc in pieces, then eq2_reduce_ws or
+// eq2_form_any and eq2_jacobi_any), on the upper-triangle tiles when Ua and Ub are one stack
+// (same pointer, strides and K).  split_rows ... ws are eq2's plan
+// (kernels/proximity/proximity.py::eq2_plan) and its FP64 workspace (null
+// when the plan has one split, one piece and one row group); eq3 ignores
+// them.  Returns cudaGetLastError() after the last launch (nonzero: that
+// launch and the ones after it did not run).
 int proximity_cross_f32(const float* Ua, long long sak, long long san,
                         long long sap, int Ka, const float* Ub, long long sbk,
                         long long sbn, long long sbq, int Kb, int n, int p,
                         int q, int eq2, float* C, long long ldc, int split_rows,
-                        int splits, long long tiles, double* ws, void* stream) {
+                        int splits, long long tiles, long long batch_tiles,
+                        int chunk_p, int chunk_q, int reduce_jobs, double* ws,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Ka <= 0 || Kb <= 0 || n <= 0 || p <= 0 || q <= 0)
     return cudaErrorInvalidValue;
   if (!eq2 && p != q) return cudaErrorInvalidValue;
-  if (p > kMaxRank || q > kMaxRank)
-    return launch_any_rank(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, p,
-                           q, eq2, C, ldc, st);
-#define PROX_P(PP)                                                           \
-  case PP:                                                                   \
-    return eq2 ? pick_q<PP>(q, Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, \
-                            n, C, ldc, split_rows, splits, tiles, ws, st)    \
-               : launch_eq3_tc<PP>(Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, \
-                                   Kb, n, C, ldc, st);
-  switch (p) {
-    PROX_P(1) PROX_P(2) PROX_P(3) PROX_P(4)
-    PROX_P(5) PROX_P(6) PROX_P(7) PROX_P(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef PROX_P
+  const Operands o{Ua, sak, san, sap, Ka, Ub, sbk, sbn, sbq, Kb, n, C, ldc};
+  // the same stack on both sides: upper-triangle tiles only
+  const bool sym = Ua == Ub && Ka == Kb && sak == sbk && san == sbn && sap == sbq && p == q;
+  if (!eq2) return launch_eq3(o, p, sym, st);
+  const Eq2Plan plan{split_rows, splits, tiles, batch_tiles, chunk_p, chunk_q, reduce_jobs, ws};
+  return launch_eq2(o, p, q, sym, plan, st);
 }
 
 const char* proximity_error_string(int err) {

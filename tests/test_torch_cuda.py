@@ -19,7 +19,11 @@ labels, accuracies and parameters when run twice with one seed.  The
 model-based signature families give the same bits twice on the card and
 stay within chip_smoke.py's principal-angle limits of the CPU from the same
 draws; the Table-6 distances within 1e-3 relative of the CPU; a drift
-observation after a fused move the CPU's labels and candidates.
+observation after a fused move the CPU's labels and candidates.  Above rank
+8 the proximity kernel (column chunks for eq3, Gram pieces and a
+runtime-rank reduce for eq2) is held to its twin at p = 9, 12, 16, 3 x 12
+and 12 x 3, on column views of a wider stack, twice bitwise, square against
+rectangle, and PACFL at p = 16 to the CPU's labels.
 """
 import numpy as np
 import pytest
@@ -667,3 +671,101 @@ def test_drift_after_move_on_cuda_matches_cpu(cuda):
             assert abs(a.max_intra_deg - b.max_intra_deg) <= TOL_DEG
     assert DriftTracker(1.0).observe(gpu).split_candidates == (0, 1)
     assert len(DriftTracker(300.0).observe(gpu).merge_candidates) == 1
+
+
+# ---------------------------------------------------------------------------
+# the any-rank proximity route (p or q > 8): eq3 in column chunks, eq2 in
+# Gram pieces with the runtime-rank reduce
+# ---------------------------------------------------------------------------
+
+# (Ka, Kb, p, q, measure): squares (Kb None) at ragged K = 70, cross blocks
+ANY_RANK_CASES = [(Ka, Kb, p, q, m)
+                  for p, q in [(9, 9), (12, 12), (16, 16), (3, 12), (12, 3)]
+                  for Ka, Kb in [(70, None), (70, 33), (1, 40)]
+                  for m in ("eq3", "eq2")
+                  if (m == "eq2" or p == q) and (Kb is not None or p == q)]
+
+
+@pytest.mark.parametrize("Ka,Kb,p,q,measure", ANY_RANK_CASES)
+def test_any_rank_kernel_matches_plain_and_repeats(cuda, Ka, Kb, p, q, measure):
+    """Squares (ragged K = 70: upper-triangle tiles) and cross blocks, each
+    one counted launch under its any-rank route key, twice bitwise equal."""
+    from repro_torch.core.angles import _hygiene
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+
+    Ua = _signatures(Ka, 300, p, seed=Ka + p, spread=0.3).to(cuda)
+    Ub = Ua if Kb is None else _signatures(Kb, 300, q, seed=Kb + q + 1, spread=0.3).to(cuda)
+    _build.reset_launches()
+    got = proximity_cuda(Ua, Ub, measure)
+    again = proximity_cuda(Ua, Ub, measure)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["proximity"] == 2
+    assert _build.ROUTE_LAUNCHES["proximity", f"{measure}_any_rank"] == 2
+    assert torch.equal(got, again)
+    want = proximity_plain(Ua, Ub, measure)
+    if Ua is Ub:
+        got, want = _hygiene(got), _hygiene(want)
+    assert got.shape == (Ua.shape[0], Ub.shape[0]) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_DEG
+
+
+@pytest.mark.parametrize("measure", ["eq3", "eq2"])
+def test_any_rank_column_views_match_plain(cuda, measure):
+    """Column views of a p = 20 stack: p = 16 at column 4 (rows staged in
+    16-byte quads) and at column 2 (element by element), squared and
+    crossed."""
+    from repro_torch.core.angles import _hygiene
+    from repro_torch.kernels.proximity import proximity_cuda, proximity_plain
+
+    W = _signatures(90, 256, 20, seed=20, spread=0.3).to(cuda)
+    V4, V2 = W[:, :, 4:], W[:, :, 2:18]
+    for Ua, Ub in ((V4, V4), (V2, V2), (V4, V2[:37]), (V2[:37], V4)):
+        got = proximity_cuda(Ua, Ub, measure)
+        want = proximity_plain(Ua, Ub, measure)
+        torch.cuda.synchronize()
+        if Ua is Ub:
+            got, want = _hygiene(got), _hygiene(want)
+        assert (got - want).abs().max().item() <= TOL_DEG
+
+
+@pytest.mark.parametrize("measure", ["eq3", "eq2"])
+def test_any_rank_square_is_the_rectangle(cuda, measure):
+    """At p = 16 the square (upper-triangle tiles; eq2 in tile batches and
+    with both epilogues) equals the full rectangle of the stack against its
+    clone, where both take one split; eq3's square is exactly symmetric."""
+    from repro_torch.kernels.proximity import proximity_cuda
+
+    U = _signatures(300, 512, 16, seed=16, spread=0.3).to(cuda)
+    square = proximity_cuda(U, U, measure)
+    cross = proximity_cuda(U, U.clone(), measure)
+    torch.cuda.synchronize()
+    assert torch.equal(square, cross)
+    if measure == "eq3":
+        assert torch.equal(square, square.T)
+
+
+def test_pacfl_at_p16_on_cuda_matches_cpu(cuda):
+    """One-shot clustering at p = 16 through the any-rank route on the card
+    gives the CPU's labels from the same data (exact SVD)."""
+    from repro_torch.core.pacfl import PACFLConfig, one_shot_clustering
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(1)
+    n, p = 96, 16
+    spectrum = np.geomspace(40.0, 1.0, p)
+    bases = [np.linalg.qr(rng.normal(size=(n, p)))[0] for _ in range(3)]
+    data = []
+    for k in range(18):
+        Bk = np.linalg.qr(bases[k % 3] + 0.1 / np.sqrt(n) * rng.normal(size=(n, p)))[0]
+        M = int(rng.integers(150, 250))
+        coef = spectrum[:, None] * rng.normal(size=(p, M))
+        data.append((Bk @ coef + 0.02 * rng.normal(size=(n, M))).astype(np.float32))
+    for measure, beta in (("eq3", 700.0), ("eq2", 30.0)):
+        cfg = PACFLConfig(p=p, measure=measure, beta=beta, svd_method="exact")
+        _build.reset_launches()
+        gpu = one_shot_clustering(data, cfg, device=cuda)
+        assert _build.ROUTE_LAUNCHES["proximity", f"{measure}_any_rank"] >= 1
+        cpu = one_shot_clustering(data, cfg, device="cpu")
+        np.testing.assert_array_equal(gpu.labels, cpu.labels)
+        assert gpu.n_clusters == 3

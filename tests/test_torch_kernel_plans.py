@@ -273,8 +273,8 @@ def test_eq2_plan_covers_every_pair_entry_and_row_once(K, p, q, n, form):
         assert plan.split_rows == EQ2_MIN_SPLIT_ROWS or (
             plan.split_rows - EQ2_K_STEP) * wave < n   # one step fewer would need more splits
     assert plan.workspace == (plan.splits > 1 or plan.groups > 1)
-    assert plan.workspace_doubles(p, q) == (
-        plan.splits * plan.tiles * p * q * EQ2_TILE ** 2 if plan.workspace else 0)
+    assert plan.workspace_doubles() == (
+        plan.splits * plan.batch_tiles * p * q * EQ2_TILE ** 2 if plan.workspace else 0)
 
 
 def test_eq2_plan_at_the_fl_path_shapes():
