@@ -187,12 +187,40 @@ FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py
 FLASH_BF16_REL_TOL = 1e-2
 WKV_REL_TOL = 1e-5         # of max |out| and max |state|
 
-# LM serving (phase 6): tinyllama-1.1b's attention and rwkv6-1.6b's WKV.
+# LM serving (phase 6): each configuration that fits one card at full width,
+# (arch, prompt, the kernel whose launches are counted): tinyllama-1.1b's
+# attention and rwkv6-1.6b's WKV, then gemma3-4b at twice its window (the
+# prefill rolls the local layers' rings and every decode step wraps them),
+# qwen2-moe-a2.7b, zamba2-7b (the shared attention block after each of its
+# 13 super-blocks), whisper-medium at its published 448-token decoder
+# context (416 + 32) with 1500 encoder frames, and internvl2-26b with its
+# 256 vision embeddings.  llama4-scout (215 GB in bfloat16) does not fit.
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 1024, 32
-LM_ARCHS = (("tinyllama-1.1b", "flash_attention"), ("rwkv6-1.6b", "wkv"))
+LM_SERVED = (
+    ("tinyllama-1.1b", LM_PROMPT, "flash_attention"),
+    ("rwkv6-1.6b", LM_PROMPT, "wkv"),
+    ("gemma3-4b", 2048, "flash_attention"),
+    ("qwen2-moe-a2.7b", LM_PROMPT, "flash_attention"),
+    ("zamba2-7b", LM_PROMPT, "flash_attention"),
+    ("whisper-medium", 416, "flash_attention"),
+    ("internvl2-26b", LM_PROMPT, "flash_attention"),
+)
 # Whole-model float32 check (phase 7): the CPU side runs the plain twins at
-# full width, so the prompt is shorter than phase 6's.
+# full width, so the prompt is shorter than phase 6's and the new families'
+# depth is cut: (arch, config changes, prompt).  gemma3 keeps one 5 local +
+# 1 global super-block with a prompt past its window (the ring rolls and
+# wraps); zamba2 one super-block, the shared block and 1 remainder layer;
+# internvl2's prompt holds its 256 vision embeddings and 128 tokens.
 F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
+LM_F32 = (
+    ("tinyllama-1.1b", {}, F32_PROMPT),
+    ("rwkv6-1.6b", {}, F32_PROMPT),
+    ("gemma3-4b", {"n_layers": 6}, 1040),
+    ("qwen2-moe-a2.7b", {"n_layers": 2}, F32_PROMPT),
+    ("zamba2-7b", {"n_layers": 7}, F32_PROMPT),
+    ("whisper-medium", {"n_layers": 2, "encoder_layers": 2}, F32_PROMPT),
+    ("internvl2-26b", {"n_layers": 2}, 256 + F32_PROMPT),   # 256 vision embeddings lead
+)
 # Limits on max|kernels - plain| / max|logits|.  Both sides are float32 and
 # differ only in summation order (cuBLAS vs the CPU's BLAS, the kernel's
 # online softmax and on-chip recurrence vs the dense / stepwise twins), ~1e-6
@@ -202,8 +230,32 @@ F32_BATCH, F32_PROMPT, F32_DECODE = 2, 128, 8
 # every weight moves by one float32 ulp).  tinyllama amplifies little;
 # rwkv6 at its random init (decay ~0.9975, so the WKV state sums nearly all
 # past k v^T before the per-head group norm) amplifies rounding ~700x more,
-# hence its wider limit.
-LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2}
+# hence its wider limit.  The limits of the families added later were fixed
+# before their first run: 1e-4, and 1e-3 for zamba2, whose Mamba blocks
+# carry a recurrent state through 7 layers and whose SSD and decode sum in
+# other orders on the card.
+LOGIT_REL_TOL = {"tinyllama-1.1b": 1e-4, "rwkv6-1.6b": 1e-2, "gemma3-4b": 1e-4,
+                 "qwen2-moe-a2.7b": 1e-4, "zamba2-7b": 1e-3, "whisper-medium": 1e-4,
+                 "internvl2-26b": 1e-4}
+
+# The flash calls phase 8 and --time-kernels time (bfloat16, SDPA beside
+# each, an explicit mask for the window), at their phase 6 shapes: the family
+# that makes the call, label, (B, Sq, Skv, Hq, Hkv, hd), causal, window,
+# q_offset, and the cache's slots when K and V are a view of its first Skv
+# (whisper's cross cache, padded to 1536).  Phase 3 checks each of them
+# besides every call of phase 6 (served_flash_calls).
+FAMILY_FLASH = (
+    ("gemma3-4b", "gemma3 prefill, local layer", (4, 2048, 2048, 8, 4, 256), True, 1024, 0, None),
+    ("gemma3-4b", "gemma3 prefill, global layer", (4, 2048, 2048, 8, 4, 256), True, None, 0,
+     None),
+    ("gemma3-4b", "gemma3 decode, wrapped ring", (4, 1, 1024, 8, 4, 256), False, None, 0, None),
+    ("zamba2-7b", "zamba2 shared attention prefill", (4, 1024, 1024, 32, 32, 112), True, None,
+     0, None),
+    ("zamba2-7b", "zamba2 shared attention decode", (4, 1, 1056, 32, 32, 112), True, None, 1054,
+     None),
+    ("whisper-medium", "whisper cross-attention decode", (4, 1, 1500, 16, 16, 64), False, None,
+     0, 1536),
+)
 
 # The revision in which each hand-written kernel was last redesigned (earlier
 # times are in PERF.md section 6).
@@ -421,6 +473,22 @@ def phase_build() -> None:
     hmma = count_mma(_build.library_path("flash_attention"), "flash_fwd_tc")
     log("build", f"flash_attention bf16 kernel (flash_fwd_tc): {hmma} HMMA instructions in its SASS")
     require(hmma > 0, "the bf16 flash-attention kernel has no tensor-core instructions")
+    # the head dims of zamba2 (112) and gemma3 (256): the bf16 kernel keeps
+    # every value in registers (hd 256 re-reads Q from shared memory); the
+    # float32 kernel (comparison cases only) may spill, and says how much
+    lib = _build.library_path("flash_attention")
+    for hd in (112, 256):
+        mangled = f"flash_fwd_tcILi{hd}ELi1EE"
+        hmma, usage = count_mma(lib, mangled), resource_usage(lib, mangled)
+        log("build", f"flash_fwd_tc<{hd}, 1>: {hmma} HMMA instructions; {usage[0]} registers "
+            f"a thread, {usage[1]} bytes of stack")
+        require(hmma > 0 and usage[1] == 0, f"flash_fwd_tc<{hd}, 1>: {hmma} HMMA, {usage}")
+    for label, mangled in (("flash_fwd_f32<112>", "flash_fwd_f32ILi112EE"),
+                           ("flash_fwd_f32<128>", "flash_fwd_f32ILi128EE"),
+                           ("flash_fwd_f32<256>", "flash_fwd_f32ILi256EE"),
+                           ("flash_combine", "flash_combine")):
+        usage = resource_usage(lib, mangled)
+        log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
     for kernel in ("eq3_tc", "eq2_tc"):
         dmma = count_mma(_build.library_path("proximity"), kernel, ("DMMA",))
         log("build", f"proximity kernel {kernel}: {dmma} DMMA instructions in its SASS")
@@ -635,6 +703,56 @@ def check_tsgemm(torch, device, errs: list) -> None:
     require(e_kernel <= 2 * e_plain, f"tsgemm Gaussian k = 3000: {e_kernel} vs {e_plain}")
 
 
+def flash_form(dims, causal: bool, window, q_offset: int, slots) -> tuple:
+    """A flash call's form: (B, Sq, Skv, Hq, Hkv, hd), causal, window,
+    q_offset, and the slots of the cache K and V are a view of (None when
+    they are whole tensors).  Phase 3 keys its checks by it, phase 6 records
+    the form of every call it makes."""
+    return tuple(int(x) for x in dims), bool(causal), window, int(q_offset), slots
+
+
+def served_flash_calls() -> list:
+    """(label, form) of every distinct flash call of phase 6's runs: each
+    attention form at prefill, each decode form at the first and the last
+    decode step (the steps between differ only in q_offset), then the
+    FAMILY_FLASH calls.  Phase 6 checks that its runs made no other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, lm
+
+    calls = {}
+    for arch, prompt, kernel in LM_SERVED:
+        if kernel != "flash_attention":
+            continue
+        cfg = get_config(arch)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        max_len = prompt + LM_TOKENS
+
+        def add(label, Sq, Skv, causal, window, q_off, slots=None):
+            form = flash_form((LM_BATCH, Sq, Skv, *heads), causal, window, q_off, slots)
+            calls.setdefault(form, f"{arch} {label}")
+
+        if cfg.is_enc_dec:
+            n_enc = cfg.encoder_seq
+            add("encoder self-attention", n_enc, n_enc, False, None, 0)
+            add("cross-attention prefill", prompt, n_enc, False, None, 0)
+            add("cross-attention decode", 1, n_enc, False, None, 0, n_enc + (-n_enc) % 128)
+        stages = lm.stages_for(cfg)
+        kinds = {kind for st in stages if st.kind == "attn" for kind in st.sub}
+        if any(st.shared_attn for st in stages):
+            kinds.add("global")
+        for kind in sorted(kinds):
+            window = cfg.window if kind == "local" else None
+            add(f"{kind} prefill", prompt, prompt, True, window, 0)
+            s_cache = lm._cache_len(cfg, kind, max_len)
+            for pos in (prompt, max_len - 2):
+                form = attention.decode_form(s_cache, pos, window)
+                add(f"{kind} decode at {pos}", 1, s_cache, form.causal, form.window,
+                    form.q_offset)
+    for _, label, dims, causal, window, q_off, slots in FAMILY_FLASH:
+        calls.setdefault(flash_form(dims, causal, window, q_off, slots), label)
+    return [(label, form) for form, label in calls.items()]
+
+
 def check_flash(torch, device, errs: dict) -> None:
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.kernels.flash_attention.flash_attention import split_plan
@@ -643,11 +761,13 @@ def check_flash(torch, device, errs: dict) -> None:
     tinyllama, llama3b = (32, 4, 64), (24, 8, 128)   # (Hq, Hkv, hd)
 
     def compare(label, B, Sq, Skv, dtype, causal=True, window=None, q_offset=0,
-                heads=tinyllama):
+                heads=tinyllama, slots=None):
         Hq, Hkv, hd = heads
         q = torch.randn((B, Sq, Hq, hd), generator=gen, device=device).to(dtype)
-        k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
-        v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=device).to(dtype)
+        # with ``slots``, K and V are views of the first Skv slots of a cache
+        k = torch.randn((B, slots or Skv, Hkv, hd), generator=gen, device=device).to(dtype)
+        v = torch.randn((B, slots or Skv, Hkv, hd), generator=gen, device=device).to(dtype)
+        k, v = k[:, :Skv], v[:, :Skv]
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         got = flash_attention_cuda(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw).float()
@@ -671,6 +791,8 @@ def check_flash(torch, device, errs: dict) -> None:
             f"{kw} (nsplit, split_len) {split} {line}")
         require(ok, f"flash {label} {dtype}: err {err}")
         errs[dtype].append(err)
+        errs["by_case"][(flash_form((B, Sq, Skv, Hq, Hkv, hd), causal, window, q_offset, slots),
+                         dtype)] = err
 
     cache_len = LM_PROMPT + LM_TOKENS
     for dtype in (torch.float32, torch.bfloat16):
@@ -686,6 +808,23 @@ def check_flash(torch, device, errs: dict) -> None:
                 window=200, q_offset=cache_len - 1)
         compare("decode, no valid key in any split", LM_BATCH, 1, cache_len, dtype,
                 window=100, q_offset=cache_len + 300)
+        # every call phase 6 makes, at its shape, form and cache stride
+        # (gemma3's global decode splits its keys, merged by flash_combine
+        # at hd 256), and the FAMILY_FLASH calls; then forms off the main
+        # path: gemma3's ring before it fills, ragged and windowed cases at
+        # hd 112 and 256
+        for label, form in served_flash_calls():
+            (B, Sq, Skv, Hq, Hkv, hd), causal, window, q_off, slots = form
+            if (form, dtype) not in errs["by_case"]:
+                compare(label, B, Sq, Skv, dtype, causal=causal, window=window,
+                        q_offset=q_off, heads=(Hq, Hkv, hd), slots=slots)
+        gemma, zamba = (8, 4, 256), (32, 32, 112)
+        compare("gemma3 ring decode before it fills", LM_BATCH, 1, 1024, dtype, q_offset=500,
+                heads=gemma)
+        compare("windowed ragged hd 256", 2, 1000, 1000, dtype, window=128, heads=gemma)
+        compare("ragged suffix hd 112", 2, 77, 1111, dtype, q_offset=1034, heads=zamba)
+        compare("decode, no valid key, hd 256", LM_BATCH, 1, 1056, dtype, window=100,
+                q_offset=1400, heads=gemma)
     compare("non-causal windowed, rows past the window", 1, 5, 40, torch.float32,
             causal=False, window=7, q_offset=50)
 
@@ -1416,49 +1555,117 @@ def phase_families(torch, device, main, fl) -> dict:
     return out
 
 
-def phase_lm_serving(torch, device) -> dict:
-    """Phase 6: each architecture served at full width in bfloat16; the
-    launch counts are set to 0 just before and read just after each run."""
+def kernel_calls(cfg, kernel: str, prefill: bool) -> int:
+    """Launches of ``kernel`` in one forward of ``cfg``: its attention calls
+    (``lm.attention_calls``), one WKV call per RWKV6 layer."""
+    from repro_torch.models import lm
+
+    if kernel == "wkv":
+        return cfg.n_layers if cfg.block_kind == "rwkv6" else 0
+    return lm.attention_calls(cfg, prefill)
+
+
+class _FlashLog:
+    """Records the form (``flash_form``) of every flash call the models make
+    (phase 6)."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+
+        self.module, self.forms = attention, []
+        self.flash = attention.flash_attention
+
+    def __enter__(self):
+        def logged(q, k, v, *, causal=True, window=None, q_offset=0):
+            B, Skv, Hkv, hd = k.shape
+            slots = k.stride(0) // k.stride(1) if k.stride(1) == Hkv * hd else -1
+            dims = (B, q.shape[1], Skv, q.shape[2], Hkv, hd)
+            self.forms.append(flash_form(dims, causal, window, q_offset,
+                                         None if slots == Skv else slots))
+            return self.flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+        self.module.flash_attention = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.flash
+
+
+def require_checked(arch: str, forms: list, checked: set) -> None:
+    """Every flash form of ``arch``'s run was held against the plain twin
+    in phase 3 (a decode's q_offset within the offsets checked for its
+    form)."""
+    offsets = collections.defaultdict(list)
+    for dims, causal, window, q_off, slots in checked:
+        offsets[(dims, causal, window, slots)].append(q_off)
+    for form in sorted(set(forms), key=str):
+        dims, causal, window, q_off, slots = form
+        seen = offsets.get((dims, causal, window, slots), [])
+        require(bool(seen) and min(seen) <= q_off <= max(seen),
+                f"{arch}: flash call {form} was not checked in phase 3")
+
+
+def phase_lm_serving(torch, device, checked: set) -> dict:
+    """Phase 6: each architecture served at full width in bfloat16 (one at a
+    time, each freed before the next); the launch counts are set to 0 just
+    before and read just after each run, and each flash call's form is
+    recorded and must be one of ``checked`` (phase 3's bfloat16 forms).
+    Returns each run's counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     launches = {}
-    for arch, kernel in LM_ARCHS:
+    for arch, prompt_len, kernel in LM_SERVED:
         cfg = get_config(arch)
         t0 = time.perf_counter()
         params = lm.init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=device)
-        prompt = serve.random_prompt(cfg, LM_BATCH, LM_PROMPT, seed=SEED, device=device)
+        prompt = serve.random_prompt(cfg, LM_BATCH, prompt_len, seed=SEED, device=device)
+        extra = serve.model_inputs(cfg, LM_BATCH, dtype=torch.bfloat16, seed=SEED + 1,
+                                   device=device)
         sync(torch, device)
         n_params = sum(p.numel() for p in params.parameters())
-        log("lm", f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-            f"{n_params / 1e9:.3f} B parameters in bfloat16, built in "
-            f"{time.perf_counter() - t0:.1f} s")
-        serve.generate(params, prompt, 2)   # warm-up: cuBLAS plans, allocator
+        log("lm", f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, head dim "
+            f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B parameters in bfloat16 "
+            f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card), built in "
+            f"{time.perf_counter() - t0:.1f} s; extra inputs "
+            f"{ {k: tuple(v.shape) for k, v in extra.items()} }")
+        serve.generate(params, prompt, 2, **extra)   # warm-up: cuBLAS plans, allocator
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
-        toks, times = serve.generate(params, prompt, LM_TOKENS)
+        with _FlashLog() as flash_log:
+            toks, times = serve.generate(params, prompt, LM_TOKENS, **extra)
         counts = dict(_build.LAUNCHES)
         total = times["prefill_s"] + times["decode_s"]
-        log("lm", f"{arch}: batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} tokens: "
+        log("lm", f"{arch}: batch {LM_BATCH}, prompt {prompt_len}, {LM_TOKENS} tokens: "
             f"prefill {times['prefill_s']:.4f} s, {LM_TOKENS - 1} decode steps "
             f"{times['decode_s']:.4f} s ({LM_BATCH * LM_TOKENS / total:.1f} tok/s, "
-            f"decode {LM_BATCH * (LM_TOKENS - 1) / times['decode_s']:.1f} tok/s); "
-            f"kernel launches {counts}")
-        expected = cfg.n_layers * LM_TOKENS
+            f"decode {LM_BATCH * (LM_TOKENS - 1) / times['decode_s']:.1f} tok/s); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; kernel launches {counts}")
+        expected = (kernel_calls(cfg, kernel, True)
+                    + (LM_TOKENS - 1) * kernel_calls(cfg, kernel, False))
         require(counts.get(kernel, 0) == expected,
                 f"{arch}: {counts.get(kernel, 0)} {kernel} launches, expected {expected}")
+        forms = flash_log.forms
+        require(len(forms) == counts.get("flash_attention", 0),
+                f"{arch}: {len(forms)} flash calls recorded, {counts} launched")
+        require_checked(arch, forms, checked)
+        if forms:
+            log("lm", f"{arch}: {len(forms)} flash calls in {len(set(forms))} forms, each "
+                f"held against the plain twin at its shape in phase 3")
         require(tuple(toks.shape) == (LM_BATCH, LM_TOKENS)
                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
                 f"{arch}: generated tokens out of range")
         with torch.inference_mode():
-            prefill = lm.make_prefill_step(LM_PROMPT + LM_TOKENS)
-            logits, cache = prefill(params, prompt)
+            prefill = lm.make_prefill_step(prompt_len + LM_TOKENS)
+            batch = {"tokens": prompt, **extra}
+            logits, cache = prefill(params, batch)
             require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
             tok = logits.argmax(-1)[:, None]
             step = lm.make_serve_step()
-            dev_ms = graph_ms(torch, lambda: step(params, cache, tok, LM_PROMPT))
-            pre_ms = graph_ms(torch, lambda: prefill(params, prompt), iters=5)
+            dev_ms = graph_ms(torch, lambda: step(params, cache, tok, prompt_len))
+            pre_ms = graph_ms(torch, lambda: prefill(params, batch), iters=5)
         host_ms = times["decode_s"] / (LM_TOKENS - 1) * 1e3
         pre_host_ms = times["prefill_s"] * 1e3
         log("lm", f"{arch}: prefill {pre_host_ms:.3f} ms on the host clock, {pre_ms:.3f} ms "
@@ -1467,20 +1674,21 @@ def phase_lm_serving(torch, device) -> dict:
             f"{dev_ms:.3f} ms replayed from a CUDA graph (device idle "
             f"{1 - dev_ms / host_ms:.1%} of a host-driven step)")
         log("lm", f"{arch}: sample {toks[0, :12].tolist()}")
-        launches[kernel] = counts[kernel]
-        del params, prompt, toks, logits, cache, tok
+        launches[arch] = counts
+        del params, prompt, extra, batch, toks, logits, cache, tok
         torch.cuda.empty_cache()
     return launches
 
 
-def _teacher_forced(torch, params, prompt, teacher):
+def _teacher_forced(torch, params, prompt, teacher, extra):
     """Last-position logits of a prefill and one decode step per teacher token."""
     from repro_torch.models import lm
 
     B, S = prompt.shape
     out = []
     with torch.inference_mode():
-        logits, cache = lm.make_prefill_step(max_len=S + teacher.shape[1])(params, prompt)
+        logits, cache = lm.make_prefill_step(max_len=S + teacher.shape[1])(
+            params, {"tokens": prompt, **extra})
         out.append(logits.float())
         step = lm.make_serve_step()
         for t in range(teacher.shape[1]):
@@ -1501,43 +1709,83 @@ def _ulp_perturbed(torch, params):
     return noisy
 
 
+class _RouteLog:
+    """Records the experts each MoE ``route`` call chooses (phase 7)."""
+
+    def __init__(self, moe_module):
+        self.module, self.choices = moe_module, []
+        self.route = moe_module.route
+
+    def __enter__(self):
+        def logged(*args, **kwargs):
+            out = self.route(*args, **kwargs)
+            self.choices.append(out[2].cpu())
+            return out
+
+        self.module.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.route
+
+
 def phase_lm_float32(torch, device) -> None:
     """Phase 7: the full-width model in float32 through the kernels on the
-    card against the same model through the plain twins on the CPU."""
+    card against the same model through the plain twins on the CPU (the
+    newer families with their depth cut, each cut printed)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
-    for arch, kernel in LM_ARCHS:
-        cfg = get_config(arch)
+    for arch, cut, prompt_len in LM_F32:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        kernel = "wkv" if cfg.block_kind == "rwkv6" else "flash_attention"
         params = lm.init_params(cfg, seed=SEED + 1, dtype=torch.float32, device=device)
-        prompt = serve.random_prompt(cfg, F32_BATCH, F32_PROMPT, seed=SEED + 1, device=device)
+        prompt = serve.random_prompt(cfg, F32_BATCH, prompt_len, seed=SEED + 1, device=device)
         teacher = serve.random_prompt(cfg, F32_BATCH, F32_DECODE, seed=SEED + 2, device=device)
+        extra = serve.model_inputs(cfg, F32_BATCH, dtype=torch.float32, seed=SEED + 4,
+                                   device=device)
         _build.reset_launches()
         t0 = time.perf_counter()
-        got = _teacher_forced(torch, params, prompt, teacher).cpu()
+        with _RouteLog(moe) as card_routes:
+            got = _teacher_forced(torch, params, prompt, teacher, extra).cpu()
         t1 = time.perf_counter()
-        require(_build.LAUNCHES[kernel] == cfg.n_layers * (1 + F32_DECODE),
-                f"{arch} float32: {dict(_build.LAUNCHES)}")
-        floor = (_teacher_forced(torch, _ulp_perturbed(torch, params), prompt, teacher).cpu()
-                 - got).abs().max().item()
+        expected = kernel_calls(cfg, kernel, True) + F32_DECODE * kernel_calls(cfg, kernel, False)
+        require(_build.LAUNCHES[kernel] == expected,
+                f"{arch} float32: {dict(_build.LAUNCHES)}, expected {expected} {kernel}")
+        floor = (_teacher_forced(torch, _ulp_perturbed(torch, params), prompt, teacher, extra)
+                 .cpu() - got).abs().max().item()
         torch.cuda.empty_cache()
         params = params.to("cpu")
-        want = _teacher_forced(torch, params, prompt.cpu(), teacher.cpu())
         t2 = time.perf_counter()
+        with _RouteLog(moe) as cpu_routes:
+            want = _teacher_forced(torch, params, prompt.cpu(), teacher.cpu(),
+                                   {k: v.cpu() for k, v in extra.items()})
+        t3 = time.perf_counter()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
         limit = LOGIT_REL_TOL[arch]
-        log("lm32", f"{arch} float32 batch {F32_BATCH}, prompt {F32_PROMPT}, "
+        cut_note = f"depth cut {cut}, " if cut else ""
+        log("lm32", f"{arch} float32 batch {F32_BATCH}, {cut_note}prompt {prompt_len}, "
             f"{F32_DECODE} teacher-forced steps: max|kernels - plain| = {err:.3e}, "
             f"max|logits| = {scale:.3f}, relative {err / scale:.3e} (limit {limit}); "
             f"one-ulp weight floor {floor / scale:.3e} relative; argmax agreement "
-            f"{same:.4f}; card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+            f"{same:.4f}; {expected} {kernel} launches; card {t1 - t0:.2f} s, "
+            f"CPU {t3 - t2:.2f} s")
+        if cfg.is_moe:
+            pairs = list(zip(card_routes.choices, cpu_routes.choices))
+            differ = sum(int((a != b).sum()) for a, b in pairs)
+            total = sum(a.numel() for a, _ in pairs)
+            log("lm32", f"{arch} float32: {differ} of {total} top-{cfg.top_k} expert "
+                f"choices differ between the card and the CPU ({len(pairs)} route calls)")
         require(bool(torch.isfinite(got).all()) and err <= limit * scale,
                 f"{arch} float32 logits: {err} vs scale {scale}")
         del params, got, want
+        torch.cuda.empty_cache()
 
 
 def prox_bound(K: int, n: int, p: int, measure: str) -> tuple[float, str]:
@@ -1713,7 +1961,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
-        "launches": launches.get("flash_attention", 0),
+        "launches": launches["tinyllama-1.1b"].get("flash_attention", 0),
         # the timed kernel is the bfloat16 one; the float32 one's error beside it
         "max_abs_err": max(errs["flash_attention"][bf16]),
         "max_abs_err_f32": max(errs["flash_attention"][torch.float32]),
@@ -1775,7 +2023,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     rows.append({
         "name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv/wkv.py:53",
-        "launches": launches.get("wkv", 0), "max_abs_err": max(errs["wkv"]),
+        "launches": launches["rwkv6-1.6b"].get("wkv", 0), "max_abs_err": max(errs["wkv"]),
         "ms": ms, "ms_f32": ms_f32, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "redesigned": REDESIGNED_IN["wkv"],
     })
@@ -1791,6 +2039,95 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
         f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
     rows[-1].update(decode_ms=ms, decode_plain_ms=plain_ms, decode_bound_ms=b_ms,
                     decode_bound_by=b_by)
+    return rows
+
+
+def flash_pairs(Sq: int, Skv: int, causal: bool, window, q_offset: int) -> int:
+    """(query, key) pairs a call's mask leaves valid, per query head."""
+    total = 0
+    for i in range(Sq):
+        pos = q_offset + i
+        hi = min(Skv, pos + 1) if causal else Skv
+        lo = max(0, pos - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def family_flash_case(torch, gen, device, case):
+    """The bfloat16 operands of a FAMILY_FLASH case, the wrapper's keyword
+    arguments, the SDPA call computing the same function and the bound."""
+    import torch.nn.functional as F
+
+    _, label, (B, Sq, Skv, Hq, Hkv, hd), causal, window, q_off, slots = case
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf16)
+
+    q = randn(B, Sq, Hq, hd)
+    k, v = randn(B, slots or Skv, Hkv, hd)[:, :Skv], randn(B, slots or Skv, Hkv, hd)[:, :Skv]
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if causal and q_off:                       # decode: the keys up to the query
+        kt, vt = kt[:, :, :q_off + Sq], vt[:, :, :q_off + Sq]
+    mask = None
+    if window is not None:                     # SDPA takes a window only as a mask
+        qpos = torch.arange(Sq, device=device)[:, None] + q_off
+        kpos = torch.arange(kt.shape[2], device=device)[None, :]
+        mask = kpos > qpos - window
+        if causal:
+            mask = mask & (kpos <= qpos)
+
+    is_causal = causal and mask is None and q_off == 0
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    # the backend SDPA's dispatcher picks for these operands
+    sdpa.backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, mask, 0.0, is_causal, enable_gqa=True)).name
+    pairs = flash_pairs(Sq, Skv, causal, window, q_off)
+    b = bound(2.0 * (2 * q.numel() + 2 * B * Skv * Hkv * hd), 4.0 * B * Hq * hd * pairs,
+              PEAK_BF16_FLOPS)
+    return (q, k, v), kw, sdpa, b
+
+
+def family_flash_rows(torch, device, launches, errs) -> list:
+    """Phase 8's rows for the newer families' flash calls (FAMILY_FLASH):
+    kernel, plain twin and SDPA (the backend its dispatcher picks) beside
+    the bound.  Decode-sized calls are replayed from CUDA graphs."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    rows = []
+    for case in FAMILY_FLASH:
+        arch, label, (B, Sq, Skv, Hq, Hkv, hd) = case[:3]
+        form = flash_form(*case[2:])
+        (q, k, v), kw, sdpa, (b_ms, b_by) = family_flash_case(torch, gen, device, case)
+        if Sq == 1:
+            ms = graph_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), reps=20)
+            plain_ms = graph_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), reps=20)
+            lib_ms = graph_ms(torch, sdpa, reps=20)
+        else:
+            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
+            plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), iters=5)
+            lib_ms = time_ms(torch, sdpa)
+        log("time", f"flash {label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 {kw}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({sdpa.backend}), "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+        rows.append({
+            "name": f"flash_attention[{label}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
+            "launches": launches[arch].get("flash_attention", 0),
+            "max_abs_err": errs["flash_attention"]["by_case"][(form, torch.bfloat16)],
+            "max_abs_err_f32": errs["flash_attention"]["by_case"][(form, torch.float32)],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "library_backend": sdpa.backend,
+            "family": arch,
+        })
+        del q, k, v
     return rows
 
 
@@ -1829,6 +2166,21 @@ def time_kernels(torch) -> dict:
     ms["flash decode (graph replay)"] = graph_ms(
         torch, lambda: flash_attention_cuda(q1, kc, vc, q_offset=cache_len - 1), reps=20)
     del q, k, v, q1, kc, vc
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    bounds = {}
+    for case in FAMILY_FLASH:
+        label, hd = case[1], case[2][5]
+        if hd not in HEAD_DIMS:       # a tree from before the head dim was ported
+            continue
+        (qf, kf, vf), kw, _, (b_ms, _) = family_flash_case(torch, gen, device, case)
+        if case[2][1] == 1:
+            ms[f"flash {label} (graph replay)"] = graph_ms(
+                torch, lambda: flash_attention_cuda(qf, kf, vf, **kw), reps=20)
+        else:
+            ms[f"flash {label}"] = time_ms(torch, lambda: flash_attention_cuda(qf, kf, vf, **kw))
+        bounds[f"flash {label}"] = b_ms
+        del qf, kf, vf
     H, hd = 32, 64
     ops = wkv_inputs(torch, gen, LM_BATCH, LM_PROMPT, H, hd, device)
     ms["wkv prefill f32"] = time_ms(torch, lambda: wkv_cuda(*ops))
@@ -1842,8 +2194,9 @@ def time_kernels(torch) -> dict:
     ms["graph replay floor (one-element add)"] = graph_ms(torch, lambda: one.add_(1.0), reps=20)
     del ops, step, step_bf16, state
     fed = Federation(torch, device)
-    bounds = {"wkv decode (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=4)[0],
-              "wkv decode bf16 (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=2)[0]}
+    bounds.update({
+        "wkv decode (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=4)[0],
+        "wkv decode bf16 (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=2)[0]})
     for K, measures in ((N_CLIENTS, ("eq3", "eq2")), (MIX4_K, ("eq2",))):
         U = fed.signatures(planted(K))
         for measure in measures:
@@ -2070,18 +2423,27 @@ def main(argv=None) -> int:
     if args.sweep_any_rank:
         print(json.dumps({"device": device["smi"], "any_rank_eq2": sweep_any_rank(torch)}))
         return 0
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log("time", f"{phase} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_build()
+    done("phase 2 (build)")
     fed = Federation(torch, torch.device("cuda"))
     errs = {"proximity": [], "tsgemm": [], "wkv": [],
-            "flash_attention": {torch.float32: [], torch.bfloat16: []}}
+            "flash_attention": {torch.float32: [], torch.bfloat16: [], "by_case": {}}}
     check_proximity(torch, fed, errs["proximity"])
     check_tsgemm(torch, fed.device, errs["tsgemm"])
     check_flash(torch, fed.device, errs["flash_attention"])
     check_wkv(torch, fed.device, errs["wkv"])
+    done("phase 3 (kernels vs plain)")
     main_path = phase_main_path(torch, fed)
     any_rank = phase_any_rank(torch, fed.device)
+    done("phases 4 and 4b (PACFL)")
     fl = phase_fl(torch, fed.device, main_path)
     families = phase_families(torch, fed.device, main_path, fl)
+    done("phases 5 and 9 (FL, model families)")
     # the PACFL (p = 3 and p = 16), FL and family paths' launches, each
     # counted from 0 over its run
     paths = (main_path, any_rank, fl, families)
@@ -2089,10 +2451,16 @@ def main(argv=None) -> int:
     routes = sum((collections.Counter(x["routes"]) for x in paths), collections.Counter())
     launches["proximity_by_route"] = {m: routes[("proximity", m)] for m in
                                       ("eq3", "eq2", "eq3_any_rank", "eq2_any_rank")}
-    lm_launches = phase_lm_serving(torch, fed.device)
+    checked = {form for form, dtype in errs["flash_attention"]["by_case"]
+               if dtype == torch.bfloat16}
+    lm_launches = phase_lm_serving(torch, fed.device, checked)
+    done("phase 6 (LM serving)")
     phase_lm_float32(torch, fed.device)
+    done("phase 7 (LM float32)")
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
+    rows += family_flash_rows(torch, fed.device, lm_launches, errs)
+    done("phase 8 (timings)")
     print(device["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

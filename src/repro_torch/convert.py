@@ -92,9 +92,12 @@ def lm_params_from_numpy(
     """The port's :class:`repro_torch.models.lm.LM` holding the reference's
     ``lm.init_params(cfg, key)`` pytree (leaves as NumPy arrays).
 
-    Each stage's ``(repeats, ...)`` stacked leaves are unstacked into the
-    stage's super-blocks.  Every port parameter is set exactly once, with
-    the reference's shape; weights of two or more dimensions land in
+    Each stage's ``(repeats, ...)`` stacked leaves (the decoder's
+    ``stages`` and the encoder's, ``encoder.stages``) are unstacked into
+    the stage's super-blocks; ``shared_attn`` and the encoder's
+    ``final_norm`` are single leaves, and MoE blocks keep their expert axis
+    (``w_in`` (E, D, F), ...).  Every port parameter is set exactly once,
+    with the reference's shape; weights of two or more dimensions land in
     ``dtype``, as :func:`repro_torch.models.lm.init_params` stores them.
     """
     dev = resolve_device(device)
@@ -103,23 +106,29 @@ def lm_params_from_numpy(
 
     def put(module, tree: dict, index=None) -> None:
         for key, val in tree.items():
-            if isinstance(val, dict):
-                put(getattr(module, key), val, index)
+            if key == "stages":
+                put_stages(module.stages, val)
                 continue
-            target = getattr(module, key)
+            target = getattr(module, key, None)
+            if target is None:
+                raise ValueError(f"{key}: no port parameter or module of that name")
+            if isinstance(val, dict):
+                put(target, val, index)
+                continue
             arr = np.asarray(val if index is None else val[index])
             if tuple(target.shape) != arr.shape:
                 raise ValueError(f"{key}: port {tuple(target.shape)} vs reference {arr.shape}")
             target.data.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
             unset.discard(id(target))
 
-    top = {k: v for k, v in ref.items() if k != "stages"}
-    put(model, top)
-    if len(ref["stages"]) != len(model.stages):
-        raise ValueError(f"{len(ref['stages'])} reference stages vs {len(model.stages)}")
-    for stage_ref, stage in zip(ref["stages"], model.stages):
-        for r, superblock in enumerate(stage):
-            put(superblock, stage_ref, r)
+    def put_stages(stages, refs: list) -> None:
+        if len(refs) != len(stages):
+            raise ValueError(f"{len(refs)} reference stages vs {len(stages)}")
+        for stage_ref, stage in zip(refs, stages):
+            for r, superblock in enumerate(stage):
+                put(superblock, stage_ref, r)
+
+    put(model, ref)
     if unset:
         raise ValueError(f"{len(unset)} port parameters have no reference leaf")
     return model

@@ -62,6 +62,16 @@
 // * Masks only on tiles that straddle the causal or window edge or the
 //   ragged end; tiles masked for every row are never walked.  Causal q
 //   tiles launch heaviest first (blockIdx.x reversed).
+// * Head dims 16, 32, 64, 112, 128 and 256.  hd 112 (zamba2) is seven k16
+//   chunks of Q . K^T, an odd count, which no loop pairs; O's 14 n8 tiles
+//   pair into 7 ldmatrix.x4.trans loads of V; its 240-byte padded rows
+//   keep ldmatrix free of bank conflicts (rows fall 112 bytes apart mod 128).
+//   hd 256 (gemma3) keeps Q in shared memory (TcCfg), and the float32
+//   kernel splits its rows' columns over two lanes.
+// * K and V may be views of the first Skv slots of a longer cache (whisper's
+//   cross-attention cache, padded to 1536 slots, read over its 1500): rows
+//   are contiguous within a batch row, batch rows kv_bstride elements apart,
+//   so no copy of the view is made.
 // * Split-KV.  When the grid would not fill the card (decode: one position
 //   x G heads per (batch, KV head)), the wrapper's plan cuts the keys into
 //   nsplit ranges of split_len (a multiple of the tile): grid (q tiles x
@@ -123,40 +133,52 @@ __device__ __forceinline__ KeyRange block_keys(int qa, int qb, int Skv,
 // NS threads that take every NS-th key and merge by warp shuffles.
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 128;
+constexpr int kF32Threads = 128;  // threads per block for each column split
 constexpr int kChunk = 8;
 
 template <int HD>
 struct F32Tile {
-  static constexpr int BK = HD <= 64 ? 64 : 32;  // keys per staged tile
+  // hd 256 splits a row's columns over two lanes (DS), so no thread holds
+  // more than 128 query and 128 accumulator values; its key tile is 16 keys
+  // so the two static tiles stay under the 48 KB static limit.
+  static constexpr int DS = HD > 128 ? 2 : 1;    // column split of a row
+  static constexpr int HP = HD / DS;             // columns a thread holds
+  static constexpr int BK = HD <= 64 ? 64 : (HD <= 128 ? 32 : 16);  // keys a tile
   static constexpr int LD = HD + 4;  // row pad: 16-byte rows, no conflicts
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads * F32Tile<HD>::DS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int Sq,
               int Skv, int Hq, int Hkv, int G, int BQ, int NS, int causal,
-              int window, int q_offset, float scale) {
+              int window, int q_offset, float scale, long long kv_bstride) {
   constexpr int BK = F32Tile<HD>::BK, LD = F32Tile<HD>::LD;
+  constexpr int DS = F32Tile<HD>::DS, HP = F32Tile<HD>::HP;
   constexpr int PER_ROW = HD / 4;
+  constexpr int NTHREADS = kF32Threads * DS;
   __shared__ __align__(16) float sK[BK][LD];
   __shared__ __align__(16) float sV[BK][LD];
 
   const int tid = threadIdx.x;
+  // thread = (row * NS + split) * DS + half: a row's NS * DS threads are
+  // consecutive lanes of one warp, the two halves of a column split adjacent.
+  const int half = tid % DS, t2 = tid / DS;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
   const int rows = BQ * G;
-  const int row = tid / NS, split = tid - (tid / NS) * NS;
+  const int row = t2 / NS, split = t2 - (t2 / NS) * NS;
   const int qi = row / G, g = row - (row / G) * G;
   const bool live = row < rows && q0 + qi < Sq;
   const int qpos = q_offset + q0 + qi;
   const long long qoff =
-      ((static_cast<long long>(b) * Sq + q0 + qi) * Hq + hk * G + g) * HD;
+      ((static_cast<long long>(b) * Sq + q0 + qi) * Hq + hk * G + g) * HD +
+      half * HP;
+  const unsigned pair = DS == 2 ? 3u << ((tid & 31) & ~1) : 0u;
 
-  float qr[HD], acc[HD];
+  float qr[HP], acc[HP];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < HP; ++d) {
     qr[d] = live ? q[qoff + d] * scale : 0.f;
     acc[d] = 0.f;
   }
@@ -165,18 +187,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const KeyRange keys = block_keys(q_offset + q0, q_offset + min(q0 + BQ, Sq) - 1,
                                    Skv, causal, window);
   const int kv_lo = keys.lo, kv_hi = keys.hi;
+  const float* kb = k + static_cast<long long>(b) * kv_bstride;
+  const float* vb = v + static_cast<long long>(b) * kv_bstride;
 
   for (int t0 = kv_lo; t0 < kv_hi; t0 += BK) {
     const int nt = min(BK, kv_hi - t0);
     __syncthreads();
-    for (int e = tid; e < nt * PER_ROW; e += kF32Threads) {
+    for (int e = tid; e < nt * PER_ROW; e += NTHREADS) {
       const int j = e / PER_ROW, c = (e - j * PER_ROW) * 4;
-      const long long off =
-          ((static_cast<long long>(b) * Skv + t0 + j) * Hkv + hk) * HD + c;
+      const long long off = (static_cast<long long>(t0 + j) * Hkv + hk) * HD + c;
       *reinterpret_cast<float4*>(&sK[j][c]) =
-          *reinterpret_cast<const float4*>(k + off);
+          *reinterpret_cast<const float4*>(kb + off);
       *reinterpret_cast<float4*>(&sV[j][c]) =
-          *reinterpret_cast<const float4*>(v + off);
+          *reinterpret_cast<const float4*>(vb + off);
     }
     __syncthreads();
     if (!live) continue;
@@ -189,13 +212,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         if (key < nt) {
           float dot = 0.f;
 #pragma unroll
-          for (int d = 0; d < HD; d += 4) {
-            const float4 kk = *reinterpret_cast<const float4*>(&sK[key][d]);
+          for (int d = 0; d < HP; d += 4) {
+            const float4 kk =
+                *reinterpret_cast<const float4*>(&sK[key][half * HP + d]);
             dot = fmaf(qr[d], kk.x, dot);
             dot = fmaf(qr[d + 1], kk.y, dot);
             dot = fmaf(qr[d + 2], kk.z, dot);
             dot = fmaf(qr[d + 3], kk.w, dot);
           }
+          // both halves of a split row take the same key: a + b == b + a,
+          // so they hold the same score bits
+          if (DS == 2) dot += __shfl_xor_sync(pair, dot, 1);
           const int kpos = t0 + key;
           const bool ok = (!causal || kpos <= qpos) &&
                           (window <= 0 || kpos > qpos - window);
@@ -208,7 +235,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m - mx);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= corr;
+      for (int d = 0; d < HP; ++d) acc[d] *= corr;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         const int key = c0 + NS * j;
@@ -216,8 +243,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float p = expf(s[j] - mx);
           l += p;
 #pragma unroll
-          for (int d = 0; d < HD; d += 4) {
-            const float4 vv = *reinterpret_cast<const float4*>(&sV[key][d]);
+          for (int d = 0; d < HP; d += 4) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(&sV[key][half * HP + d]);
             acc[d] = fmaf(p, vv.x, acc[d]);
             acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
             acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
@@ -229,54 +257,65 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // Merge the NS splits of a row: they are NS consecutive lanes of one warp.
+  // Merge the NS splits of a row: lanes DS apart in one warp.
   if (NS > 1) {
     float mall = m;
     for (int off = NS >> 1; off > 0; off >>= 1)
-      mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, off));
+      mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, off * DS));
     const float w = expf(m - mall);
     l *= w;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= w;
+    for (int d = 0; d < HP; ++d) acc[d] *= w;
     for (int off = NS >> 1; off > 0; off >>= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
+      l += __shfl_xor_sync(0xffffffffu, l, off * DS);
 #pragma unroll
-      for (int d = 0; d < HD; ++d)
-        acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
+      for (int d = 0; d < HP; ++d)
+        acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off * DS);
     }
   }
   if (live && split == 0) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[qoff + d] = acc[d] * inv;
+    for (int d = 0; d < HP; ++d) o[qoff + d] = acc[d] * inv;
   }
 }
 
-int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
-               int window, int q_offset, float scale, cudaStream_t stream) {
+template <int HD>
+int launch_f32_hd(const float* q, const float* k, const float* v, float* o,
+                  int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                  int window, int q_offset, float scale, long long kv_bstride,
+                  cudaStream_t stream) {
+  constexpr int DS = F32Tile<HD>::DS;
   const int G = Hq / Hkv;
   int BQ = kF32Threads / G;
   BQ = BQ < 1 ? 1 : (BQ > Sq ? Sq : BQ);
   const int rows = BQ * G;
   int NS = 1;
-  while (NS < 32 && rows * NS * 2 <= kF32Threads) NS *= 2;
+  while (NS < 32 / DS && rows * NS * 2 <= kF32Threads) NS *= 2;
   const long long gx = (Sq + BQ - 1) / BQ;
   if (gx > 2147483647LL || Hkv > 65535 || B > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(gx), Hkv, B);
+  flash_fwd_f32<HD><<<dim3(static_cast<unsigned>(gx), Hkv, B),
+                      kF32Threads * DS, 0, stream>>>(
+      q, k, v, o, Sq, Skv, Hq, Hkv, G, BQ, NS, causal, window, q_offset, scale,
+      kv_bstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+               int window, int q_offset, float scale, long long kv_bstride,
+               cudaStream_t stream) {
 #define FLASH_F32_HD(D)                                                      \
   case D:                                                                    \
-    flash_fwd_f32<D><<<grid, kF32Threads, 0, stream>>>(                      \
-        q, k, v, o, Sq, Skv, Hq, Hkv, G, BQ, NS, causal, window, q_offset,   \
-        scale);                                                              \
-    break;
+    return launch_f32_hd<D>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, \
+                            q_offset, scale, kv_bstride, stream);
   switch (hd) {
-    FLASH_F32_HD(16) FLASH_F32_HD(32) FLASH_F32_HD(64) FLASH_F32_HD(128)
+    FLASH_F32_HD(16) FLASH_F32_HD(32) FLASH_F32_HD(64) FLASH_F32_HD(112)
+    FLASH_F32_HD(128) FLASH_F32_HD(256)
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_F32_HD
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -287,13 +326,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcThreads = 128;  // 4 warps
 constexpr int kBK = 64;          // keys per tile
-constexpr int kStages = 3;       // cp.async ring depth
 
-template <int HD>
+// hd <= 128 keeps Q in registers and stages it in the last slot of a
+// 3-stage K/V ring.  hd 256 cannot: O's accumulator alone is 128 registers
+// a lane, and Q's fragments would add 64.  So Q stays in shared memory in
+// a slot of its own and each k16 chunk's fragment is re-read by ldmatrix
+// before its products; three stages of K + V (202,752 bytes) leave no room
+// for that slot, so the ring has two (169 KB with Q).
+template <int HD, int MT>
 struct TcCfg {
-  static constexpr int LD = HD + 8;            // bf16 per row: 16-byte pad
-  static constexpr int TILE = kBK * LD;        // bf16 per K (or V) tile
-  static constexpr int SMEM = kStages * 2 * TILE * 2;  // bytes
+  static constexpr bool QS = HD > 128;           // Q read from shared memory
+  static constexpr int STAGES = QS ? 2 : 3;      // cp.async ring depth
+  static constexpr int LD = HD + 8;              // bf16 per row: 16-byte pad
+  static constexpr int TILE = kBK * LD;          // bf16 per K (or V) tile
+  static constexpr int QROWS = QS ? 4 * 16 * MT : 0;  // Q's own slot
+  static constexpr int SMEM = (STAGES * 2 * TILE + QROWS * LD) * 2;  // bytes
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -371,14 +418,18 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              float* __restrict__ part_m, float* __restrict__ part_l,
              float* __restrict__ part_acc, int Sq, int Skv, int Hq, int Hkv,
              int G, int causal, int window, int q_offset, float scale,
-             int nsplit, int split_len) {
-  constexpr int LD = TcCfg<HD>::LD, TILE = TcCfg<HD>::TILE;
+             int nsplit, int split_len, long long kv_bstride) {
+  using Cfg = TcCfg<HD, MT>;
+  constexpr int LD = Cfg::LD, TILE = Cfg::TILE, kStages = Cfg::STAGES;
+  constexpr bool QS = Cfg::QS;
   constexpr int ROWS = 4 * 16 * MT;  // rows per block: MT m16 tiles per warp
-  constexpr int KC = HD / 16;   // 16-wide hd chunks of Q . K^T
+  constexpr int KC = HD / 16;   // 16-wide hd chunks of Q . K^T (7 at hd 112)
   constexpr int NT = kBK / 8;   // 8-key n-tiles of S
-  constexpr int DT = HD / 8;    // 8-wide hd n-tiles of O
+  constexpr int DT = HD / 8;    // 8-wide hd n-tiles of O (even: 14 at hd 112)
   constexpr int CPR = HD / 8;   // 16-byte chunks per row
-  static_assert(ROWS <= 2 * kBK, "Q must fit one ring slot");
+  constexpr int QKC = QS ? 1 : KC;  // Q fragments held in registers
+  static_assert(HD % 16 == 0 && DT % 2 == 0, "hd: whole k16 chunks, n8 pairs");
+  static_assert(QS || ROWS <= 2 * kBK, "Q must fit one ring slot");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // slot s: K, then V
 
@@ -404,12 +455,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kBK - 1) / kBK : 0;
 
   const long long kv_row = static_cast<long long>(Hkv) * HD;
-  const bf16* kbase = k + (static_cast<long long>(b) * Skv * Hkv + hk) * HD;
-  const bf16* vbase = v + (static_cast<long long>(b) * Skv * Hkv + hk) * HD;
+  const bf16* kbase = k + static_cast<long long>(b) * kv_bstride + hk * HD;
+  const bf16* vbase = v + static_cast<long long>(b) * kv_bstride + hk * HD;
 
   // Q goes to the last ring slot, which the ring first fills with tile
-  // kStages - 1, after Q is in registers.
-  bf16* sQ = smem + (2 * (kStages - 1)) * TILE;
+  // kStages - 1, after Q is in registers; at hd 256 to its own slot.
+  bf16* sQ = smem + (QS ? 2 * kStages : 2 * (kStages - 1)) * TILE;
   for (int e = tid; e < ROWS * CPR; e += kTcThreads) {
     const int r = e / CPR, c = (e - r * CPR) * 8;
     const int row = r0 + r;
@@ -444,13 +495,17 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   const int wrow = warp * 16 * MT;
   const bool warp_live = r0 + wrow < R;
-  uint32_t qf[MT][KC][4];
+  uint32_t qf[MT][QKC][4];
+  auto load_q = [&](int mt, int kc, uint32_t (&r)[4]) {
+    ldmatrix_x4(r, smem_u32(sQ + (wrow + mt * 16 + (lane & 15)) * LD +
+                            kc * 16 + (lane >> 4) * 8));
+  };
+  if constexpr (!QS) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-      ldmatrix_x4(qf[mt][kc], smem_u32(sQ + (wrow + mt * 16 + (lane & 15)) * LD +
-                                       kc * 16 + (lane >> 4) * 8));
+      for (int kc = 0; kc < KC; ++kc) load_q(mt, kc, qf[mt][kc]);
+  }
 
   // Thread rows: m tile mt, half h -> row wrow + 16 mt + 8 h + lane / 4.
   const int gq = lane >> 2, tig = lane & 3;
@@ -497,6 +552,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      if constexpr (QS) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) load_q(mt, kc, qf[mt][0]);
+      }
+      const int qk = QS ? 0 : kc;
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];
@@ -504,8 +564,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  kc * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kc], kf[0], kf[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kc], kf[2], kf[3]);
+          mma_bf16(s[mt][2 * np], qf[mt][qk], kf[0], kf[1]);
+          mma_bf16(s[mt][2 * np + 1], qf[mt][qk], kf[2], kf[3]);
         }
       }
     }
@@ -629,15 +689,23 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // weights w = exp(m_s - M) (0 for a split with no keys), out = sum w acc /
 // max(sum w l, 1e-30).  A block takes kCombineRows rows of one (batch, KV
 // head).  Every split's (m, l) is loaded at once into shared memory and
-// turned into weights in parallel; then kCombineGroups groups of hd / 4
-// threads a row each sum the accumulators of every kCombineGroups-th split
-// (4 hd values a thread, independent loads), and the groups' sums are added
-// in group order.  The order is fixed: no atomics, the same bits each run.
+// turned into weights in parallel; then kCombineGroups groups of
+// min(hd / 4, 32) threads a row each sum the accumulators of every
+// kCombineGroups-th split (4 hd values a thread and column pass, independent
+// loads; hd 256 takes two passes of 32 threads), and the groups' sums are
+// added in group order.  The order is fixed: no atomics, the same bits each
+// run.
 constexpr int kCombineRows = 4;
 constexpr int kCombineGroups = 4;
+constexpr int kCombineLanes = 32;  // threads a row and group, at most
 constexpr int kMaxSplits = 256;
+constexpr int kMaxHd = 256;
 
-__global__ void __launch_bounds__(kCombineRows * kCombineGroups * 32)
+int combine_threads(int hd) {
+  return kCombineRows * kCombineGroups * (hd / 4 < kCombineLanes ? hd / 4 : kCombineLanes);
+}
+
+__global__ void __launch_bounds__(kCombineRows * kCombineGroups * kCombineLanes)
 flash_combine(const float* __restrict__ part_m,
               const float* __restrict__ part_l,
               const float* __restrict__ part_acc, bf16* __restrict__ o,
@@ -645,10 +713,11 @@ flash_combine(const float* __restrict__ part_m,
   __shared__ float sw[kCombineRows][kMaxSplits];  // m, then the weight
   __shared__ float sl[kCombineRows][kMaxSplits];
   __shared__ float sM[kCombineRows], sinv[kCombineRows];
-  __shared__ float4 sacc[kCombineGroups][kCombineRows][32];
+  __shared__ float4 sacc[kCombineGroups][kCombineRows][kMaxHd / 4];
   const int tid = threadIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int R = Sq * G, per_row = hd / 4;
+  const int lanes = min(per_row, kCombineLanes);
   const int row0 = blockIdx.x * kCombineRows;
   const int rows = min(kCombineRows, R - row0);
   const long long base = (static_cast<long long>(b) * Hkv + hk) * nsplit * R;
@@ -677,39 +746,44 @@ flash_combine(const float* __restrict__ part_m,
     for (int s = 0; s < nsplit; ++s) L = fmaf(sw[tid][s], sl[tid][s], L);
     sinv[tid] = 1.f / fmaxf(L, 1e-30f);
   }
-  const int per_group = kCombineRows * per_row;
+  const int per_group = kCombineRows * lanes;
   const int grp = tid / per_group, rem = tid - grp * per_group;
-  const int r = rem / per_row, dq = rem - r * per_row;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (r < rows) {
-    const float* src = part_acc + (base + row0 + r) * hd + dq * 4;
-    const long long step = static_cast<long long>(R) * hd;
+  const int r = rem / lanes, dq0 = rem - r * lanes;
+  const long long step = static_cast<long long>(R) * hd;
+  for (int dq = dq0; dq < per_row; dq += lanes) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) {
+      const float* src = part_acc + (base + row0 + r) * hd + dq * 4;
 #pragma unroll 8
-    for (int s = grp; s < nsplit; s += kCombineGroups) {
-      const float w = sw[r][s];
-      const float4 a = *reinterpret_cast<const float4*>(src + s * step);
-      acc.x = fmaf(w, a.x, acc.x);
-      acc.y = fmaf(w, a.y, acc.y);
-      acc.z = fmaf(w, a.z, acc.z);
-      acc.w = fmaf(w, a.w, acc.w);
+      for (int s = grp; s < nsplit; s += kCombineGroups) {
+        const float w = sw[r][s];
+        const float4 a = *reinterpret_cast<const float4*>(src + s * step);
+        acc.x = fmaf(w, a.x, acc.x);
+        acc.y = fmaf(w, a.y, acc.y);
+        acc.z = fmaf(w, a.z, acc.z);
+        acc.w = fmaf(w, a.w, acc.w);
+      }
     }
+    sacc[grp][r][dq] = acc;
   }
-  sacc[grp][r][dq] = acc;
   __syncthreads();
   if (grp != 0 || r >= rows) return;
-  for (int g = 1; g < kCombineGroups; ++g) {
-    const float4 a = sacc[g][r][dq];
-    acc.x += a.x;
-    acc.y += a.y;
-    acc.z += a.z;
-    acc.w += a.w;
-  }
   const float inv = sinv[r];
-  bf16* dst = o + out_offset(b, hk, row0 + r, G, Sq, Hq, hd) + dq * 4;
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] =
-      __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] =
-      __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  bf16* dst = o + out_offset(b, hk, row0 + r, G, Sq, Hq, hd);
+  for (int dq = dq0; dq < per_row; dq += lanes) {
+    float4 acc = sacc[0][r][dq];
+    for (int g = 1; g < kCombineGroups; ++g) {
+      const float4 a = sacc[g][r][dq];
+      acc.x += a.x;
+      acc.y += a.y;
+      acc.z += a.z;
+      acc.w += a.w;
+    }
+    reinterpret_cast<__nv_bfloat162*>(dst + dq * 4)[0] =
+        __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+    reinterpret_cast<__nv_bfloat162*>(dst + dq * 4)[1] =
+        __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  }
 }
 
 // cudaFuncSetAttribute for the dynamic shared memory, once per device.
@@ -723,7 +797,7 @@ int smem_attribute() {
   if (done[dev] == 0) {
     rc = static_cast<int>(cudaFuncSetAttribute(
         flash_fwd_tc<HD, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        TcCfg<HD>::SMEM));
+        TcCfg<HD, MT>::SMEM));
     done[dev] = rc == 0 ? 1 : -rc;
   }
   return done[dev] == 1 ? 0 : -done[dev];
@@ -734,7 +808,7 @@ int launch_tc_mt(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                  float* part_m, float* part_l, float* part_acc, int nsplit,
                  int split_len, int B, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, int q_offset, float scale,
-                 cudaStream_t stream) {
+                 long long kv_bstride, cudaStream_t stream) {
   int rc = smem_attribute<HD, MT>();
   if (rc != 0) return rc;
   const int G = Hq / Hkv;
@@ -743,16 +817,16 @@ int launch_tc_mt(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const long long gx = (R + rows - 1) / rows * nsplit;
   if (R > 2147483647LL || gx > 2147483647LL || Hkv > 65535 || B > 65535)
     return cudaErrorInvalidValue;
-  constexpr int smem = TcCfg<HD>::SMEM;
+  constexpr int smem = TcCfg<HD, MT>::SMEM;
   flash_fwd_tc<HD, MT><<<dim3(static_cast<unsigned>(gx), Hkv, B), kTcThreads,
                          smem, stream>>>(
       q, k, v, o, part_m, part_l, part_acc, Sq, Skv, Hq, Hkv, G, causal,
-      window, q_offset, scale, nsplit, split_len);
+      window, q_offset, scale, nsplit, split_len, kv_bstride);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || nsplit == 1) return rc;
   flash_combine<<<dim3(static_cast<unsigned>((R + kCombineRows - 1) / kCombineRows),
                        Hkv, B),
-                  kCombineRows * kCombineGroups * (HD / 4), 0, stream>>>(
+                  combine_threads(HD), 0, stream>>>(
       part_m, part_l, part_acc, o, Sq, Hq, Hkv, G, HD, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
@@ -762,27 +836,27 @@ int launch_tc_hd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                  float* part_m, float* part_l, float* part_acc, int nsplit,
                  int split_len, int B, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, int q_offset, float scale,
-                 cudaStream_t stream) {
+                 long long kv_bstride, cudaStream_t stream) {
   // Two m16 tiles per warp (128 rows a block) for hd <= 64 and more than
-  // 64 rows; hd = 128 (registers: two tiles spill) and decode-sized row
+  // 64 rows; hd >= 112 (registers: two tiles spill) and decode-sized row
   // counts take one (64 rows).  kernels/flash_attention mirrors this rule
   // in tc_rows_per_block.
   if constexpr (HD <= 64) {
     if (static_cast<long long>(Sq) * (Hq / Hkv) > 64)
       return launch_tc_mt<HD, 2>(
           q, k, v, o, part_m, part_l, part_acc, nsplit, split_len, B, Sq,
-          Skv, Hq, Hkv, causal, window, q_offset, scale, stream);
+          Skv, Hq, Hkv, causal, window, q_offset, scale, kv_bstride, stream);
   }
   return launch_tc_mt<HD, 1>(q, k, v, o, part_m, part_l, part_acc, nsplit,
                              split_len, B, Sq, Skv, Hq, Hkv, causal, window,
-                             q_offset, scale, stream);
+                             q_offset, scale, kv_bstride, stream);
 }
 
 int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
               float* part_m, float* part_l, float* part_acc, int nsplit,
               int split_len, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
               int causal, int window, int q_offset, float scale,
-              cudaStream_t stream) {
+              long long kv_bstride, cudaStream_t stream) {
   if (nsplit < 1 || nsplit > kMaxSplits) return cudaErrorInvalidValue;
   if (nsplit > 1 &&
       (part_m == nullptr || part_l == nullptr || part_acc == nullptr ||
@@ -792,9 +866,10 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   case D:                                                                    \
     return launch_tc_hd<D>(q, k, v, o, part_m, part_l, part_acc, nsplit,     \
                            split_len, B, Sq, Skv, Hq, Hkv, causal, window,   \
-                           q_offset, scale, stream);
+                           q_offset, scale, kv_bstride, stream);
   switch (hd) {
-    FLASH_TC_HD(16) FLASH_TC_HD(32) FLASH_TC_HD(64) FLASH_TC_HD(128)
+    FLASH_TC_HD(16) FLASH_TC_HD(32) FLASH_TC_HD(64) FLASH_TC_HD(112)
+    FLASH_TC_HD(128) FLASH_TC_HD(256)
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_TC_HD
@@ -804,10 +879,13 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 extern "C" {
 
-// q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd), o like q, all contiguous and
+// q (B, Sq, Hq, hd) and o like q, contiguous; k and v (B, Skv, Hkv, hd),
+// contiguous within a batch row, batch row b at b * kv_bstride elements (a
+// view of the first Skv slots of a longer cache keeps its stride); all
 // 16-byte aligned, of one type: dtype 0 float32 (CUDA-core kernel), 1
-// bfloat16 (tensor-core kernel).  hd in {16, 32, 64, 128}; Hq a multiple of
-// Hkv with Hq / Hkv <= 128; window <= 0 means none; q_offset >= 0.
+// bfloat16 (tensor-core kernel).  hd in {16, 32, 64, 112, 128, 256}; Hq a
+// multiple of Hkv with Hq / Hkv <= 128; window <= 0 means none;
+// q_offset >= 0.
 //
 // Split-KV (bfloat16 only): nsplit > 1 cuts the keys into ranges
 // [s * split_len, (s + 1) * split_len) with nsplit * split_len >= Skv, and
@@ -818,10 +896,12 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, float* part_m, float* part_l,
                         float* part_acc, int nsplit, int split_len, int B,
                         int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
-                        int window, int q_offset, float scale, void* stream) {
+                        int window, int q_offset, float scale,
+                        long long kv_bstride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      Hq / Hkv > kF32Threads || q_offset < 0)
+      Hq / Hkv > kF32Threads || q_offset < 0 ||
+      kv_bstride < static_cast<long long>(Skv) * Hkv * hd)
     return cudaErrorInvalidValue;
   if (dtype == 0) {
     if (nsplit != 1) return cudaErrorInvalidValue;
@@ -829,13 +909,14 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
                       static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(o), B,
                       Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale,
-                      st);
+                      kv_bstride, st);
   }
   if (dtype == 1)
     return launch_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                      static_cast<const bf16*>(v), static_cast<bf16*>(o),
                      part_m, part_l, part_acc, nsplit, split_len, B, Sq, Skv,
-                     Hq, Hkv, hd, causal, window, q_offset, scale, st);
+                     Hq, Hkv, hd, causal, window, q_offset, scale, kv_bstride,
+                     st);
   return cudaErrorInvalidValue;
 }
 

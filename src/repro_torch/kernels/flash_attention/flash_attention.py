@@ -5,8 +5,10 @@ Ports ``repro.kernels.flash_attention.flash_attention`` (``_flash_kernel`` /
 (``repro_torch/csrc/flash_attention.cu``) computes forward-only grouped-query
 attention with a causal mask, an optional sliding window and a query offset
 in an online softmax, float32 or bfloat16 in and the same type out, float32
-inside.  Unlike the TPU kernel it takes ragged ``Sq`` and ``Skv`` (masked at
-the edge) and needs no tile sizes.  bfloat16 runs on the tensor cores; when
+inside, at head dims 16, 32, 64, 112, 128 and 256.  Unlike the TPU kernel it
+takes ragged ``Sq`` and ``Skv`` (masked at the edge) and needs no tile
+sizes; K and V may be views of the first ``Skv`` slots of a longer cache
+(:func:`kv_operands`).  bfloat16 runs on the tensor cores; when
 the grid would not fill the card (decode), :func:`split_plan` cuts the keys
 into ranges whose partial softmax states the kernel merges in a second step
 (:func:`repro_torch.kernels.flash_attention.ref.merge_partials` is that
@@ -28,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _MAX_GROUP = 128  # query heads per KV head: one float32 block's rows
 
 # The bfloat16 kernel's tiling (csrc/flash_attention.cu: kBK, launch_tc_hd).
@@ -39,7 +41,7 @@ MAX_SPLITS = 256  # kMaxSplits: splits the merge step takes
 def tc_rows_per_block(hd: int, rows: int) -> int:
     """(position, head) rows per block of the bfloat16 kernel: two m16 tiles
     per warp (128 rows) for hd <= 64 when there are more than 64 rows, else
-    one (64 rows)."""
+    one (64 rows): hd 112, 128 and 256 always take one."""
     return 128 if hd <= 64 and rows > 64 else 64
 
 
@@ -47,7 +49,8 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+    ctypes.c_void_p,
 ]
 
 
@@ -70,6 +73,24 @@ def split_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, *,
         return 1, Skv
     split_len = -(-tiles // nsplit) * TC_KEYS
     return -(-Skv // split_len), split_len
+
+
+def kv_operands(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """K and V as the kernel reads them, and their batch stride in elements.
+
+    A view whose rows are contiguous within each batch row (the first Skv
+    slots of a longer cache) is passed as it is, with the cache's batch
+    stride, when that stride keeps every batch row 16-byte aligned; any
+    other layout is made contiguous.
+    """
+    B, Skv, Hkv, hd = k.shape
+    inner = (Hkv * hd, hd, 1)
+    dense = Skv * Hkv * hd
+    row_align = 16 // k.element_size()
+    if (k.stride() == v.stride() and tuple(k.stride()[1:]) == inner
+            and (B == 1 or (k.stride(0) >= dense and k.stride(0) % row_align == 0))):
+        return k, v, dense if B == 1 else int(k.stride(0))
+    return k.contiguous(), v.contiguous(), dense
 
 
 def _lib() -> ctypes.CDLL:
@@ -154,7 +175,8 @@ def flash_attention_cuda(
         raise ValueError(f"operands too large: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if window is not None and window > q_offset + Sq - 1:
         window = None  # every key is inside the window: no mask to apply
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q = q.contiguous()
+    k, v, kv_bstride = kv_operands(k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -177,7 +199,7 @@ def flash_attention_cuda(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             *parts, nsplit, split_len,
             B, Sq, Skv, Hq, Hkv, hd, int(causal), 0 if window is None else int(window),
-            int(q_offset), 1.0 / math.sqrt(hd), stream,
+            int(q_offset), 1.0 / math.sqrt(hd), kv_bstride, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -1,17 +1,28 @@
-"""GQA attention with RoPE, KV caches and chunked (flash-style) computation.
+"""GQA attention with RoPE, KV caches (ring buffers for sliding-window
+layers, padded cross-attention caches) and chunked (flash-style) computation.
 
 Port of ``repro.models.attention``.  :func:`chunked_attention` is the hot
 spot.  On the CPU it is the reference's pure online-softmax scan over KV
 chunks (dense softmax for a single decode query).  On CUDA it launches the
 hand-written flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`),
-which computes the same function; there the positions are implicit — query
-``i`` at ``q_offset + i``, key ``j`` at ``j`` — which is the form of every
-call the ported serving path makes (prefill, and decode against a cache that
-is not a ring buffer).  Forms the kernel cannot express (ring caches for
-sliding-window layers, padded cross-attention caches) raise on CUDA.
+which computes the same function with implicit positions: query ``i`` at
+``q_offset + i``, key ``j`` at ``j``, over the first ``kv_len`` slots.
+Every call of the serving path has that form, some after rewriting the
+reference's mask into an equal one (:func:`decode_form`):
+
+* prefill, causal, with or without a window, and the whisper encoder's
+  non-causal self-attention;
+* decode against a plain cache: causal at ``q_offset = decode_pos``;
+* decode against a ring (``s_cache <= window``): every slot a ring holds is
+  inside the window, so until the ring is full it is the causal call at
+  ``q_offset = decode_pos``, and from then on a non-causal call over all
+  ``s_cache`` slots, in slot order rather than position order;
+* cross-attention: non-causal, without RoPE, over the encoder's frames; at
+  decode over the first ``encoder_seq`` slots of the cache padded to a
+  multiple of 128 (``kv_len``; the kernel reads the view in place).
 
 The reference's custom VJP (the flash backward) belongs to the training
-slice and is not ported; KV caches are updated in place.
+step (ROADMAP Queue 1) and is not ported; KV caches are updated in place.
 """
 from __future__ import annotations
 
@@ -26,7 +37,7 @@ from repro_torch.models.layers import dense_init, mm, param
 
 NEG_INF = -1e30
 
-NOT_PORTED = "ROADMAP Queue 1, the rest of the LM zoo"
+NOT_PORTED = "ROADMAP Queue 1, the LM train step"
 
 
 # ---------------------------------------------------------------------------
@@ -93,22 +104,23 @@ def chunked_attention(
     window: Optional[int] = None,
     chunk: int = 1024,
     q_offset: Optional[int] = None,
+    kv_len: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Flash-style attention over KV chunks. Returns (B, Sq, Hq, hd) in ``dtype``.
 
     ``q_offset`` says that the positions are the kernel's implicit form
     (``q_pos = q_offset + arange(Sq)``, ``kv_pos = arange(Skv)`` with the
-    slots above the last query masked by causality); CUDA tensors need it
-    and launch the flash kernel.  CPU tensors run the reference's scan on
-    ``q_pos`` / ``kv_pos``.
+    slots above the last query masked by causality, and with ``kv_len``
+    every slot from ``kv_len`` on invalid); CUDA tensors need it and launch
+    the flash kernel on the first ``kv_len`` slots (default all).  CPU
+    tensors run the reference's scan on ``q_pos`` / ``kv_pos``.
     """
     if q.device.type == "cuda":
         if q_offset is None:
-            raise NotImplementedError(
-                "attention positions the flash kernel cannot express (ring "
-                f"or padded caches) are not ported to CUDA: {NOT_PORTED}"
-            )
+            raise ValueError("CUDA attention needs the kernel's implicit positions (q_offset)")
+        if kv_len is not None:
+            k, v = k[:, :kv_len], v[:, :kv_len]
         out = flash_attention(
             q.to(dtype), k.to(dtype), v.to(dtype),
             causal=causal, window=window, q_offset=q_offset,
@@ -193,6 +205,68 @@ def cache_positions(s_cache: int, pos: int, *, ring: bool, device=None) -> torch
     return torch.where(t >= 0, t, -1)
 
 
+def cross_prefill(
+    params: Attn,
+    x: torch.Tensor,                  # (B, Sq, D) decoder queries (normed)
+    enc_out: torch.Tensor,            # (B, S_enc, D) encoder output
+    *,
+    n_heads: int,
+    n_kv: int,
+    hd: int,
+    q_pos: torch.Tensor,
+    chunk: int = 1024,
+    cache: Optional[AttnCache] = None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Cross-attention over the encoder output at prefill: no RoPE, not
+    causal.  Fills ``cache`` (padded past ``S_enc`` slots) in place with the
+    projected keys and values, zeros in the padding, for decode
+    (:func:`attend` with ``cross_len``)."""
+    B, Sq, _ = x.shape
+    n_enc = enc_out.shape[1]
+    k = mm(enc_out, params.k, dtype).reshape(B, n_enc, n_kv, hd)
+    v = mm(enc_out, params.v, dtype).reshape(B, n_enc, n_kv, hd)
+    q = mm(x, params.q, dtype).reshape(B, Sq, n_heads, hd)
+    kv_pos = torch.arange(n_enc, device=x.device)
+    out = chunked_attention(q, k, v, q_pos, kv_pos, causal=False, chunk=chunk,
+                            q_offset=0, dtype=dtype)
+    if cache is not None:
+        cache.k[:, n_enc:] = 0
+        cache.v[:, n_enc:] = 0
+        cache.k[:, :n_enc] = k.to(cache.k.dtype)
+        cache.v[:, :n_enc] = v.to(cache.v.dtype)
+    return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype)
+
+
+class DecodeForm(NamedTuple):
+    """How one decode query meets its self-attention cache."""
+
+    ring: bool                 # the cache is a sliding-window ring buffer
+    slot: int                  # where the new token's K and V are written
+    causal: bool               # the mask the call applies ...
+    window: Optional[int]
+    q_offset: int              # ... with the query at this implicit position
+
+
+def decode_form(s_cache: int, decode_pos: int, window: Optional[int]) -> DecodeForm:
+    """The reference's decode mask (``cache_positions`` with causality and
+    the window) rewritten as the kernel's implicit-position form.
+
+    A cache no longer than the window is a ring (the reference's rule): slot
+    ``pos % s_cache`` takes the new token, and every token it holds lies
+    inside the window.  Until the ring is full (``decode_pos < s_cache - 1``)
+    the slots above ``decode_pos`` are empty and the call is the causal one
+    at ``q_offset = decode_pos``; from then on every slot is valid and the
+    call is non-causal, without a window.  A longer cache is written at
+    ``decode_pos`` and read causally with the window.
+    """
+    if window is not None and s_cache <= window:
+        if decode_pos >= s_cache - 1:
+            return DecodeForm(True, decode_pos % s_cache, False, None, 0)
+        return DecodeForm(True, decode_pos, True, None, decode_pos)
+    return DecodeForm(False, decode_pos, True, window, decode_pos)
+
+
 def attend(
     params: Attn,
     x: torch.Tensor,                  # (B, Sq, D)
@@ -207,13 +281,32 @@ def attend(
     chunk: int = 1024,
     cache: Optional[AttnCache] = None,
     decode_pos: Optional[int] = None,  # position of the one new token when decoding
+    cross_len: Optional[int] = None,   # cross-attention: valid slots of ``cache``
     dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, Optional[AttnCache]]:
     """Self-attention for prefill (``decode_pos`` None; fills ``cache`` in
-    place when given) and decode (one token against ``cache``, written in
-    place at slot ``decode_pos``).  Prefill queries sit at ``arange(Sq)``."""
+    place when given, a ring shorter than the prompt with its tail at slot
+    ``pos % s_cache``) and decode (one token against ``cache``, written in
+    place at its slot, :func:`decode_form`), and cross-attention decode
+    (``cross_len`` given: queries without RoPE against the projected cache,
+    whose first ``cross_len`` slots are valid).  Prefill queries sit at
+    ``arange(Sq)``; ``causal=False`` is the encoder's self-attention."""
     B, Sq, _ = x.shape
     q = mm(x, params.q, dtype).reshape(B, Sq, n_heads, hd)
+
+    if cross_len is not None:
+        # Cross attention against a precomputed (already projected) cache.
+        if cache is None:
+            raise ValueError("cross-attention decode needs the projected cache")
+        s_cache = cache.k.shape[1]
+        idx = torch.arange(s_cache, device=x.device)
+        kv_pos = torch.where(idx < cross_len, idx, -1)
+        out = chunked_attention(
+            q, cache.k, cache.v, q_pos, kv_pos, causal=False, chunk=chunk,
+            q_offset=0, kv_len=cross_len, dtype=dtype,
+        )
+        return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache
+
     q = rope(q, q_pos, theta)
     k = mm(x, params.k, dtype).reshape(B, Sq, n_kv, hd)
     v = mm(x, params.v, dtype).reshape(B, Sq, n_kv, hd)
@@ -225,26 +318,29 @@ def attend(
             q_offset=0, dtype=dtype,
         )
         if cache is not None:
-            if cache.k.shape[1] < Sq:
-                raise NotImplementedError(
-                    f"a ring cache shorter than the prefill is not ported: {NOT_PORTED}"
-                )
-            cache.k[:, :Sq] = k.to(cache.k.dtype)
-            cache.v[:, :Sq] = v.to(cache.v.dtype)
+            s_cache = cache.k.shape[1]
+            if s_cache >= Sq:
+                cache.k[:, :Sq] = k.to(cache.k.dtype)
+                cache.v[:, :Sq] = v.to(cache.v.dtype)
+            else:
+                # a ring shorter than the prompt keeps the tail, token t at
+                # slot t % s_cache (ring addressing)
+                roll = (Sq - s_cache) % s_cache
+                cache.k.copy_(torch.roll(k[:, -s_cache:], roll, dims=1))
+                cache.v.copy_(torch.roll(v[:, -s_cache:], roll, dims=1))
         return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache
 
     # ----- decode: single new token against the cache -----------------------
     if cache is None:
         raise ValueError("decoding needs a KV cache")
     s_cache = cache.k.shape[1]
-    if window is not None and s_cache <= window:
-        raise NotImplementedError(f"ring-buffer KV caches are not ported: {NOT_PORTED}")
+    form = decode_form(s_cache, decode_pos, window)
     k = rope(k, q_pos, theta)
-    cache.k[:, decode_pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, decode_pos] = v[:, 0].to(cache.v.dtype)
-    kv_pos = cache_positions(s_cache, decode_pos, ring=False, device=x.device)
+    cache.k[:, form.slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, form.slot] = v[:, 0].to(cache.v.dtype)
+    kv_pos = cache_positions(s_cache, decode_pos, ring=form.ring, device=x.device)
     out = chunked_attention(
-        q, cache.k, cache.v, q_pos, kv_pos, causal=True, window=window, chunk=chunk,
-        q_offset=decode_pos, dtype=dtype,
+        q, cache.k, cache.v, q_pos, kv_pos, causal=form.causal, window=form.window,
+        chunk=chunk, q_offset=form.q_offset, dtype=dtype,
     )
     return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache

@@ -1,23 +1,28 @@
 """The LM model zoo's serving path: batched prefill and greedy decode.
 
-Port of ``repro.models.lm`` for the families this slice carries: dense
-global-attention models (tinyllama-1.1b, and llama3.2-3b and granite-8b,
-which share its blocks) and RWKV6 (rwkv6-1.6b).  A model is a list of
-*stages*, each ``repeats`` identical super-blocks; where the reference scans
-over stacked parameters, the port loops over an ``nn.ModuleList`` (eager
-PyTorch has no scan or remat to gain from).  Attention runs through the
-flash-attention kernel and the WKV recurrence through the WKV kernel on
-CUDA (:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.ssm`).
+Port of ``repro.models.lm`` for all ten configurations: dense global
+attention (tinyllama-1.1b, llama3.2-3b, granite-8b), sliding-window local
+layers with ring caches (gemma3-4b, 5 local : 1 global), MoE blocks
+(qwen2-moe-a2.7b, llama4-scout-17b-a16e), Mamba2 with one shared attention
+block applied after each super-block (zamba2-7b), RWKV6 (rwkv6-1.6b), the
+encoder-decoder with cross-attention (whisper-medium) and the vision stub,
+whose embeddings overwrite the prompt's leading positions
+(internvl2-26b, llama4-scout).
+
+A model is a list of *stages*, each ``repeats`` identical super-blocks;
+where the reference scans over stacked parameters, the port loops over an
+``nn.ModuleList`` (eager PyTorch has no scan or remat to gain from).
+Attention runs through the flash-attention kernel and the WKV recurrence
+through the WKV kernel on CUDA (:mod:`repro_torch.models.attention`,
+:mod:`repro_torch.models.ssm`); MoE and Mamba2 are plain PyTorch, as the
+reference computes them outside its Pallas kernels.
 
 Modes: ``prefill`` (full sequence, fills the caches when given) and
-``decode`` (one token at host-known position ``decode_pos``; KV caches are
+``decode`` (one token at host-known position ``decode_pos``; caches are
 updated in place).  The logits keep the padded vocabulary
-(``cfg.vocab_padded``), as the reference's do.
-
-Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-Queue 1's "the rest of the LM zoo": MoE blocks, Mamba2 / zamba2, sliding-window ring caches
-(gemma3), encoder-decoder (whisper), the vision stub (internvl2) and the
-training step (``mode="train"``, ``lm_loss``, ``make_train_step``).
+(``cfg.vocab_padded``), as the reference's do.  The training step
+(``mode="train"``, ``lm_loss``, ``make_train_step``) is not ported yet:
+ROADMAP Queue 1, the LM train step.
 """
 from __future__ import annotations
 
@@ -30,7 +35,14 @@ from torch import nn
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
-from repro_torch.models.attention import NOT_PORTED, Attn, attend, init_attn, init_attn_cache
+from repro_torch.models.attention import (
+    NOT_PORTED,
+    Attn,
+    attend,
+    cross_prefill,
+    init_attn,
+    init_attn_cache,
+)
 from repro_torch.models.layers import (
     MLP,
     dense_init,
@@ -41,6 +53,7 @@ from repro_torch.models.layers import (
     param,
     rmsnorm,
 )
+from repro_torch.models.moe import MoE, init_moe, moe_apply
 
 # ---------------------------------------------------------------------------
 # Stage specs
@@ -81,21 +94,20 @@ def stages_for(cfg: ArchConfig) -> list[StageSpec]:
     return [StageSpec("attn", cfg.n_layers, ("global",), cross_attn=cross)]
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not carry."""
-    missing = []
-    if cfg.is_moe:
-        missing.append("MoE blocks")
-    if cfg.block_kind == "mamba2":
-        missing.append("Mamba2 blocks")
-    if cfg.swa_pattern is not None:
-        missing.append("sliding-window ring caches")
-    if cfg.is_enc_dec:
-        missing.append("the encoder-decoder")
-    if cfg.vision_tokens:
-        missing.append("the vision stub")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported: {NOT_PORTED}")
+def encoder_stages(cfg: ArchConfig) -> list[StageSpec]:
+    return [StageSpec("attn", cfg.encoder_layers, ("global",))]
+
+
+def attention_calls(cfg: ArchConfig, prefill: bool) -> int:
+    """Attention calls (flash launches on the card) in one forward: one per
+    attention layer, two with cross-attention, one per application of the
+    shared block, and at prefill one per encoder layer."""
+    calls = 0
+    for stage in stages_for(cfg):
+        if stage.kind == "attn":
+            calls += stage.repeats * len(stage.sub) * (2 if stage.cross_attn else 1)
+        calls += stage.repeats if stage.shared_attn else 0
+    return calls + (cfg.encoder_layers if prefill else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +116,35 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + gated MLP block (the reference's keys)."""
+    """Pre-norm attention block (the reference's keys): ``ln1``, ``attn``,
+    ``ln2`` and either ``mlp`` or ``moe``; with cross-attention also
+    ``lnx`` and ``xattn``."""
 
-    def __init__(self, ln1: torch.Tensor, attn: Attn, ln2: torch.Tensor, mlp: MLP):
+    def __init__(self, ln1: torch.Tensor, attn: Attn, ln2: torch.Tensor, *,
+                 mlp: Optional[MLP] = None, moe: Optional[MoE] = None,
+                 lnx: Optional[torch.Tensor] = None, xattn: Optional[Attn] = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = param(ln1), attn, param(ln2), mlp
+        if (mlp is None) == (moe is None):
+            raise ValueError("an attention block takes exactly one of mlp and moe")
+        if (lnx is None) != (xattn is None):
+            raise ValueError("cross-attention takes both lnx and xattn")
+        self.ln1, self.attn, self.ln2 = param(ln1), attn, param(ln2)
+        self.mlp, self.moe = mlp, moe
+        self.lnx = None if lnx is None else param(lnx)
+        self.xattn = xattn
+
+
+def _stage_list(stages: list[list[dict]]) -> nn.ModuleList:
+    return nn.ModuleList(nn.ModuleList(nn.ModuleDict(sb) for sb in stage) for stage in stages)
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder: its own ``stages`` and ``final_norm``."""
+
+    def __init__(self, final_norm: torch.Tensor, stages: list[list[dict]]):
+        super().__init__()
+        self.final_norm = param(final_norm)
+        self.stages = _stage_list(stages)
 
 
 class LM(nn.Module):
@@ -116,34 +152,63 @@ class LM(nn.Module):
 
     ``stages[si][r]`` is super-block ``r`` of stage ``si``: a ``ModuleDict``
     of sub-layers ``sub0, sub1, ...``, each the reference's stacked
-    parameters at index ``r``.
+    parameters at index ``r``.  ``shared_attn`` is zamba2's one shared
+    attention block, ``encoder`` whisper's encoder.
     """
 
     def __init__(self, cfg: ArchConfig, compute_dtype: torch.dtype, embed: torch.Tensor,
                  lm_head: Optional[torch.Tensor], final_norm: torch.Tensor,
-                 stages: list[list[dict]]):
+                 stages: list[list[dict]], *, shared_attn: Optional[AttnBlock] = None,
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.embed = param(embed)
         self.lm_head = None if lm_head is None else param(lm_head)
         self.final_norm = param(final_norm)
-        self.stages = nn.ModuleList(
-            nn.ModuleList(nn.ModuleDict(sb) for sb in stage) for stage in stages
-        )
+        self.stages = _stage_list(stages)
+        self.shared_attn = shared_attn
+        self.encoder = encoder
 
 
-def _init_block(gen, cfg: ArchConfig, stage: StageSpec, device) -> nn.Module:
-    d = cfg.d_model
+def _init_attn_block(gen, cfg: ArchConfig, cross: bool, device, moe: bool) -> AttnBlock:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+
+    def zeros():
+        return torch.zeros((d,), dtype=torch.float32, device=device)
+
+    def attn():
+        return init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device)
+
+    ffn = {"moe": init_moe(gen, cfg, device)} if moe else {"mlp": init_mlp(gen, d, cfg.d_ff, device)}
+    xattn = {"lnx": zeros(), "xattn": attn()} if cross else {}
+    return AttnBlock(zeros(), attn(), zeros(), **ffn, **xattn)
+
+
+def _to_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Weights of two or more dimensions in ``dtype``, vectors stay float32."""
+    for p in module.parameters():
+        if p.ndim >= 2:
+            p.data = p.data.to(dtype)
+    return module
+
+
+def _init_block(gen, cfg: ArchConfig, stage: StageSpec, device, dtype) -> nn.Module:
     if stage.kind == "rwkv":
-        return ssm.init_rwkv(gen, cfg, device)
-    zeros = torch.zeros((d,), dtype=torch.float32, device=device)
-    return AttnBlock(
-        zeros.clone(),
-        init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, device),
-        zeros.clone(),
-        init_mlp(gen, d, cfg.d_ff, device),
-    )
+        block = ssm.init_rwkv(gen, cfg, device)
+    elif stage.kind == "mamba":
+        block = ssm.init_mamba(gen, cfg, device)
+    else:
+        block = _init_attn_block(gen, cfg, stage.cross_attn, device, cfg.is_moe)
+    return _to_dtype(block, dtype)
+
+
+def _init_stages(gen, cfg: ArchConfig, specs: list[StageSpec], device, dtype):
+    return [
+        [{f"sub{i}": _init_block(gen, cfg, stage, device, dtype) for i in range(len(stage.sub))}
+         for _ in range(stage.repeats)]
+        for stage in specs
+    ]
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
@@ -152,25 +217,30 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bf
     device; ``device="meta"`` allocates nothing, for :mod:`repro_torch.convert`).
 
     The distributions are the reference's; the draws are not.  Weights of
-    two or more dimensions are stored in ``dtype`` (the reference casts them
-    to its compute dtype before use), vectors in float32.
+    two or more dimensions are stored in ``dtype``, vectors in float32: the
+    reference casts every per-super-block weight of two or more dimensions
+    (``conv_w`` too) to its compute dtype before use, and its matmuls cast
+    the embedding, the head and the shared attention block's weights, so
+    the same products round the same way.  Each block is cast as it is
+    made, so the float32 draws of only one block are held at a time.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     Vp, D = cfg.vocab_padded, cfg.d_model
-    embed = embed_init(gen, Vp, D, dev)
-    lm_head = None if cfg.tie_embeddings else dense_init(gen, D, Vp, dev, scale=D ** -0.5)
-    stages = [
-        [{f"sub{i}": _init_block(gen, cfg, stage, dev) for i in range(len(stage.sub))}
-         for _ in range(stage.repeats)]
-        for stage in stages_for(cfg)
-    ]
-    model = LM(cfg, dtype, embed, lm_head, torch.zeros((D,), device=dev), stages)
-    for p in model.parameters():
-        if p.ndim >= 2:
-            p.data = p.data.to(dtype)
-    return model
+    embed = embed_init(gen, Vp, D, dev).to(dtype)
+    lm_head = None if cfg.tie_embeddings else dense_init(gen, D, Vp, dev, scale=D ** -0.5).to(dtype)
+    specs = stages_for(cfg)
+    stages = _init_stages(gen, cfg, specs, dev, dtype)
+    shared = None
+    if any(s.shared_attn for s in specs):
+        # one set of shared-attention-block params (zamba2), never MoE
+        shared = _to_dtype(_init_attn_block(gen, cfg, False, dev, moe=False), dtype)
+    encoder = None
+    if cfg.is_enc_dec:
+        encoder = Encoder(torch.zeros((D,), device=dev),
+                          _init_stages(gen, cfg, encoder_stages(cfg), dev, dtype))
+    return LM(cfg, dtype, embed, lm_head, torch.zeros((D,), device=dev), stages,
+              shared_attn=shared, encoder=encoder)
 
 
 # ---------------------------------------------------------------------------
@@ -178,24 +248,44 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bf
 # ---------------------------------------------------------------------------
 
 
+def _cache_len(cfg: ArchConfig, kind: str, seq_len: int) -> int:
+    if kind == "local":
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
 def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
-    """One list per stage, one dict per super-block: ``{"sub0": {"kv":
-    AttnCache}}`` for attention (in the compute dtype) or ``{"sub0":
-    RWKVState}`` for RWKV6, on the parameters' device."""
+    """One list per stage, one dict per super-block, on the parameters'
+    device: ``{"sub0": {"kv": AttnCache}}`` for attention (a ring of
+    ``min(window, seq_len)`` slots for a local layer; with ``"cross"``, the
+    cross-attention cache of ``encoder_seq`` slots padded to a multiple of
+    128), ``{"sub0": MambaState}`` or ``RWKVState`` for the recurrent
+    blocks, and ``"shared": {"kv": AttnCache}`` for each application of the
+    shared attention block.  KV caches are in the compute dtype."""
     cfg = params.cfg
     device = params.embed.device
+    dtype = params.compute_dtype
+    hd = cfg.resolved_head_dim
+
+    def kv(slots):
+        return init_attn_cache(batch, slots, cfg.n_kv_heads, hd, dtype=dtype, device=device)
+
     caches = []
     for stage in stages_for(cfg):
         entries = []
         for _ in range(stage.repeats):
             entry = {}
-            for i in range(len(stage.sub)):
+            for i, kind in enumerate(stage.sub):
                 if stage.kind == "attn":
-                    entry[f"sub{i}"] = {"kv": init_attn_cache(
-                        batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim,
-                        dtype=params.compute_dtype, device=device)}
+                    entry[f"sub{i}"] = {"kv": kv(_cache_len(cfg, kind, seq_len))}
+                    if stage.cross_attn:
+                        entry[f"sub{i}"]["cross"] = kv(cfg.encoder_seq + (-cfg.encoder_seq) % 128)
+                elif stage.kind == "mamba":
+                    entry[f"sub{i}"] = ssm.init_mamba_state(cfg, batch, dtype, device)
                 else:
                     entry[f"sub{i}"] = ssm.init_rwkv_state(cfg, batch, device)
+            if stage.shared_attn:
+                entry["shared"] = {"kv": kv(seq_len)}
             entries.append(entry)
         caches.append(entries)
     return caches
@@ -208,20 +298,55 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
 
 def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: str,
                       q_pos: torch.Tensor, cache: Optional[dict],
-                      decode_pos: Optional[int], dtype: torch.dtype):
+                      decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
+                      dtype: torch.dtype, causal: bool = True):
     window = cfg.window if kind == "local" else None
     h = rmsnorm(x, p.ln1, cfg.norm_eps, dtype)
-    attn_out, new_kv = attend(
+    attn_out, _ = attend(
         p.attn, h,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.resolved_head_dim,
-        theta=cfg.rope_theta, q_pos=q_pos, causal=True, window=window,
+        theta=cfg.rope_theta, q_pos=q_pos, causal=causal, window=window,
         chunk=cfg.attn_chunk, cache=None if cache is None else cache["kv"],
         decode_pos=decode_pos, dtype=dtype,
     )
     x = x + attn_out
+
+    if p.xattn is not None:
+        hx = rmsnorm(x, p.lnx, cfg.norm_eps, dtype)
+        if decode_pos is not None:
+            # cross K/V already cached (projected at prefill)
+            out, _ = attend(
+                p.xattn, hx,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.resolved_head_dim,
+                theta=cfg.rope_theta, q_pos=q_pos, chunk=cfg.attn_chunk,
+                cache=cache["cross"], cross_len=cfg.encoder_seq, dtype=dtype,
+            )
+        else:
+            out = cross_prefill(
+                p.xattn, hx, enc_out, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                hd=cfg.resolved_head_dim, q_pos=q_pos, chunk=cfg.attn_chunk,
+                cache=None if cache is None else cache["cross"], dtype=dtype,
+            )
+        x = x + out
+
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps, dtype)
-    y = mlp_apply(p.mlp, h2, cfg.act, dtype)
-    return x + y, None if cache is None else {"kv": new_kv}
+    if p.moe is not None:
+        y, _ = moe_apply(p.moe, h2, cfg, dtype)   # the Switch loss serves training only
+    else:
+        y = mlp_apply(p.mlp, h2, cfg.act, dtype)
+    return x + y, cache
+
+
+def _apply_mamba_block(p: ssm.Mamba, cfg: ArchConfig, x: torch.Tensor, *,
+                       state: Optional[ssm.MambaState], decode: bool, dtype: torch.dtype):
+    h = rmsnorm(x, p.ln, cfg.norm_eps, dtype)
+    if decode:
+        out, state = ssm.mamba_decode(p, cfg, h, state, dtype)
+    elif state is not None:  # prefill: outputs + final recurrent state
+        out, state = ssm.mamba_ssd(p, cfg, h, dtype, return_state=True)
+    else:
+        out = ssm.mamba_ssd(p, cfg, h, dtype)
+    return x + out, state
 
 
 def _apply_rwkv_block(p: ssm.RWKV, cfg: ArchConfig, x: torch.Tensor, *,
@@ -236,7 +361,8 @@ def _apply_rwkv_block(p: ssm.RWKV, cfg: ArchConfig, x: torch.Tensor, *,
 
 def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
                  x: torch.Tensor, *, cache: Optional[list], q_pos: torch.Tensor,
-                 decode_pos: Optional[int], dtype: torch.dtype):
+                 decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
+                 shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool = True):
     new_cache: Optional[list] = None if cache is None else []
     for r, superblock in enumerate(stage_params):
         entry = {}
@@ -245,11 +371,21 @@ def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
             c = None if cache is None else cache[r][f"sub{i}"]
             if stage.kind == "attn":
                 x, entry[f"sub{i}"] = _apply_attn_block(
-                    p, cfg, x, kind=kind, q_pos=q_pos, cache=c,
-                    decode_pos=decode_pos, dtype=dtype,
+                    p, cfg, x, kind=kind, q_pos=q_pos, cache=c, decode_pos=decode_pos,
+                    enc_out=enc_out, dtype=dtype, causal=causal,
                 )
+            elif stage.kind == "mamba":
+                x, entry[f"sub{i}"] = _apply_mamba_block(
+                    p, cfg, x, state=c, decode=decode_pos is not None, dtype=dtype)
             else:
                 x, entry[f"sub{i}"] = _apply_rwkv_block(p, cfg, x, state=c, dtype=dtype)
+        if stage.shared_attn:
+            # one parameter set, each application with its own KV cache
+            x, entry["shared"] = _apply_attn_block(
+                shared_attn, cfg, x, kind="global", q_pos=q_pos,
+                cache=None if cache is None else cache[r]["shared"],
+                decode_pos=decode_pos, enc_out=None, dtype=dtype, causal=causal,
+            )
         if new_cache is not None:
             new_cache.append(entry)
     return x, new_cache
@@ -267,16 +403,26 @@ def forward(
     mode: str = "prefill",                # prefill | decode
     cache: Optional[list] = None,
     decode_pos: Optional[int] = None,
+    vision_embeds: Optional[torch.Tensor] = None,   # (B, n_vision, D), prefill only
+    encoder_frames: Optional[torch.Tensor] = None,  # (B, encoder_seq, D), prefill only
+    last_only: bool = False,
 ) -> tuple[torch.Tensor, Optional[list]]:
-    """Returns (logits (B, S, vocab_padded) in the compute dtype, new cache)."""
+    """Returns (logits (B, S, vocab_padded) in the compute dtype, or (B, 1,
+    vocab_padded) with ``last_only``, and the new cache).
+
+    At prefill the vision embeddings overwrite the leading positions of the
+    token embeddings, and the encoder-decoder runs its encoder (non-causal
+    self-attention with RoPE) over the frames first; decode reads both from
+    the caches.  The MoE blocks' Switch loss is dropped (serving only)."""
     cfg = params.cfg
-    check_supported(cfg)
     if mode == "train":
         raise NotImplementedError(f"the LM train step is not ported: {NOT_PORTED}")
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and (cache is None or decode_pos is None):
         raise ValueError("decode needs a cache and decode_pos")
+    if mode == "prefill" and cfg.is_enc_dec and encoder_frames is None:
+        raise ValueError(f"{cfg.name} prefill needs encoder_frames")
     dtype = params.compute_dtype
     B, S = tokens.shape
     x = params.embed[tokens].to(dtype)
@@ -285,30 +431,56 @@ def forward(
     else:
         q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
         decode_pos = None
+        if vision_embeds is not None:
+            if vision_embeds.shape[1] > S:
+                raise ValueError(f"{vision_embeds.shape[1]} vision embeddings do not fit a "
+                                 f"prompt of {S} tokens")
+            x[:, :vision_embeds.shape[1]] = vision_embeds.to(dtype)
+
+    enc_out = None
+    if cfg.is_enc_dec and mode == "prefill":
+        e = encoder_frames.to(dtype)
+        e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
+        for si, stage in enumerate(encoder_stages(cfg)):
+            e, _ = _apply_stage(
+                params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
+                decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
+            )
+        enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
 
     new_caches: Optional[list] = None if cache is None else []
     for si, stage in enumerate(stages_for(cfg)):
         x, nc = _apply_stage(
             params.stages[si], stage, cfg, x,
             cache=None if cache is None else cache[si],
-            q_pos=q_pos, decode_pos=decode_pos, dtype=dtype,
+            q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
+            shared_attn=params.shared_attn, dtype=dtype,
         )
         if new_caches is not None:
             new_caches.append(nc)
 
+    if last_only:
+        x = x[:, -1:]
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return mm(x, head, dtype), new_caches
 
 
 def make_prefill_step(max_len: Optional[int] = None):
-    """prefill_step(params, tokens (B, S)) -> (last-position logits, cache
-    sized for ``max_len`` tokens, default S)."""
+    """prefill_step(params, batch) -> (last-position logits, cache sized for
+    ``max_len`` tokens, default S).  ``batch`` is the reference's dict:
+    ``"tokens"`` (B, S) and, where the model takes them, ``"vision_embeds"``
+    and ``"encoder_frames"``.  Only the last position's logits are formed."""
 
-    def prefill_step(params: LM, tokens: torch.Tensor):
+    def prefill_step(params: LM, batch: dict):
+        tokens = batch["tokens"]
         B, S = tokens.shape
         cache = init_cache(params, B, max_len or S)
-        logits, cache = forward(params, tokens, mode="prefill", cache=cache)
+        logits, cache = forward(
+            params, tokens, mode="prefill", cache=cache,
+            vision_embeds=batch.get("vision_embeds"),
+            encoder_frames=batch.get("encoder_frames"), last_only=True,
+        )
         return logits[:, -1], cache
 
     return prefill_step

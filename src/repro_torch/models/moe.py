@@ -1,0 +1,132 @@
+"""Mixture-of-Experts FFN: top-k router, capacity-bounded einsum dispatch.
+
+Port of ``repro.models.moe``: GShard / Switch-style dense dispatch, chunked
+over the sequence (``cfg.moe_chunk``) so the (B, cs, E, C) one-hot tensors
+stay small.  Per chunk: softmax gates, top-k choices with their weights
+renormalised, each (token, choice)'s place in its expert's queue from a
+cumulative sum over the chunk's flattened ``cs * top_k`` choices per batch
+row, choices past the capacity dropped (padded tokens get none), then the
+dispatch, expert and combine einsums.  Shared experts (Qwen-MoE: 4,
+Llama-4: 1) run as one wide gated MLP on every token.  The Switch
+load-balancing loss comes back beside the output; serving ignores it.
+
+The reference computes all of this outside any Pallas kernel, so the port
+keeps it in plain PyTorch (``torch.einsum`` / cuBLAS on the card).  The
+reference's sharding notes (expert vs tensor parallelism) have no meaning
+on one card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import MLP, act_fn, dense_init, init_mlp, mlp_apply, mm, param
+
+
+class MoE(nn.Module):
+    """``router`` (D, E), ``w_in`` / ``w_gate`` (E, D, F), ``w_out`` (E, F, D)
+    and, with shared experts, ``shared`` (one MLP of width n_shared * F)."""
+
+    def __init__(self, router: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
+                 w_out: torch.Tensor, shared: Optional[MLP] = None):
+        super().__init__()
+        self.router, self.w_in = param(router), param(w_in)
+        self.w_gate, self.w_out = param(w_gate), param(w_out)
+        self.shared = shared
+
+
+def init_moe(gen, cfg: ArchConfig, device) -> MoE:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    router = dense_init(gen, d, e, device)
+    w_in = torch.stack([dense_init(gen, d, f, device) for _ in range(e)])
+    w_gate = torch.stack([dense_init(gen, d, f, device) for _ in range(e)])
+    w_out = torch.stack([dense_init(gen, f, d, device, scale=f ** -0.5) for _ in range(e)])
+    shared = init_mlp(gen, d, cfg.n_shared_experts * f, device) if cfg.n_shared_experts else None
+    return MoE(router, w_in, w_gate, w_out, shared)
+
+
+def capacity(tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert and batch row for a chunk of ``tokens`` tokens."""
+    c = math.ceil(tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(4, -(-c // 4) * 4)  # round up to a multiple of 4
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``einsum`` of operands rounded to ``dtype`` with float32 accumulation,
+    the result rounded to ``dtype`` (the reference's ``preferred_element_type``
+    float32 then ``astype``)."""
+    return torch.einsum(eq, a.to(dtype), b.to(dtype)).to(dtype)
+
+
+def route(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype):
+    """Softmax gates (B, S, E) over the router's logits, the top-k weights
+    renormalised to sum to 1 and the chosen experts (B, S, K).  Equal gates
+    go to the lower expert first, as ``jax.lax.top_k`` orders them (a padded
+    token's gates are all equal, and its first choice enters the loss)."""
+    logits = mm(x, params.router, dtype).float()
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[..., :cfg.top_k], top_i[..., :cfg.top_k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return gates, top_w, top_i
+
+
+def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig,
+              dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the MoE FFN.  x: (B, S, D) -> (out in ``dtype``, float32 aux loss)."""
+    B, S0, D = x.shape
+    cs = min(cfg.moe_chunk, S0)
+    pad = (-S0) % cs
+    S = S0 + pad
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    nc = S // cs
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(cs, cfg)
+    act = act_fn(cfg.act)
+
+    valid = (torch.arange(S, device=x.device) < S0).float()   # padded tokens: no capacity
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    outs = []
+    for c in range(nc):
+        x_c = x[:, c * cs:(c + 1) * cs]                            # (B, cs, D)
+        v_c = valid[c * cs:(c + 1) * cs]                           # (cs,)
+        gates, top_w, top_i = route(params, x_c, cfg, dtype)
+
+        # Position of each (token, choice) in its expert queue.  One-hot
+        # rows by comparison (no device sync, so a decode step can be
+        # captured in a CUDA graph).
+        oh = (top_i[..., None] == torch.arange(E, device=x.device)).float()   # (B, cs, K, E)
+        ohf = oh.reshape(B, cs * K, E)
+        pos = torch.cumsum(ohf, dim=1) - ohf
+        pos_in_e = (pos * ohf).sum(-1).reshape(B, cs, K)           # (B, cs, K)
+        keep = (pos_in_e < C).float() * v_c[None, :, None]
+
+        # a dropped choice (slot >= C) has no slot: an all-zero row, as
+        # jax.nn.one_hot gives for an index past the classes
+        slot_oh = (pos_in_e[..., None] == torch.arange(C, device=x.device)).float()
+        dis = torch.einsum("bske,bskc->bsec", oh * keep[..., None], slot_oh)
+        com = torch.einsum("bske,bskc->bsec", oh * (keep * top_w)[..., None], slot_oh)
+
+        xd = _einsum("bsec,bsd->becd", dis, x_c, dtype)            # (B, E, C, D)
+        h = _einsum("becd,edf->becf", xd, params.w_in, dtype)
+        g = _einsum("becd,edf->becf", xd, params.w_gate, dtype)
+        h = act(g) * h
+        y = _einsum("becf,efd->becd", h, params.w_out, dtype)
+        outs.append(_einsum("bsec,becd->bsd", com, y, dtype))
+
+        # Switch-style load-balancing aux loss for this chunk.
+        me = gates.mean(dim=(0, 1))                                # (E,)
+        ce = oh[:, :, 0, :].mean(dim=(0, 1))                       # top-1 assignment
+        aux = aux + E * (me * ce).sum()
+
+    out = torch.cat(outs, dim=1)[:, :S0]
+    x = x[:, :S0]
+    if params.shared is not None:
+        out = out + mlp_apply(params.shared, x, cfg.act, dtype)
+    return out, aux / nc

@@ -1,13 +1,17 @@
-"""State-space / linear-recurrence blocks: the RWKV6 half of ``repro.models.ssm``.
+"""State-space / linear-recurrence blocks: Mamba2 (SSD) and RWKV6.
+
+Port of ``repro.models.ssm``.  Mamba2 prefills with the chunked SSD form
+(intra-chunk attention-like einsums plus an inter-chunk state scan, keeping
+the reference's per-chunk state snapshots in the compute dtype) and
+decodes with the O(1) recurrence; :func:`mamba_recurrent_ref` steps that
+recurrence over a sequence, the oracle of :func:`mamba_ssd`.  The reference
+computes Mamba2 outside any Pallas kernel, so it stays plain PyTorch here.
 
 RWKV6 ("Finch") keeps the paper's data-dependent decay.  The WKV recurrence
 runs through :func:`repro_torch.kernels.wkv.wkv`: on CUDA the hand-written
 kernel runs the prefill (the prompt) in parallel chunks and decode (one step)
 with each (batch, head) state on chip, in place of the reference's two-level
 ``lax.scan``; on the CPU its plain twin steps the same recurrence.
-
-The Mamba2 half (``MambaState``, ``mamba_ssd``, ``mamba_decode``) is not
-ported yet: ROADMAP Queue 1, the rest of the LM zoo.
 """
 from __future__ import annotations
 
@@ -20,6 +24,211 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv import wkv
 from repro_torch.models.layers import dense_init, mm, param, randn
+
+# ===========================================================================
+# Mamba2
+# ===========================================================================
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor        # (B, H, hd, N) float32 SSM state
+    conv: torch.Tensor     # (B, W - 1, conv_ch) conv tail, in the compute dtype
+
+
+def mamba_dims(cfg: ArchConfig) -> tuple[int, int, int, int]:
+    d_in = cfg.ssm_expand * cfg.d_model
+    hd = cfg.ssm_head_dim
+    H = d_in // hd
+    N = cfg.ssm_state
+    return d_in, hd, H, N
+
+
+class Mamba(nn.Module):
+    """One Mamba2 layer's parameters, named as the reference's pytree keys."""
+
+    NAMES = ("ln", "in_proj", "conv_w", "conv_b", "A_log", "D_skip", "dt_bias",
+             "out_norm", "out_proj")
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        if set(tensors) != set(self.NAMES):
+            raise ValueError(f"Mamba takes exactly {self.NAMES}, got {sorted(tensors)}")
+        for name in self.NAMES:
+            setattr(self, name, param(tensors[name]))
+
+
+def init_mamba(gen, cfg: ArchConfig, device) -> Mamba:
+    d = cfg.d_model
+    d_in, hd, H, N = mamba_dims(cfg)
+    conv_ch = d_in + 2 * N
+    f32 = dict(dtype=torch.float32, device=device)
+    return Mamba(
+        ln=torch.zeros((d,), **f32),
+        in_proj=dense_init(gen, d, 2 * d_in + 2 * N + H, device),
+        conv_w=0.1 * randn(gen, (cfg.conv_width, conv_ch), device),
+        conv_b=torch.zeros((conv_ch,), **f32),
+        A_log=torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        D_skip=torch.ones((H,), **f32),
+        dt_bias=torch.log(torch.expm1(0.01 * torch.ones((H,), **f32))),
+        out_norm=torch.zeros((d_in,), **f32),
+        out_proj=dense_init(gen, d_in, d, device),
+    )
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds, in xbc's dtype (as the
+    reference adds its bfloat16 products), then SiLU in float32 after the
+    float32 bias. xbc: (B, S, C); w: (W, C)."""
+    W = w.shape[0]
+    w = w.to(xbc.dtype)
+    out = xbc * w[-1][None, None, :]
+    for i in range(1, W):
+        shifted = F.pad(xbc, (0, 0, i, 0))[:, : xbc.shape[1]]
+        out = out + shifted * w[-1 - i][None, None, :]
+    return F.silu(out + b[None, None, :])
+
+
+def _split_proj(params: Mamba, cfg: ArchConfig, u: torch.Tensor, dtype: torch.dtype):
+    d_in, hd, H, N = mamba_dims(cfg)
+    proj = mm(u, params.in_proj, dtype)                   # (B, S, 2 d_in + 2N + H)
+    z = proj[..., :d_in]
+    xbc = proj[..., d_in: 2 * d_in + 2 * N]
+    dt_raw = proj[..., 2 * d_in + 2 * N:].float()
+    return z, xbc, dt_raw
+
+
+def _einsum32(eq: str, *operands: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``einsum`` of operands rounded to ``dtype``, summed and returned in
+    float32 (the reference's ``preferred_element_type=float32``)."""
+    return torch.einsum(eq, *(a.to(dtype).float() for a in operands))
+
+
+def _gated_out(params: Mamba, y: torch.Tensor, z: torch.Tensor, dtype: torch.dtype):
+    """Gated RMSNorm and the output projection. y: float32 (B, S, d_in)."""
+    y = y * F.silu(z.float())
+    var = torch.mean(y * y, dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-5) * (1.0 + params.out_norm)
+    return mm(y.to(dtype), params.out_proj, dtype)
+
+
+def mamba_ssd(params: Mamba, cfg: ArchConfig, u: torch.Tensor, dtype: torch.dtype,
+              return_state: bool = False):
+    """Prefill forward. u: (B, S, D) (pre-normed) -> (B, S, D) in ``dtype``,
+    or (out, final :class:`MambaState`) when ``return_state``."""
+    B, S0, D = u.shape
+    d_in, hd, H, N = mamba_dims(cfg)
+    Q = min(cfg.ssd_chunk, S0)
+    pad = (-S0) % Q
+    S = S0 + pad
+
+    z, xbc_raw, dt_raw = _split_proj(params, cfg, u, dtype)
+    xbc = _causal_conv(xbc_raw, params.conv_w, params.conv_b)
+    if pad:
+        xbc = F.pad(xbc, (0, 0, 0, pad))
+        dt_raw = F.pad(dt_raw, (0, 0, 0, pad))
+    nc = S // Q
+    x = xbc[..., :d_in].reshape(B, S, H, hd)
+    Bm = xbc[..., d_in: d_in + N].float()                 # (B, S, N)
+    Cm = xbc[..., d_in + N:].float()                      # (B, S, N)
+    dt = F.softplus(dt_raw + params.dt_bias)              # (B, S, H)
+    if pad:
+        # Padded positions neither inject input nor decay the state:
+        # dt -> 0 gives x_dt = 0 and log_a = 0 (a = 1).
+        valid = (torch.arange(S, device=u.device) < S0)[None, :, None]
+        dt = torch.where(valid, dt, 0.0)
+    log_a = -torch.exp(params.A_log)[None, None] * dt     # (B, S, H) <= 0
+
+    xq = x.reshape(B, nc, Q, H, hd)
+    Bq = Bm.reshape(B, nc, Q, N)
+    Cq = Cm.reshape(B, nc, Q, N)
+    dtq = dt.reshape(B, nc, Q, H)
+    cum = torch.cumsum(log_a.reshape(B, nc, Q, H), dim=2)     # (B, nc, Q, H)
+
+    x_dt = xq.float() * dtq[..., None]                    # (B, nc, Q, H, hd)
+
+    # ---- intra-chunk (attention-like, causal) ----
+    scores = torch.einsum("bcjn,bcin->bcji", Cq, Bq)      # (B, nc, Q, Q)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (B, nc, j, i, H)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
+    M = scores[..., None] * torch.where(mask[None, None, :, :, None], decay, 0.0)
+    y_intra = _einsum32("bcjih,bcihp->bcjhp", M, x_dt, dtype=dtype)
+
+    # ---- chunk boundary states ----
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)     # (B, nc, Q, H)
+    S_c = _einsum32("bcin,bcihp->bchpn", Bq, x_dt * decay_to_end[..., None], dtype=dtype)
+    chunk_decay = torch.exp(cum[:, :, -1, :])             # (B, nc, H)
+
+    # The carried state stays float32; the per-chunk snapshots (state at
+    # each chunk's start) are kept in the compute dtype, as the reference
+    # stores them for its compute-dtype y_inter einsum.
+    h = torch.zeros((B, H, hd, N), dtype=torch.float32, device=u.device)
+    starts = []
+    for c in range(nc):
+        starts.append(h.to(dtype))
+        h = chunk_decay[:, c, :, None, None] * h + S_c[:, c]
+    h_starts = torch.stack(starts, dim=1)                 # (B, nc, H, hd, N)
+
+    y_inter = _einsum32("bcjn,bcjh,bchpn->bcjhp", Cq, torch.exp(cum), h_starts, dtype=dtype)
+
+    y = (y_intra + y_inter).reshape(B, S, H, hd)
+    y = y + params.D_skip[None, None, :, None] * xq.reshape(B, S, H, hd).float()
+    out = _gated_out(params, y.reshape(B, S, d_in)[:, :S0], z, dtype)
+    if not return_state:
+        return out
+    conv_tail = xbc_raw[:, -(cfg.conv_width - 1):].to(dtype)
+    return out, MambaState(h, conv_tail)
+
+
+def mamba_decode(params: Mamba, cfg: ArchConfig, u: torch.Tensor, state: MambaState,
+                 dtype: torch.dtype) -> tuple[torch.Tensor, MambaState]:
+    """Single-token recurrence. u: (B, 1, D) -> ((B, 1, D), new state)."""
+    B = u.shape[0]
+    d_in, hd, H, N = mamba_dims(cfg)
+    z, xbc, dt_raw = _split_proj(params, cfg, u, dtype)   # (B, 1, ...)
+    # conv over [state.conv ; xbc_t]
+    seq = torch.cat([state.conv, xbc.to(state.conv.dtype)], dim=1)   # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", seq.float(), params.conv_w.float())
+    xbc_t = F.silu(conv_out + params.conv_b)              # (B, ch)
+    new_conv = seq[:, 1:]
+
+    x_t = xbc_t[:, :d_in].reshape(B, H, hd)
+    B_t = xbc_t[:, d_in: d_in + N]
+    C_t = xbc_t[:, d_in + N:]
+    dt = F.softplus(dt_raw[:, 0] + params.dt_bias)        # (B, H)
+    a = torch.exp(-torch.exp(params.A_log)[None] * dt)    # (B, H)
+
+    h = a[..., None, None] * state.h + torch.einsum(
+        "bn,bhp->bhpn", B_t, x_t.float() * dt[..., None])
+    y = torch.einsum("bn,bhpn->bhp", C_t, h)
+    y = y + params.D_skip[None, :, None] * x_t.float()
+    out = _gated_out(params, y.reshape(B, 1, d_in), z, dtype)
+    return out, MambaState(h, new_conv)
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) -> MambaState:
+    d_in, hd, H, N = mamba_dims(cfg)
+    conv_ch = d_in + 2 * N
+    return MambaState(
+        torch.zeros((batch, H, hd, N), dtype=torch.float32, device=device),
+        torch.zeros((batch, cfg.conv_width - 1, conv_ch), dtype=dtype, device=device),
+    )
+
+
+def mamba_recurrent_ref(params: Mamba, cfg: ArchConfig, u: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Naive per-token recurrence: the oracle of :func:`mamba_ssd`."""
+    B, S, D = u.shape
+    state = init_mamba_state(cfg, B, dtype, u.device)
+    outs = []
+    for t in range(S):
+        out, state = mamba_decode(params, cfg, u[:, t:t + 1], state, dtype)
+        outs.append(out[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+# ===========================================================================
+# RWKV6
+# ===========================================================================
 
 
 class RWKVState(NamedTuple):

@@ -23,7 +23,10 @@ observation after a fused move the CPU's labels and candidates.  Above rank
 8 the proximity kernel (column chunks for eq3, Gram pieces and a
 runtime-rank reduce for eq2) is held to its twin at p = 9, 12, 16, 3 x 12
 and 12 x 3, on column views of a wider stack, twice bitwise, square against
-rectangle, and PACFL at p = 16 to the CPU's labels.
+rectangle, and PACFL at p = 16 to the CPU's labels.  Flash attention also
+runs at head dims 112 and 256 (split-KV decode merged at hd 256, ring and
+cache-view forms), and every LM family serves at reduced size, float32,
+card against CPU.
 """
 import numpy as np
 import pytest
@@ -218,6 +221,17 @@ FLASH_CASES = [
     (4, 1, 1056, 32, 4, 64, True, 100, 1356),       # no valid key in any split
     (2, 1, 700, 8, 2, 32, True, None, 650),
     (3, 2, 300, 4, 1, 16, True, 50, 298),
+    # zamba2's head dim 112 (32 / 32 heads) and gemma3's 256 (8 / 4 heads)
+    (2, 300, 300, 32, 32, 112, True, None, 0),
+    (4, 1, 1056, 32, 32, 112, True, None, 1055),   # decode, split
+    (2, 13, 77, 8, 2, 112, True, 20, 60),
+    (2, 600, 600, 8, 4, 256, True, 128, 0),        # a local (windowed) layer
+    (2, 300, 300, 8, 4, 256, True, None, 0),
+    (4, 1, 2080, 8, 4, 256, True, None, 2079),     # split-KV decode: flash_combine at hd 256
+    (4, 1, 1024, 8, 4, 256, False, None, 0),       # decode against a wrapped ring
+    (4, 1, 1024, 8, 4, 256, True, None, 500),      # ... and before it is full
+    (1, 5, 40, 4, 4, 256, False, 7, 50),           # rows with no valid key
+    (1, 3, 40, 128, 1, 256, True, None, 0),        # 128 query heads a KV head
 ]
 
 
@@ -243,6 +257,33 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, hd, cau
     assert err <= tol
     if dtype == torch.bfloat16:
         assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,n_keys,slots,Hq,Hkv,hd,causal", [
+    (4, 1, 1500, 1536, 16, 16, 64, False),   # whisper's cross decode over its padded cache
+    (2, 7, 1500, 1536, 16, 16, 64, False),
+    (3, 1, 100, 129, 8, 4, 256, True),       # a ragged cache view at hd 256
+])
+def test_flash_attention_cache_view_matches_plain(cuda, B, Sq, n_keys, slots, Hq, Hkv, hd,
+                                                  causal, dtype):
+    """K and V as views of the first slots of a longer cache: the kernel
+    reads them in place (batch stride) and matches the twin on copies."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(n_keys + slots)
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(dtype)
+    kc = torch.randn((B, slots, Hkv, hd), generator=g, device=cuda).to(dtype)
+    vc = torch.randn((B, slots, Hkv, hd), generator=g, device=cuda).to(dtype)
+    k, v = kc[:, :n_keys], vc[:, :n_keys]
+    q_off = n_keys - Sq if causal else 0
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_off)
+    want = flash_attention_plain(q, k.contiguous(), v.contiguous(), causal=causal,
+                                 q_offset=q_off).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= (2e-5 if dtype == torch.float32 else 3e-2)
+    if dtype == torch.bfloat16:
+        assert err <= 1e-2 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -515,27 +556,42 @@ def test_mix4_federation_repeats_bitwise(cuda):
     assert pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])
+# the real head dims of the families whose reduced config would hide them
+REAL_HEAD_DIM = {"gemma3-4b": 256, "zamba2-7b": 112}
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b", "gemma3-4b",
+                                  "qwen2-moe-a2.7b", "zamba2-7b", "whisper-medium",
+                                  "internvl2-26b", "llama4-scout-17b-a16e"])
 def test_lm_serving_on_cuda_matches_cpu(cuda, arch):
-    """Reduced model in float32: the kernels on the card against the plain
-    twins on the CPU, prefill and 4 decode steps, one launch per layer per
-    forward."""
+    """Reduced model in float32 (gemma3 and zamba2 at their real head dims):
+    the kernels on the card against the plain twins on the CPU, prefill and
+    4 decode steps, exactly one launch per attention call (WKV layer)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     cfg = get_config(arch).reduced()
+    if arch in REAL_HEAD_DIM:
+        cfg = dataclasses.replace(cfg, head_dim=REAL_HEAD_DIM[arch])
     gpu = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
     prompt = serve.random_prompt(cfg, 2, 24, seed=0, device=cuda)
+    extra = serve.model_inputs(cfg, 2, dtype=torch.float32, seed=1, device=cuda)
     name = "wkv" if cfg.block_kind == "rwkv6" else "flash_attention"
     _build.reset_launches()
-    toks, _ = serve.generate(gpu, prompt, 5)
-    assert _build.LAUNCHES[name] == cfg.n_layers * 5
+    toks, _ = serve.generate(gpu, prompt, 5, **extra)
+    if name == "wkv":
+        assert _build.LAUNCHES[name] == cfg.n_layers * 5
+    else:
+        assert _build.LAUNCHES[name] == (lm.attention_calls(cfg, True)
+                                         + 4 * lm.attention_calls(cfg, False))
     with torch.inference_mode():
-        got, _ = lm.forward(gpu, prompt)
+        got, _ = lm.forward(gpu, prompt, **extra)
         cpu = gpu.to("cpu")
-        want, _ = lm.forward(cpu, prompt.cpu())
+        want, _ = lm.forward(cpu, prompt.cpu(), **{k: v.cpu() for k, v in extra.items()})
     assert (got.cpu() - want).abs().max().item() <= 1e-4
     assert toks.shape == (2, 5)
 

@@ -3,8 +3,8 @@
 The twin (``flash_attention_plain``, which the kernel wrapper takes for CPU
 tensors) is held against the reference's Pallas kernel (interpret mode on
 the CPU, as the reference's own tests run it) and its oracle
-``attention_ref`` on the cases of ``tests/test_kernels.py``: atol 2e-5 in
-float32, 3e-2 in bfloat16.  The port's ``chunked_attention`` is held against
+``attention_ref`` on the cases of ``tests/test_kernels.py`` and at head dims
+112 and 256: atol 2e-5 in float32, 3e-2 in bfloat16.  The port's ``chunked_attention`` is held against
 the reference's in prefill and decode forms at 2e-5, and against the twin in
 the implicit-position form the CUDA path uses.  Inputs are numpy-seeded.
 """
@@ -33,6 +33,11 @@ CASES = [
     (1, 16, 64, 4, 2, 32, True, None, 48),   # decode-suffix offset
     (1, 128, 128, 2, 2, 64, True, None, 0),
     (3, 32, 32, 6, 3, 32, True, 8, 0),
+    # the head dims of zamba2 (3584 / 32 = 112) and gemma3 (256)
+    (1, 32, 64, 4, 2, 112, True, None, 0),
+    (1, 16, 48, 2, 1, 112, True, 16, 32),
+    (2, 32, 32, 4, 2, 256, True, 16, 0),
+    (1, 16, 64, 2, 2, 256, False, None, 0),
 ]
 
 
@@ -152,3 +157,21 @@ def test_operand_checks():
         flash_attention(q, k, v, q_offset=-1)
     np.testing.assert_allclose(
         flash_attention_plain(q, k, v).numpy(), flash_attention(q, k, v).numpy())
+
+
+def test_kv_operands_keep_cache_views():
+    """The kernel reads the first Skv slots of a longer cache in place (its
+    batch stride); other layouts are made contiguous first."""
+    from repro_torch.kernels.flash_attention.flash_attention import kv_operands
+
+    cache = torch.zeros((3, 1536, 4, 64), dtype=torch.bfloat16)
+    k, v, stride = kv_operands(cache[:, :1500], cache[:, :1500])
+    assert k.data_ptr() == cache.data_ptr() and stride == 1536 * 4 * 64
+    k, v, stride = kv_operands(cache[:1, :1500], cache[:1, :1500])
+    assert k.data_ptr() == cache.data_ptr() and stride == 1500 * 4 * 64
+    heads = cache[:, :100, :2]                      # rows not contiguous: copied
+    k, v, stride = kv_operands(heads, heads)
+    assert k.is_contiguous() and k.data_ptr() != cache.data_ptr() and stride == 100 * 2 * 64
+    odd = torch.zeros((2, 1501 * 4 * 64 + 3), dtype=torch.bfloat16)[:, 3:].reshape(2, 1501, 4, 64)
+    k, v, stride = kv_operands(odd[:, :1500], odd[:, :1500])   # batch rows misaligned
+    assert k.is_contiguous() and stride == 1500 * 4 * 64
