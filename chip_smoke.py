@@ -6,10 +6,12 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card, its power limit, the float32 matmul settings;
-2. build: compiles the port's four CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, in parallel) into ``build/kernels/``, printing
+2. build: compiles the port's CUDA kernel sources from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, in parallel; the four TPU kernels' and the
+   flash-attention backward's) into ``build/kernels/``, printing
    each source's ``nvcc`` time, the count of tensor-core instructions in
-   the SASS of the bfloat16 flash-attention kernel (``HMMA``) and of the
+   the SASS of the bfloat16 flash-attention kernels (``HMMA``; the
+   backward's, with its registers and stack) and of the
    eq3 and eq2 proximity kernels (``DMMA``; also of each instantiation the
    p = 16 routes of phase 4b launch, with its registers and stack), and
    the registers and stack of the main paths' eq2, the any-rank eq2 reduce
@@ -27,6 +29,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    and column views of a p = 20 stack, each launched twice and required
    bitwise equal, and the p = 16 square against the full rectangle; the
    recurrent WKV kernel (decode) at S = 1, 16 and 32 from a carried state;
+   the flash-attention backward (dq, dk, dv, and the forward's log-sum-exp)
+   at every form phase 10 trains (``trained_flash_calls``) and the zoo's
+   training forms besides, bfloat16 and float32, each launched twice and
+   required bitwise equal;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -79,7 +85,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    the M = 1024 bucket; proximity eq2 also at mix4's K = 97, eq3 at
    label20's K = 100, and the any-rank route, eq3 and eq2, at K = 1024, p =
    16 and 12 and the 1024 x 256 cross block at p = 3 x q = 12; WKV decode
-   replayed from a CUDA graph, and prefill also with float32 r, k, v);
+   replayed from a CUDA graph, and prefill also with float32 r, k, v; the
+   flash-attention backward at tinyllama's and gemma3's training shapes
+   beside SDPA's backward);
 9. model-based signature families (run after phase 5, at most 150 s):
    ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192) on
    phase 5's mix4 clients with LeNet-5 at 32x32x3, the experiment suite's
@@ -89,12 +97,22 @@ Phases, each printing its own lines; any failure exits nonzero:
    clients on the card against the CPU from one set of CPU draws; a
    3-round ``weight_delta`` run with phase 5's churn event; a
    ``DriftTracker`` observation of phase 4's engine after a fused ``move``,
-   and the Table-6 distances (BD, KL, MMD) at d = 256, each against the CPU.
+   and the Table-6 distances (BD, KL, MMD) at d = 256, each against the CPU;
+10. LM training (run after phase 7): (a) tinyllama-1.1b at full width and
+   depth, float32 masters, bfloat16 compute, AdamW, remat, batch 4 x 2048:
+   10 ``make_train_step`` steps on one repeated batch (finite losses, at
+   least 0.5 nat lower at the last step than at the first, exactly 44
+   flash forward and 22 backward launches a step; step time, peak memory,
+   device idle share), then 5 steps of ``repro_torch.launch.train.main``
+   with a fresh batch each step; (b) whole-model float32 gradients at full
+   width, depth cut, card (kernels) against CPU (twins) for tinyllama,
+   gemma3, qwen2-moe, zamba2, whisper and internvl2; (c) an rwkv6
+   train-mode forward on the card raises (the WKV kernel has no backward).
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, each federation and each server call of phase 5, each
-architecture of 6, each family call, federation and the move of 9) and read
-just after; launches that only check a result (phase 5's ``admit_oracle``
+architecture of 6, each family call, federation and the move of 9, each
+training step of 10a) and read just after; launches that only check a result (phase 5's ``admit_oracle``
 and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
 fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
 windows and splits the proximity launches by route (eq3, eq2 and, above
@@ -139,6 +157,7 @@ import argparse
 import collections
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -255,6 +274,50 @@ FAMILY_FLASH = (
      None),
     ("whisper-medium", "whisper cross-attention decode", (4, 1, 1500, 16, 16, 64), False, None,
      0, 1536),
+)
+
+# LM training (phase 10a): tinyllama-1.1b at full width and depth, float32
+# masters and bfloat16 compute, remat on, AdamW under a cosine schedule, on
+# one repeated batch; the loss must fall by TRAIN_MIN_DROP nat from the
+# first step to the last.  Then TRAIN_LAUNCHER_STEPS steps of the launcher.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048
+TRAIN_STEPS, TRAIN_LAUNCHER_STEPS, TRAIN_LR, TRAIN_MIN_DROP = 10, 5, 1e-3, 0.5
+# Whole-model float32 gradients (phase 10b), card against CPU: (arch, config
+# changes, batch, seq).  gemma3 keeps one 5 local + 1 global super-block,
+# zamba2 one super-block of 6 Mamba2 layers and the shared block; whisper
+# its 1500 encoder frames; internvl2's 256 vision embeddings lead 64 tokens
+# (its only sequence past 256).
+TRAIN_F32 = (
+    ("tinyllama-1.1b", {"n_layers": 2}, 2, 256),
+    ("gemma3-4b", {"n_layers": 6}, 1, 256),
+    ("qwen2-moe-a2.7b", {"n_layers": 2}, 2, 256),
+    ("zamba2-7b", {"n_layers": 6}, 1, 256),
+    ("whisper-medium", {"n_layers": 2, "encoder_layers": 2}, 2, 256),
+    ("internvl2-26b", {"n_layers": 2}, 1, 320),
+)
+# Limits, fixed before the first run.  The backward kernel against its twin:
+# max|kernel - plain| / max|plain| of each of dq, dk, dv; both compute in
+# float32 from the same inputs, so float32 differs by summation order
+# (~1e-6) and bfloat16 by one rounding of each output (2^-8 relative), a
+# wrong mask, head or scale by ~1e-1.  Whole-model gradients card against
+# CPU: each leaf within GRAD_REL_TOL of its max |g| (float32, ~1e-6 an
+# operation, amplified through the depth).
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GRAD_REL_TOL = 1e-3
+# The zoo's training forms besides phase 10's calls, checked in phase 3:
+# label, (B, Sq, Skv, Hq, Hkv, hd), causal, window.
+TRAINED_FORMS = (
+    ("tinyllama training", (4, 2048, 2048, 32, 4, 64), True, None),
+    ("llama3.2-3b heads (hd 128, 24 / 8)", (4, 2048, 2048, 24, 8, 128), True, None),
+    ("gemma3 local layer (window 1024)", (4, 2048, 2048, 8, 4, 256), True, 1024),
+    ("gemma3 global layer", (4, 2048, 2048, 8, 4, 256), True, None),
+    ("zamba2 shared attention (hd 112, G = 1)", (4, 2048, 2048, 32, 32, 112), True, None),
+    ("whisper encoder (non-causal)", (4, 1500, 1500, 16, 16, 64), False, None),
+    ("whisper decoder self-attention", (4, 448, 448, 16, 16, 64), True, None),
+    ("whisper cross-attention", (4, 448, 1500, 16, 16, 64), False, None),
+    ("internvl2 (G = 6)", (4, 1024, 1024, 48, 8, 128), True, None),
+    ("ragged S", (2, 1111, 1111, 32, 4, 64), True, None),
+    ("ragged S, windowed, hd 256", (2, 999, 999, 8, 4, 256), True, 300),
 )
 
 # The revision in which each hand-written kernel was last redesigned (earlier
@@ -489,6 +552,16 @@ def phase_build() -> None:
                            ("flash_combine", "flash_combine")):
         usage = resource_usage(lib, mangled)
         log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
+    # the backward (a first version on the CUDA cores: no HMMA expected)
+    bwd = _build.library_path("flash_attention_bwd")
+    hmma = count_mma(bwd, "flash_bwd_")
+    log("build", f"flash_attention_bwd.cu: nvcc {_build.BUILD_SECONDS.get('flash_attention_bwd', 0):.1f} "
+        f"s; {hmma} HMMA instructions in its SASS (FP32 FMAs on the CUDA cores)")
+    for hd in (64, 112, 128, 256):
+        for kernel in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            usage = resource_usage(bwd, f"{kernel}I13__nv_bfloat16Li{hd}EE") or ("?", "?")
+            log("build", f"{kernel}<bf16, {hd}>: {usage[0]} registers a thread, {usage[1]} "
+                f"bytes of stack")
     for kernel in ("eq3_tc", "eq2_tc"):
         dmma = count_mma(_build.library_path("proximity"), kernel, ("DMMA",))
         log("build", f"proximity kernel {kernel}: {dmma} DMMA instructions in its SASS")
@@ -1788,6 +1861,305 @@ def phase_lm_float32(torch, device) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# LM training (phases 3, 8 and 10)
+# --------------------------------------------------------------------------
+
+
+def trained_flash_calls() -> list:
+    """(label, form) of every distinct flash call phase 10 makes (the
+    backward takes each forward's form), then the zoo's TRAINED_FORMS.
+    Phase 10 records its calls and fails on a form phase 3 did not check."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    calls = {}
+    runs = [(TRAIN_ARCH, {}, TRAIN_BATCH, TRAIN_SEQ)] + list(TRAIN_F32)
+    for arch, cut, batch, seq in runs:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+        def add(label, Sq, Skv, causal, window):
+            form = flash_form((batch, Sq, Skv, *heads), causal, window, 0, None)
+            calls.setdefault(form, f"{arch} {label}")
+
+        if cfg.is_enc_dec:
+            add("encoder self-attention", cfg.encoder_seq, cfg.encoder_seq, False, None)
+            add("cross-attention", seq, cfg.encoder_seq, False, None)
+        stages = lm.stages_for(cfg)
+        kinds = {kind for st in stages if st.kind == "attn" for kind in st.sub}
+        if any(st.shared_attn for st in stages):
+            kinds.add("global")
+        for kind in sorted(kinds):
+            add(f"{kind} self-attention", seq, seq, True, cfg.window if kind == "local" else None)
+    for label, dims, causal, window in TRAINED_FORMS:
+        calls.setdefault(flash_form(dims, causal, window, 0, None), label)
+    return [(label, form) for form, label in calls.items()]
+
+
+def flash_bwd_operands(torch, gen, device, form, dtype):
+    (B, Sq, Skv, Hq, Hkv, hd), causal, window, q_off, _ = form
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q, do = randn(B, Sq, Hq, hd), randn(B, Sq, Hq, hd)
+    k, v = randn(B, Skv, Hkv, hd), randn(B, Skv, Hkv, hd)
+    return (q, k, v, do), dict(causal=causal, window=window, q_offset=q_off)
+
+
+def check_flash_bwd(torch, device, errs: dict) -> None:
+    """Phase 3, the backward: at each of ``trained_flash_calls``, bfloat16
+    and float32, the forward kernel's lse against the twin's, then dq, dk,
+    dv of two launches (bitwise equal) against the plain twin's."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
+        flash_attention_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for label, form in trained_flash_calls():
+            (q, k, v, do), kw = flash_bwd_operands(torch, gen, device, form, dtype)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            want = flash_attention_bwd_plain(q, k, v, o, do, want_lse, **kw)
+            torch.cuda.synchronize()
+            lse_err = (lse - want_lse).abs().max().item()
+            rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                   for a, b in zip(got, want)]
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            log("kernels", f"flash backward {label} {name}: q {tuple(q.shape)} k "
+                f"{tuple(k.shape)} {kw}: dq, dk, dv max|kernel - plain| / max|plain| "
+                f"{', '.join(f'{r:.2e}' for r in rel)} (limit {FLASH_BWD_TOL[name]}); lse "
+                f"{lse_err:.2e} (limit 1e-4); two launches bitwise equal: {same}")
+            require(finite and same and max(rel) <= FLASH_BWD_TOL[name] and lse_err <= 1e-4,
+                    f"flash backward {label} {name}: {rel}, lse {lse_err}, bitwise {same}")
+            errs[dtype].append(err)
+            errs["by_case"][(form, dtype)] = err
+            del q, k, v, do, o, lse, want_lse, got, again, want
+    torch.cuda.empty_cache()
+
+
+def _loss_drop_run(torch, device, checked: set) -> dict:
+    """Phase 10a: TRAIN_STEPS steps of ``make_train_step`` on one repeated
+    batch, the launch counts of each step set to 0 just before it and read
+    just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, compute_dtype=torch.bfloat16,
+                            device=device)
+    opt = adamw(cosine_schedule(TRAIN_LR, warmup=2, total=TRAIN_STEPS))
+    state = opt.init(dict(params.named_parameters()))
+    step = lm.make_train_step(opt)
+    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                            torch.Generator(device=device).manual_seed(SEED))
+    calls = lm.attention_calls(cfg, True)
+    n_params = sum(p.numel() for p in params.parameters())
+    log("train", f"{TRAIN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} "
+        f"B parameters, float32 masters, bfloat16 compute, remat {cfg.remat}; AdamW, "
+        f"cosine_schedule({TRAIN_LR}, warmup=2, total={TRAIN_STEPS}); batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, one batch repeated")
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, counts = [], [], []
+    with _FlashLog() as flash_log:
+        for i in range(TRAIN_STEPS):
+            sync(torch, device)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            loss = float(metrics["loss"])          # a sync
+            seconds.append(time.perf_counter() - t0)
+            counts.append(dict(_build.LAUNCHES))
+            losses.append(loss)
+            log("train", f"step {i}: loss {loss:.4f}, {seconds[-1]:.3f} s, launches {counts[-1]}")
+    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    require(all(c == want for c in counts), f"{TRAIN_ARCH} training launches {counts}, "
+            f"expected {want} a step")
+    require_checked(f"{TRAIN_ARCH} training", flash_log.forms, checked)
+    require(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    require(losses[-1] <= losses[0] - TRAIN_MIN_DROP,
+            f"loss fell {losses[0] - losses[-1]:.4f} nat in {TRAIN_STEPS} steps "
+            f"(at least {TRAIN_MIN_DROP} required)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = statistics.median(seconds[1:])
+    # the device's share of a warm step: its kernels' device time (torch.profiler)
+    kernels = profile_ms(torch, lambda: step(params, state, batch), iters=1)
+    busy = sum(kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log("train", f"{TRAIN_ARCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps "
+        f"(limit: down {TRAIN_MIN_DROP}); first step {seconds[0]:.3f} s, warm step median "
+        f"{warm:.4f} s on the host clock ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} tok/s); "
+        f"kernels {busy:.4f} s of a profiled step, device idle {1 - busy / warm:.1%}; peak "
+        f"{peak:.1f} GiB allocated; flash launches a step {counts[-1]}")
+    log("train", "largest kernels of a step (ms): " + ", ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    return {"losses": losses, "step_s": warm, "first_s": seconds[0], "peak_gib": peak,
+            "idle": 1 - busy / warm, "launches": counts[-1],
+            "run_launches": {k: sum(c[k] for c in counts) for k in want}}
+
+
+def phase_lm_training(torch, device, checked: set) -> dict:
+    """Phase 10: (a) tinyllama-1.1b training at full width, then the
+    launcher; (b) whole-model float32 gradients, card against CPU; (c) rwkv6
+    training on the card raises."""
+    import dataclasses
+
+    from repro_torch._device import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm, moe
+
+    t_phase = time.perf_counter()
+    out = _loss_drop_run(torch, device, checked)
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_LAUNCHER_STEPS), "--batch",
+                         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    calls = lm.attention_calls(get_config(TRAIN_ARCH), True)
+    log("train", f"launch.train.main: {TRAIN_LAUNCHER_STEPS} steps, a fresh batch each, losses "
+        f"{[round(x, 4) for x in losses]} in {time.perf_counter() - t0:.1f} s; launches "
+        f"{dict(_build.LAUNCHES)}")
+    require(len(losses) == TRAIN_LAUNCHER_STEPS and all(math.isfinite(x) for x in losses),
+            f"launch.train losses {losses}")
+    require(dict(_build.LAUNCHES) == {"flash_attention": 2 * calls * TRAIN_LAUNCHER_STEPS,
+                                      "flash_attention_bwd": calls * TRAIN_LAUNCHER_STEPS},
+            f"launch.train launches {dict(_build.LAUNCHES)}")
+    torch.cuda.empty_cache()
+
+    # (b) whole-model float32 gradients: kernels on the card, twins on the CPU
+    for arch, cut, batch_size, seq in TRAIN_F32:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        params = lm.init_params(cfg, seed=SEED + 2, dtype=torch.float32, device=device)
+        batch = synthetic_batch(cfg, batch_size, seq,
+                                torch.Generator(device=device).manual_seed(SEED + 2))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with float32_math(), _FlashLog() as flash_log, _RouteLog(moe) as card_routes:
+            loss, grads = lm.value_and_grad(params, batch)
+            sync(torch, device)
+        t1 = time.perf_counter()
+        launches = dict(_build.LAUNCHES)
+        calls = lm.attention_calls(cfg, True)
+        require(launches == {"flash_attention": 2 * calls, "flash_attention_bwd": calls},
+                f"{arch} float32 gradients: launches {launches}, {calls} attention calls")
+        require_checked(f"{arch} float32 training", flash_log.forms, checked)
+        grads = {n: g.cpu() for n, g in grads.items()}
+        params = params.to("cpu")
+        t2 = time.perf_counter()
+        with _RouteLog(moe) as cpu_routes:
+            want_loss, want = lm.value_and_grad(params, {k: v.cpu() for k, v in batch.items()})
+        t3 = time.perf_counter()
+        worst, worst_name = 0.0, ""
+        for name, g in want.items():
+            scale = g.abs().max().item()
+            rel = (grads[name] - g).abs().max().item() / (scale if scale > 0 else 1.0)
+            if rel > worst:
+                worst, worst_name = rel, name
+        loss_rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        log("train32", f"{arch} float32, depth cut {cut}, batch {batch_size} x {seq}: loss card "
+            f"{loss.item():.6f} CPU {want_loss.item():.6f} (relative {loss_rel:.2e}); worst "
+            f"gradient leaf {worst_name}: {worst:.3e} of its max |g| (limit {GRAD_REL_TOL}) over "
+            f"{len(want)} leaves; launches {launches}; card {t1 - t0:.2f} s, CPU {t3 - t2:.2f} s")
+        if cfg.is_moe:
+            pairs = list(zip(card_routes.choices, cpu_routes.choices))
+            differ = sum(int((a != b).sum()) for a, b in pairs)
+            total = sum(a.numel() for a, _ in pairs)
+            log("train32", f"{arch} float32: {differ} of {total} top-{cfg.top_k} expert choices "
+                f"differ between the card and the CPU ({len(pairs)} route calls, remat included)")
+        require(math.isfinite(loss.item()) and loss_rel <= GRAD_REL_TOL and worst <= GRAD_REL_TOL,
+                f"{arch} float32 gradients: loss {loss_rel}, worst leaf {worst_name} {worst}")
+        del params, grads, want, batch
+        torch.cuda.empty_cache()
+
+    # (c) rwkv6 cannot train on the card yet
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=1)
+    params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, compute_dtype=torch.bfloat16,
+                            device=device)
+    batch = synthetic_batch(cfg, 1, 64, torch.Generator(device=device).manual_seed(SEED))
+    try:
+        lm.value_and_grad(params, batch)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    log("train", f"rwkv6-1.6b (1 layer) train-mode forward on the card raises: {raised!r}")
+    require(raised is not None and "ROADMAP Queue 1, the WKV backward" in raised,
+            "rwkv6 training on the card did not raise the WKV backward's NotImplementedError")
+    del params
+    torch.cuda.empty_cache()
+    log("train", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def flash_bwd_rows(torch, device, train, errs) -> list:
+    """Phase 8's rows for the backward kernel at tinyllama's and gemma3's
+    training shapes (bfloat16): kernel, plain twin and SDPA's backward
+    (``torch.autograd`` through ``scaled_dot_product_attention``, timed as
+    the yardstick only) beside the bound: 10 hd flops per valid (query
+    head, key) pair at the bfloat16 peak, or q, k, v, o, dO, lse read and
+    dq, dk, dv written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows = []
+    for label, dims, causal, window in (TRAINED_FORMS[0], *TRAINED_FORMS[2:4]):
+        form = flash_form(dims, causal, window, 0, None)
+        B, Sq, Skv, Hq, Hkv, hd = dims
+        (q, k, v, do), kw = flash_bwd_operands(torch, gen, device, form, torch.bfloat16)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        ms = time_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw), iters=10)
+        plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
+                           warmup=1, iters=3)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(Sq, device=device)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=mask is None and causal,
+                                                  enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                                            retain_graph=True), iters=10)
+        pairs = flash_pairs(Sq, Skv, causal, window, 0)
+        b_ms, b_by = bound(2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * B * Hq * Sq,
+                           10.0 * B * Hq * hd * pairs, PEAK_BF16_FLOPS)
+        log("time", f"flash backward {label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 {kw}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
+        rows.append({
+            "name": "flash_attention_bwd" if not rows else f"flash_attention_bwd[{label}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:98",
+            "note": "the reference's custom VJP (_flash_bwd) is plain JAX; the TPU kernel "
+                    "src/repro/kernels/flash_attention/flash_attention.py:100 is forward only",
+            "launches": train["run_launches"]["flash_attention_bwd"],
+            "max_abs_err": max(errs[torch.bfloat16]),
+            "max_abs_err_f32": max(errs[torch.float32]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "ported": 20,
+        })
+        del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
 def prox_bound(K: int, n: int, p: int, measure: str) -> tuple[float, str]:
     """The least time of a proximity square: it is symmetric, so K (K + 1) / 2
     client pairs, each p (eq3: the Gram diagonal) or p * p (eq2) dot
@@ -2432,10 +2804,12 @@ def main(argv=None) -> int:
     done("phase 2 (build)")
     fed = Federation(torch, torch.device("cuda"))
     errs = {"proximity": [], "tsgemm": [], "wkv": [],
-            "flash_attention": {torch.float32: [], torch.bfloat16: [], "by_case": {}}}
+            "flash_attention": {torch.float32: [], torch.bfloat16: [], "by_case": {}},
+            "flash_attention_bwd": {torch.float32: [], torch.bfloat16: [], "by_case": {}}}
     check_proximity(torch, fed, errs["proximity"])
     check_tsgemm(torch, fed.device, errs["tsgemm"])
     check_flash(torch, fed.device, errs["flash_attention"])
+    check_flash_bwd(torch, fed.device, errs["flash_attention_bwd"])
     check_wkv(torch, fed.device, errs["wkv"])
     done("phase 3 (kernels vs plain)")
     main_path = phase_main_path(torch, fed)
@@ -2457,9 +2831,13 @@ def main(argv=None) -> int:
     done("phase 6 (LM serving)")
     phase_lm_float32(torch, fed.device)
     done("phase 7 (LM float32)")
+    trained = {form for form, dtype in errs["flash_attention_bwd"]["by_case"]}
+    training = phase_lm_training(torch, fed.device, trained)
+    done("phase 10 (LM training)")
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
+    rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
     done("phase 8 (timings)")
     print(device["smi"])
     print(json.dumps({"kernels": rows}))

@@ -11,6 +11,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -132,6 +133,53 @@ def lm_params_from_numpy(
     if unset:
         raise ValueError(f"{len(unset)} port parameters have no reference leaf")
     return model
+
+
+def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> dict:
+    """The reference's ``lm.init_params`` pytree layout of ``model``'s
+    parameters, leaves as float32 NumPy arrays: the inverse of
+    :func:`lm_params_from_numpy`.
+
+    Each stage's super-blocks (the decoder's ``stages`` and the encoder's
+    ``encoder.stages``) are restacked into ``(repeats, ...)`` leaves, a list
+    entry per stage; ``shared_attn`` and single tensors stay as they are.
+    With ``values`` (``{name: tensor}`` keyed by ``model.named_parameters``
+    names, e.g. the train step's gradients) those tensors take the
+    parameters' places, so port gradients compare with the reference's
+    leaf by leaf.
+    """
+    names = {id(p): n for n, p in model.named_parameters()}
+    cfg = model.cfg
+
+    def leaf(p) -> np.ndarray:
+        if p.device.type == "meta":   # a stage with no super-block: (0, ...) leaves
+            return np.zeros((0, *p.shape), dtype=np.float32)
+        t = p if values is None else values[names[id(p)]]
+        return t.detach().float().cpu().numpy()
+
+    def stage_tree(stage, spec) -> dict:
+        if len(stage):
+            return stack([tree(sb) for sb in stage])
+        proto = lm._init_stages(None, cfg, [dataclasses.replace(spec, repeats=1)], "meta",
+                                torch.float32)[0][0]
+        return tree(torch.nn.ModuleDict(proto))
+
+    def tree(module) -> dict:
+        out = {n: leaf(p) for n, p in module.named_parameters(recurse=False)}
+        for n, child in module.named_children():
+            if n == "stages":
+                specs = lm.stages_for(cfg) if module is model else lm.encoder_stages(cfg)
+                out[n] = [stage_tree(stage, spec) for stage, spec in zip(child, specs)]
+            else:
+                out[n] = tree(child)
+        return out
+
+    def stack(trees: list) -> dict:
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+    return tree(model)
 
 
 def _flatten_tree(tree, prefix: str = ""):

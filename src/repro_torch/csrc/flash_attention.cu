@@ -13,7 +13,10 @@
 // the range a block walks (the ragged edge) score -inf, so they weigh 0.  A
 // row with no valid key gets the uniform average over all Skv keys, as the
 // reference's all -1e30 softmax does.  Unlike the TPU kernel, ragged Sq and
-// Skv are masked at the edge rather than asserted away.
+// Skv are masked at the edge rather than asserted away.  Given an lse
+// pointer, each kernel (or, when the keys are split, the merge) also writes
+// each row's log-sum-exp, m + log l in natural-log units, which the backward
+// (flash_attention_bwd.cu) reads; the serving path passes null.
 //
 // The dtype picks the kernel, explicitly, in flash_attention_fwd below:
 //
@@ -150,9 +153,10 @@ struct F32Tile {
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads * F32Tile<HD>::DS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Sq,
-              int Skv, int Hq, int Hkv, int G, int BQ, int NS, int causal,
-              int window, int q_offset, float scale, long long kv_bstride) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int G,
+              int BQ, int NS, int causal, int window, int q_offset, float scale,
+              long long kv_bstride) {
   constexpr int BK = F32Tile<HD>::BK, LD = F32Tile<HD>::LD;
   constexpr int DS = F32Tile<HD>::DS, HP = F32Tile<HD>::HP;
   constexpr int PER_ROW = HD / 4;
@@ -258,11 +262,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // Merge the NS splits of a row: lanes DS apart in one warp.
+  float mrow = m;
   if (NS > 1) {
     float mall = m;
     for (int off = NS >> 1; off > 0; off >>= 1)
       mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, off * DS));
     const float w = expf(m - mall);
+    mrow = mall;
     l *= w;
 #pragma unroll
     for (int d = 0; d < HP; ++d) acc[d] *= w;
@@ -277,12 +283,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < HP; ++d) o[qoff + d] = acc[d] * inv;
+    // the row's log-sum-exp (B, Hq, Sq), for the backward
+    if (lse != nullptr && half == 0)
+      lse[(static_cast<long long>(b) * Hq + hk * G + g) * Sq + q0 + qi] =
+          mrow + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int HD>
 int launch_f32_hd(const float* q, const float* k, const float* v, float* o,
-                  int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                  float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                   int window, int q_offset, float scale, long long kv_bstride,
                   cudaStream_t stream) {
   constexpr int DS = F32Tile<HD>::DS;
@@ -297,18 +307,18 @@ int launch_f32_hd(const float* q, const float* k, const float* v, float* o,
     return cudaErrorInvalidValue;
   flash_fwd_f32<HD><<<dim3(static_cast<unsigned>(gx), Hkv, B),
                       kF32Threads * DS, 0, stream>>>(
-      q, k, v, o, Sq, Skv, Hq, Hkv, G, BQ, NS, causal, window, q_offset, scale,
-      kv_bstride);
+      q, k, v, o, lse, Sq, Skv, Hq, Hkv, G, BQ, NS, causal, window, q_offset,
+      scale, kv_bstride);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
                int window, int q_offset, float scale, long long kv_bstride,
                cudaStream_t stream) {
 #define FLASH_F32_HD(D)                                                      \
   case D:                                                                    \
-    return launch_f32_hd<D>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, \
+    return launch_f32_hd<D>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, \
                             q_offset, scale, kv_bstride, stream);
   switch (hd) {
     FLASH_F32_HD(16) FLASH_F32_HD(32) FLASH_F32_HD(64) FLASH_F32_HD(112)
@@ -411,11 +421,19 @@ __device__ __forceinline__ long long out_offset(int b, int hk, int row, int G,
   return ((static_cast<long long>(b) * Sq + qi) * Hq + hk * G + g) * hd;
 }
 
+// Index of row r's log-sum-exp in lse (B, Hq, Sq).
+__device__ __forceinline__ long long row_stat(int b, int hk, int row, int G,
+                                              int Sq, int Hq) {
+  const int qi = row / G, g = row - qi * G;
+  return (static_cast<long long>(b) * Hq + hk * G + g) * Sq + qi;
+}
+
 template <int HD, int MT>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ part_m, float* __restrict__ part_l,
+             float* __restrict__ lse, float* __restrict__ part_m,
+             float* __restrict__ part_l,
              float* __restrict__ part_acc, int Sq, int Skv, int Hq, int Hkv,
              int G, int causal, int window, int q_offset, float scale,
              int nsplit, int split_len, long long kv_bstride) {
@@ -667,6 +685,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int d = 0; d < DT; ++d)
           *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) = __floats2bfloat162_rn(
               oacc[mt][d][2 * h] * inv, oacc[mt][d][2 * h + 1] * inv);
+        // the row's log-sum-exp in natural-log units, for the backward
+        if (lse != nullptr && tig == 0) {
+          const float mm = m[mt][h] == kMasked ? kMasked : m[mt][h] * kLn2;
+          lse[row_stat(b, hk, row, G, Sq, Hq)] = mm + logf(fmaxf(lr, 1e-30f));
+        }
       } else {
         // Partial in natural-log units; l = 0 (no keys) carries m = -inf.
         const long long pr =
@@ -709,7 +732,8 @@ __global__ void __launch_bounds__(kCombineRows * kCombineGroups * kCombineLanes)
 flash_combine(const float* __restrict__ part_m,
               const float* __restrict__ part_l,
               const float* __restrict__ part_acc, bf16* __restrict__ o,
-              int Sq, int Hq, int Hkv, int G, int hd, int nsplit) {
+              float* __restrict__ lse, int Sq, int Hq, int Hkv, int G, int hd,
+              int nsplit) {
   __shared__ float sw[kCombineRows][kMaxSplits];  // m, then the weight
   __shared__ float sl[kCombineRows][kMaxSplits];
   __shared__ float sM[kCombineRows], sinv[kCombineRows];
@@ -745,6 +769,8 @@ flash_combine(const float* __restrict__ part_m,
     float L = 0.f;
     for (int s = 0; s < nsplit; ++s) L = fmaf(sw[tid][s], sl[tid][s], L);
     sinv[tid] = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr)
+      lse[row_stat(b, hk, row0 + tid, G, Sq, Hq)] = sM[tid] + logf(fmaxf(L, 1e-30f));
   }
   const int per_group = kCombineRows * lanes;
   const int grp = tid / per_group, rem = tid - grp * per_group;
@@ -805,7 +831,7 @@ int smem_attribute() {
 
 template <int HD, int MT>
 int launch_tc_mt(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 float* part_m, float* part_l, float* part_acc, int nsplit,
+                 float* lse, float* part_m, float* part_l, float* part_acc, int nsplit,
                  int split_len, int B, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, int q_offset, float scale,
                  long long kv_bstride, cudaStream_t stream) {
@@ -820,20 +846,20 @@ int launch_tc_mt(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   constexpr int smem = TcCfg<HD, MT>::SMEM;
   flash_fwd_tc<HD, MT><<<dim3(static_cast<unsigned>(gx), Hkv, B), kTcThreads,
                          smem, stream>>>(
-      q, k, v, o, part_m, part_l, part_acc, Sq, Skv, Hq, Hkv, G, causal,
+      q, k, v, o, lse, part_m, part_l, part_acc, Sq, Skv, Hq, Hkv, G, causal,
       window, q_offset, scale, nsplit, split_len, kv_bstride);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || nsplit == 1) return rc;
   flash_combine<<<dim3(static_cast<unsigned>((R + kCombineRows - 1) / kCombineRows),
                        Hkv, B),
                   combine_threads(HD), 0, stream>>>(
-      part_m, part_l, part_acc, o, Sq, Hq, Hkv, G, HD, nsplit);
+      part_m, part_l, part_acc, o, lse, Sq, Hq, Hkv, G, HD, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_tc_hd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 float* part_m, float* part_l, float* part_acc, int nsplit,
+                 float* lse, float* part_m, float* part_l, float* part_acc, int nsplit,
                  int split_len, int B, int Sq, int Skv, int Hq, int Hkv,
                  int causal, int window, int q_offset, float scale,
                  long long kv_bstride, cudaStream_t stream) {
@@ -844,16 +870,16 @@ int launch_tc_hd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   if constexpr (HD <= 64) {
     if (static_cast<long long>(Sq) * (Hq / Hkv) > 64)
       return launch_tc_mt<HD, 2>(
-          q, k, v, o, part_m, part_l, part_acc, nsplit, split_len, B, Sq,
+          q, k, v, o, lse, part_m, part_l, part_acc, nsplit, split_len, B, Sq,
           Skv, Hq, Hkv, causal, window, q_offset, scale, kv_bstride, stream);
   }
-  return launch_tc_mt<HD, 1>(q, k, v, o, part_m, part_l, part_acc, nsplit,
+  return launch_tc_mt<HD, 1>(q, k, v, o, lse, part_m, part_l, part_acc, nsplit,
                              split_len, B, Sq, Skv, Hq, Hkv, causal, window,
                              q_offset, scale, kv_bstride, stream);
 }
 
 int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-              float* part_m, float* part_l, float* part_acc, int nsplit,
+              float* lse, float* part_m, float* part_l, float* part_acc, int nsplit,
               int split_len, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
               int causal, int window, int q_offset, float scale,
               long long kv_bstride, cudaStream_t stream) {
@@ -864,7 +890,7 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     return cudaErrorInvalidValue;
 #define FLASH_TC_HD(D)                                                       \
   case D:                                                                    \
-    return launch_tc_hd<D>(q, k, v, o, part_m, part_l, part_acc, nsplit,     \
+    return launch_tc_hd<D>(q, k, v, o, lse, part_m, part_l, part_acc, nsplit,\
                            split_len, B, Sq, Skv, Hq, Hkv, causal, window,   \
                            q_offset, scale, kv_bstride, stream);
   switch (hd) {
@@ -891,9 +917,12 @@ extern "C" {
 // [s * split_len, (s + 1) * split_len) with nsplit * split_len >= Skv, and
 // needs float32 scratch part_m, part_l (B, Hkv, nsplit, Sq * Hq / Hkv) and
 // part_acc (..., hd); nsplit = 1 ignores the scratch.  Returns
-// cudaGetLastError() after the launch(es).
+// cudaGetLastError() after the launch(es).  lse, when not null, takes each
+// row's log-sum-exp (B, Hq, Sq) in float32: m + log(l) of scale * q . k in
+// natural-log units, the state the backward (flash_attention_bwd.cu) needs.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
-                        const void* v, void* o, float* part_m, float* part_l,
+                        const void* v, void* o, float* lse, float* part_m,
+                        float* part_l,
                         float* part_acc, int nsplit, int split_len, int B,
                         int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
                         int window, int q_offset, float scale,
@@ -907,13 +936,13 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
     if (nsplit != 1) return cudaErrorInvalidValue;
     return launch_f32(static_cast<const float*>(q),
                       static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<float*>(o), B,
+                      static_cast<const float*>(v), static_cast<float*>(o), lse, B,
                       Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale,
                       kv_bstride, st);
   }
   if (dtype == 1)
     return launch_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
                      part_m, part_l, part_acc, nsplit, split_len, B, Sq, Skv,
                      Hq, Hkv, hd, causal, window, q_offset, scale, kv_bstride,
                      st);

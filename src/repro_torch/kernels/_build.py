@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 # Every kernel source in csrc/, by name.
-KERNELS = ("proximity", "tsgemm", "flash_attention", "wkv")
+KERNELS = ("proximity", "tsgemm", "flash_attention", "flash_attention_bwd", "wkv")
 
 LAUNCHES: collections.Counter = collections.Counter()
 ROUTE_LAUNCHES: collections.Counter = collections.Counter()

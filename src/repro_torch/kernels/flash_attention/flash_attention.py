@@ -1,11 +1,14 @@
-"""Flash-attention kernel wrapper and its plain PyTorch twin.
+"""Flash-attention forward kernel wrapper and its plain PyTorch twin.
 
 Ports ``repro.kernels.flash_attention.flash_attention`` (``_flash_kernel`` /
 ``flash_attention_pallas``).  The CUDA kernel
-(``repro_torch/csrc/flash_attention.cu``) computes forward-only grouped-query
-attention with a causal mask, an optional sliding window and a query offset
-in an online softmax, float32 or bfloat16 in and the same type out, float32
-inside, at head dims 16, 32, 64, 112, 128 and 256.  Unlike the TPU kernel it
+(``repro_torch/csrc/flash_attention.cu``) computes the forward of
+grouped-query attention with a causal mask, an optional sliding window and a
+query offset in an online softmax, float32 or bfloat16 in and the same type
+out, float32 inside, at head dims 16, 32, 64, 112, 128 and 256; asked for
+(``return_lse``), it also writes each row's log-sum-exp, which the backward
+kernel (:mod:`repro_torch.kernels.flash_attention.flash_attention_bwd`)
+reads.  Unlike the TPU kernel it
 takes ragged ``Sq`` and ``Skv`` (masked at the edge) and needs no tile
 sizes; K and V may be views of the first ``Skv`` slots of a longer cache
 (:func:`kv_operands`).  bfloat16 runs on the tensor cores; when
@@ -45,13 +48,10 @@ def tc_rows_per_block(hd: int, rows: int) -> int:
     return 128 if hd <= 64 and rows > 64 else 64
 
 
-_ARGTYPES = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
-    ctypes.c_void_p,
-]
+# dtype; q, k, v, o, lse, part_m, part_l, part_acc; nsplit, split_len, B, Sq,
+# Skv, Hq, Hkv, hd, causal, window, q_offset; scale; kv_bstride; stream
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+             + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p])
 
 
 def split_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, *,
@@ -131,37 +131,19 @@ def check_operands(
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
 
 
-def flash_attention_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: dense float32 attention
-    (:func:`attention_ref`) returned in q's dtype, as the kernel returns it."""
-    return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset).to(q.dtype)
-
-
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA q, k, v of one dtype -> q's shape and dtype."""
+def check_cuda_operands(*tensors: torch.Tensor, window: Optional[int], q_offset: int
+                        ) -> Optional[int]:
+    """Raise on CUDA operands the kernels (forward: q, k, v; backward also o
+    and dO) do not take; returns the window the kernels apply: None where
+    every key a query can see lies inside it (no mask to apply)."""
+    q, k, v = tensors[:3]
     check_operands(q, k, v, window=window, q_offset=q_offset)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the flash-attention kernels need CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
             f"flash attention takes float32 or bfloat16 operands of one dtype, "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"got {[str(t.dtype) for t in tensors]}"
         )
     B, Sq, Hq, hd = (int(s) for s in q.shape)
     Skv, Hkv = int(k.shape[1]), int(k.shape[2])
@@ -173,14 +155,52 @@ def flash_attention_cuda(
         raise ValueError(f"empty operand: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if max(q.numel(), k.numel()) >= 2**62 or max(Sq, Skv) + q_offset >= 2**31 - 1:
         raise ValueError(f"operands too large: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if window is not None and window > q_offset + Sq - 1:
-        window = None  # every key is inside the window: no mask to apply
+    return None if window is not None and window > q_offset + Sq - 1 else window
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    return_lse: bool = False,
+):
+    """Plain PyTorch twin of the kernel: dense float32 attention
+    (:func:`attention_ref`) returned in q's dtype, as the kernel returns it;
+    with ``return_lse`` also each row's float32 log-sum-exp (B, Hq, Sq)."""
+    out = attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                        return_lse=return_lse)
+    if return_lse:
+        return out[0].to(q.dtype), out[1]
+    return out.to(q.dtype)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    return_lse: bool = False,
+):
+    """Launch the CUDA kernel on CUDA q, k, v of one dtype -> q's shape and
+    dtype; with ``return_lse`` also each row's float32 log-sum-exp (B, Hq,
+    Sq), the state the backward kernel reads."""
+    window = check_cuda_operands(q, k, v, window=window, q_offset=q_offset)
+    B, Sq, Hq, hd = (int(s) for s in q.shape)
+    Skv, Hkv = int(k.shape[1]), int(k.shape[2])
     q = q.contiguous()
     k, v, kv_bstride = kv_operands(k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     nsplit, split_len = 1, Skv
     if q.dtype == torch.bfloat16:
         nsplit, split_len = split_plan(B, Sq, Skv, Hq, Hkv, hd,
@@ -197,7 +217,7 @@ def flash_attention_cuda(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            *parts, nsplit, split_len,
+            None if lse is None else lse.data_ptr(), *parts, nsplit, split_len,
             B, Sq, Skv, Hq, Hkv, hd, int(causal), 0 if window is None else int(window),
             int(q_offset), 1.0 / math.sqrt(hd), kv_bstride, stream,
         )
@@ -208,4 +228,4 @@ def flash_attention_cuda(
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
         )
     _build.LAUNCHES["flash_attention"] += 1
-    return o
+    return (o, lse) if return_lse else o

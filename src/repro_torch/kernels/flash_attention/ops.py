@@ -1,4 +1,4 @@
-"""Public wrapper for the flash-attention kernel."""
+"""Public wrapper for the flash-attention kernels, forward and backward."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +10,40 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.flash_attention.flash_attention_bwd import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
+)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd, the counterpart of the reference's
+    ``jax.custom_vjp`` around its chunked attention.
+
+    The forward keeps its output and each row's log-sum-exp (B, Hq, Sq) for
+    the backward.  On CUDA the forward launches the forward kernel and the
+    backward the backward kernel; on the CPU both call the plain twins
+    (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), so
+    the CPU tests run this Function's own wiring.  Query heads fold onto
+    their KV heads inside the kernels and twins (dk, dv sum over the G heads
+    of a group); each gradient comes back in its operand's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        fwd = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
+        o, lse = fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.form = dict(causal=causal, window=window, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, do.to(o.dtype), lse, **ctx.form)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -24,10 +58,14 @@ def flash_attention(
     """(B, Sq, Hq, hd) x (B, Skv, Hkv, hd)^2 -> (B, Sq, Hq, hd) in q's dtype;
     GQA aware, query ``i`` at position ``q_offset + i``.
 
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (and raise if it cannot), never the twin.
+    Where autograd records (grad enabled and an operand requiring grad) the
+    call runs through :class:`FlashAttention`.  Otherwise CPU tensors take
+    :func:`flash_attention_plain` and CUDA tensors launch the kernel (and
+    raise if it cannot), never the twin.
     """
     check_operands(q, k, v, window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)

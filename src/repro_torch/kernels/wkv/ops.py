@@ -16,7 +16,18 @@ def wkv(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
     raise if it cannot), never the twin.  The kernel reads bfloat16 r, k, v
     as they are (converted on load, exactly); other types are cast to
     float32 here, as are w, u and state0.
+
+    The kernel has no backward yet: on CUDA, where autograd records (grad
+    enabled and an operand requiring grad), the call raises
+    ``NotImplementedError`` rather than return an output cut from the graph.
+    On the CPU the twin is plain PyTorch, and autograd runs through it.
     """
+    operands = (r, k, v, w, u) + (() if state0 is None else (state0,))
+    if (r.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in operands)):
+        raise NotImplementedError(
+            "the WKV kernel has no backward on the card yet (ROADMAP Queue 1, the WKV "
+            "backward); rwkv6 trains on the CPU only")
     check_operands(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, state0)

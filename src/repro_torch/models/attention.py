@@ -2,12 +2,13 @@
 layers, padded cross-attention caches) and chunked (flash-style) computation.
 
 Port of ``repro.models.attention``.  :func:`chunked_attention` is the hot
-spot.  On the CPU it is the reference's pure online-softmax scan over KV
-chunks (dense softmax for a single decode query).  On CUDA it launches the
-hand-written flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`),
-which computes the same function with implicit positions: query ``i`` at
-``q_offset + i``, key ``j`` at ``j``, over the first ``kv_len`` slots.
-Every call of the serving path has that form, some after rewriting the
+spot.  On the CPU, serving runs the reference's pure online-softmax scan
+over KV chunks (dense softmax for a single decode query).  On CUDA it
+launches the hand-written flash-attention kernel
+(:mod:`repro_torch.kernels.flash_attention`), which computes the same
+function with implicit positions: query ``i`` at ``q_offset + i``, key
+``j`` at ``j``, over the first ``kv_len`` slots.  Every call of the
+serving and training paths has that form, some after rewriting the
 reference's mask into an equal one (:func:`decode_form`):
 
 * prefill, causal, with or without a window, and the whisper encoder's
@@ -21,8 +22,12 @@ reference's mask into an equal one (:func:`decode_form`):
   decode over the first ``encoder_seq`` slots of the cache padded to a
   multiple of 128 (``kv_len``; the kernel reads the view in place).
 
-The reference's custom VJP (the flash backward) belongs to the training
-step (ROADMAP Queue 1) and is not ported; KV caches are updated in place.
+Training (the train-mode forward: no cache, ``q_offset = 0``; whisper's
+cross-attention non-causal over the encoder's frames) runs every call
+through :class:`repro_torch.kernels.flash_attention.FlashAttention`, the
+counterpart of the reference's custom VJP: on CUDA the forward and
+backward kernels, on the CPU their plain twins (the backward a port of the
+reference's ``_flash_bwd``).  KV caches are updated in place.
 """
 from __future__ import annotations
 
@@ -36,8 +41,6 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import dense_init, mm, param
 
 NEG_INF = -1e30
-
-NOT_PORTED = "ROADMAP Queue 1, the LM train step"
 
 
 # ---------------------------------------------------------------------------
@@ -113,10 +116,14 @@ def chunked_attention(
     (``q_pos = q_offset + arange(Sq)``, ``kv_pos = arange(Skv)`` with the
     slots above the last query masked by causality, and with ``kv_len``
     every slot from ``kv_len`` on invalid); CUDA tensors need it and launch
-    the flash kernel on the first ``kv_len`` slots (default all).  CPU
-    tensors run the reference's scan on ``q_pos`` / ``kv_pos``.
+    the flash kernel on the first ``kv_len`` slots (default all), as do CPU
+    tensors that autograd records (the kernel's twins, forward and
+    backward).  Other CPU tensors run the reference's scan on ``q_pos`` /
+    ``kv_pos``.
     """
-    if q.device.type == "cuda":
+    recorded = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+    if q.device.type == "cuda" or (recorded and q_offset is not None):
         if q_offset is None:
             raise ValueError("CUDA attention needs the kernel's implicit positions (q_offset)")
         if kv_len is not None:

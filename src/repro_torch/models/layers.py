@@ -14,7 +14,10 @@ not ported.
 
 Parameters are ``nn.Parameter``s named as the reference's pytree keys (so
 :mod:`repro_torch.convert` can carry a reference pytree across), created
-without gradients: this slice serves and does not train.
+without gradients, so serving records no graph; the train step
+(:func:`repro_torch.models.lm.make_train_step`) turns them on.  Weights are
+cast to the compute dtype where they are used (:func:`mm`, the MoE and SSM
+einsums), so float32 masters train in bfloat16 as the reference's do.
 """
 from __future__ import annotations
 

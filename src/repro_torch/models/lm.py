@@ -1,4 +1,4 @@
-"""The LM model zoo's serving path: batched prefill and greedy decode.
+"""The LM model zoo: training, batched prefill and greedy decode.
 
 Port of ``repro.models.lm`` for all ten configurations: dense global
 attention (tinyllama-1.1b, llama3.2-3b, granite-8b), sliding-window local
@@ -11,32 +11,40 @@ whose embeddings overwrite the prompt's leading positions
 
 A model is a list of *stages*, each ``repeats`` identical super-blocks;
 where the reference scans over stacked parameters, the port loops over an
-``nn.ModuleList`` (eager PyTorch has no scan or remat to gain from).
-Attention runs through the flash-attention kernel and the WKV recurrence
-through the WKV kernel on CUDA (:mod:`repro_torch.models.attention`,
-:mod:`repro_torch.models.ssm`); MoE and Mamba2 are plain PyTorch, as the
-reference computes them outside its Pallas kernels.
+``nn.ModuleList``; in training each super-block runs under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+``jax.checkpoint`` of its scan body).  Attention runs through the
+flash-attention kernels and the WKV recurrence through the WKV kernel on
+CUDA (:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.ssm`);
+MoE and Mamba2 are plain PyTorch, as the reference computes them outside
+its Pallas kernels.
 
-Modes: ``prefill`` (full sequence, fills the caches when given) and
-``decode`` (one token at host-known position ``decode_pos``; caches are
-updated in place).  The logits keep the padded vocabulary
-(``cfg.vocab_padded``), as the reference's do.  The training step
-(``mode="train"``, ``lm_loss``, ``make_train_step``) is not ported yet:
-ROADMAP Queue 1, the LM train step.
+Modes: ``train`` (full sequence, no cache, the MoE blocks' Switch loss
+summed over every attention block), ``prefill`` (full sequence, fills the
+caches when given) and ``decode`` (one token at host-known position
+``decode_pos``; caches are updated in place).  The logits keep the padded
+vocabulary (``cfg.vocab_padded``), as the reference's do.
+:func:`lm_loss` is the next-token cross entropy in float32 plus
+``AUX_LOSS_COEF`` times the Switch loss, and :func:`make_train_step` one
+optimizer step over it (:mod:`repro_torch.optim`), with gradient
+accumulation over microbatches.  A model that trains keeps float32 masters
+(``init_params(dtype=torch.float32, compute_dtype=...)``) and computes in
+its compute dtype, each weight cast where it is used.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
 from repro_torch.models.attention import (
-    NOT_PORTED,
     Attn,
     attend,
     cross_prefill,
@@ -54,6 +62,8 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 from repro_torch.models.moe import MoE, init_moe, moe_apply
+
+AUX_LOSS_COEF = 0.01
 
 # ---------------------------------------------------------------------------
 # Stage specs
@@ -148,7 +158,9 @@ class Encoder(nn.Module):
 
 
 class LM(nn.Module):
-    """A model's parameters and its compute dtype.
+    """A model's parameters and its compute dtype (the dtype of its
+    activations and products; weights of two or more dimensions are cast
+    to it where they are used, so they may be stored wider).
 
     ``stages[si][r]`` is super-block ``r`` of stage ``si``: a ``ModuleDict``
     of sub-layers ``sub0, sub1, ...``, each the reference's stacked
@@ -212,7 +224,8 @@ def _init_stages(gen, cfg: ArchConfig, specs: list[StageSpec], device, dtype):
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                device: DeviceLike = None) -> LM:
+                device: DeviceLike = None,
+                compute_dtype: Optional[torch.dtype] = None) -> LM:
     """The port's own seeded initialization (a ``torch.Generator`` on the
     device; ``device="meta"`` allocates nothing, for :mod:`repro_torch.convert`).
 
@@ -223,6 +236,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bf
     the embedding, the head and the shared attention block's weights, so
     the same products round the same way.  Each block is cast as it is
     made, so the float32 draws of only one block are held at a time.
+    ``compute_dtype`` (default ``dtype``) is the dtype the model computes
+    in: training keeps float32 masters (``dtype=torch.float32``) and
+    computes in bfloat16 on the card, as the reference does.
     """
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
@@ -239,8 +255,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bf
     if cfg.is_enc_dec:
         encoder = Encoder(torch.zeros((D,), device=dev),
                           _init_stages(gen, cfg, encoder_stages(cfg), dev, dtype))
-    return LM(cfg, dtype, embed, lm_head, torch.zeros((D,), device=dev), stages,
-              shared_attn=shared, encoder=encoder)
+    return LM(cfg, compute_dtype or dtype, embed, lm_head, torch.zeros((D,), device=dev),
+              stages, shared_attn=shared, encoder=encoder)
 
 
 # ---------------------------------------------------------------------------
@@ -331,10 +347,10 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
 
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps, dtype)
     if p.moe is not None:
-        y, _ = moe_apply(p.moe, h2, cfg, dtype)   # the Switch loss serves training only
+        y, aux = moe_apply(p.moe, h2, cfg, dtype)
     else:
-        y = mlp_apply(p.mlp, h2, cfg.act, dtype)
-    return x + y, cache
+        y, aux = mlp_apply(p.mlp, h2, cfg.act, dtype), None
+    return x + y, cache, aux
 
 
 def _apply_mamba_block(p: ssm.Mamba, cfg: ArchConfig, x: torch.Tensor, *,
@@ -359,36 +375,71 @@ def _apply_rwkv_block(p: ssm.RWKV, cfg: ArchConfig, x: torch.Tensor, *,
     return x + cm_out, state
 
 
+def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
+                x: torch.Tensor, *, entry_cache: Optional[dict], q_pos: torch.Tensor,
+                decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
+                shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool):
+    """One super-block: its sub-layers, then the shared attention block
+    where the stage has one.  Returns (x, cache entry, Switch loss summed
+    over its MoE blocks, float32, or None without one)."""
+    entry = {}
+    aux = None
+    for i, kind in enumerate(stage.sub):
+        p = superblock[f"sub{i}"]
+        c = None if entry_cache is None else entry_cache[f"sub{i}"]
+        if stage.kind == "attn":
+            x, entry[f"sub{i}"], a = _apply_attn_block(
+                p, cfg, x, kind=kind, q_pos=q_pos, cache=c, decode_pos=decode_pos,
+                enc_out=enc_out, dtype=dtype, causal=causal,
+            )
+            aux = _add(aux, a)
+        elif stage.kind == "mamba":
+            x, entry[f"sub{i}"] = _apply_mamba_block(
+                p, cfg, x, state=c, decode=decode_pos is not None, dtype=dtype)
+        else:
+            x, entry[f"sub{i}"] = _apply_rwkv_block(p, cfg, x, state=c, dtype=dtype)
+    if stage.shared_attn:
+        # one parameter set, each application with its own KV cache
+        x, entry["shared"], a = _apply_attn_block(
+            shared_attn, cfg, x, kind="global", q_pos=q_pos,
+            cache=None if entry_cache is None else entry_cache["shared"],
+            decode_pos=decode_pos, enc_out=None, dtype=dtype, causal=causal,
+        )
+        aux = _add(aux, a)
+    return x, entry, aux
+
+
+def _add(total: Optional[torch.Tensor], a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A sum of Switch losses that stays None until there is one (serving's
+    dense models add no operations)."""
+    return a if total is None else total if a is None else total + a
+
+
 def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
                  x: torch.Tensor, *, cache: Optional[list], q_pos: torch.Tensor,
                  decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
-                 shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool = True):
+                 shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool = True,
+                 remat: bool = False):
+    """The stage's super-blocks in order -> (x, new cache, Switch loss or
+    None).  With ``remat`` each super-block runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, only its input kept."""
     new_cache: Optional[list] = None if cache is None else []
+    aux = None
     for r, superblock in enumerate(stage_params):
-        entry = {}
-        for i, kind in enumerate(stage.sub):
-            p = superblock[f"sub{i}"]
-            c = None if cache is None else cache[r][f"sub{i}"]
-            if stage.kind == "attn":
-                x, entry[f"sub{i}"] = _apply_attn_block(
-                    p, cfg, x, kind=kind, q_pos=q_pos, cache=c, decode_pos=decode_pos,
-                    enc_out=enc_out, dtype=dtype, causal=causal,
-                )
-            elif stage.kind == "mamba":
-                x, entry[f"sub{i}"] = _apply_mamba_block(
-                    p, cfg, x, state=c, decode=decode_pos is not None, dtype=dtype)
-            else:
-                x, entry[f"sub{i}"] = _apply_rwkv_block(p, cfg, x, state=c, dtype=dtype)
-        if stage.shared_attn:
-            # one parameter set, each application with its own KV cache
-            x, entry["shared"] = _apply_attn_block(
-                shared_attn, cfg, x, kind="global", q_pos=q_pos,
-                cache=None if cache is None else cache[r]["shared"],
-                decode_pos=decode_pos, enc_out=None, dtype=dtype, causal=causal,
-            )
-        if new_cache is not None:
-            new_cache.append(entry)
-    return x, new_cache
+        kw = dict(entry_cache=None if cache is None else cache[r], q_pos=q_pos,
+                  decode_pos=decode_pos, shared_attn=shared_attn, dtype=dtype, causal=causal)
+        if remat:
+            def body(x, enc_out, superblock=superblock, kw=kw):
+                x, _, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
+                return x, a
+            x, a = checkpoint(body, x, enc_out, use_reentrant=False)
+        else:
+            x, entry, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
+            if new_cache is not None:
+                new_cache.append(entry)
+        aux = _add(aux, a)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -400,30 +451,35 @@ def forward(
     params: LM,
     tokens: torch.Tensor,                 # (B, S) integer
     *,
-    mode: str = "prefill",                # prefill | decode
+    mode: str = "prefill",                # train | prefill | decode
     cache: Optional[list] = None,
     decode_pos: Optional[int] = None,
-    vision_embeds: Optional[torch.Tensor] = None,   # (B, n_vision, D), prefill only
-    encoder_frames: Optional[torch.Tensor] = None,  # (B, encoder_seq, D), prefill only
+    vision_embeds: Optional[torch.Tensor] = None,   # (B, n_vision, D), not at decode
+    encoder_frames: Optional[torch.Tensor] = None,  # (B, encoder_seq, D), not at decode
     last_only: bool = False,
-) -> tuple[torch.Tensor, Optional[list]]:
+    return_aux: bool = False,
+):
     """Returns (logits (B, S, vocab_padded) in the compute dtype, or (B, 1,
-    vocab_padded) with ``last_only``, and the new cache).
+    vocab_padded) with ``last_only``, and the new cache), and with
+    ``return_aux`` also the float32 Switch loss summed over every attention
+    block (0 without MoE), as the reference's ``forward`` returns it.
 
-    At prefill the vision embeddings overwrite the leading positions of the
-    token embeddings, and the encoder-decoder runs its encoder (non-causal
-    self-attention with RoPE) over the frames first; decode reads both from
-    the caches.  The MoE blocks' Switch loss is dropped (serving only)."""
+    In train and prefill mode the vision embeddings replace the leading
+    positions of the token embeddings, and the encoder-decoder runs its
+    encoder (non-causal self-attention with RoPE) over the frames first;
+    decode reads both from the caches.  Train mode takes no cache and, with
+    ``cfg.remat``, recomputes each super-block in the backward."""
     cfg = params.cfg
-    if mode == "train":
-        raise NotImplementedError(f"the LM train step is not ported: {NOT_PORTED}")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and (cache is None or decode_pos is None):
         raise ValueError("decode needs a cache and decode_pos")
-    if mode == "prefill" and cfg.is_enc_dec and encoder_frames is None:
-        raise ValueError(f"{cfg.name} prefill needs encoder_frames")
+    if mode == "train" and cache is not None:
+        raise ValueError("train mode takes no cache")
+    if mode != "decode" and cfg.is_enc_dec and encoder_frames is None:
+        raise ValueError(f"{cfg.name} {mode} needs encoder_frames")
     dtype = params.compute_dtype
+    remat = mode == "train" and cfg.remat
     B, S = tokens.shape
     x = params.embed[tokens].to(dtype)
     if mode == "decode":
@@ -432,30 +488,33 @@ def forward(
         q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
         decode_pos = None
         if vision_embeds is not None:
-            if vision_embeds.shape[1] > S:
-                raise ValueError(f"{vision_embeds.shape[1]} vision embeddings do not fit a "
-                                 f"prompt of {S} tokens")
-            x[:, :vision_embeds.shape[1]] = vision_embeds.to(dtype)
+            nv = vision_embeds.shape[1]
+            if nv > S:
+                raise ValueError(f"{nv} vision embeddings do not fit a prompt of {S} tokens")
+            x = torch.cat([vision_embeds.to(dtype), x[:, nv:]], dim=1)
 
     enc_out = None
-    if cfg.is_enc_dec and mode == "prefill":
+    if cfg.is_enc_dec and mode != "decode":
         e = encoder_frames.to(dtype)
         e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
         for si, stage in enumerate(encoder_stages(cfg)):
-            e, _ = _apply_stage(
+            e, _, _ = _apply_stage(
                 params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
                 decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
+                remat=remat,
             )
         enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
 
+    aux_total = None
     new_caches: Optional[list] = None if cache is None else []
     for si, stage in enumerate(stages_for(cfg)):
-        x, nc = _apply_stage(
+        x, nc, aux = _apply_stage(
             params.stages[si], stage, cfg, x,
             cache=None if cache is None else cache[si],
             q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
-            shared_attn=params.shared_attn, dtype=dtype,
+            shared_attn=params.shared_attn, dtype=dtype, remat=remat,
         )
+        aux_total = _add(aux_total, aux)
         if new_caches is not None:
             new_caches.append(nc)
 
@@ -463,7 +522,101 @@ def forward(
         x = x[:, -1:]
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return mm(x, head, dtype), new_caches
+    logits = mm(x, head, dtype)
+    if not return_aux:
+        return logits, new_caches
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, new_caches, aux_total
+
+
+def lm_loss(params: LM, batch: dict) -> torch.Tensor:
+    """Next-token cross entropy over every position of ``batch["tokens"]``,
+    the logits in float32, plus ``AUX_LOSS_COEF`` times the Switch loss: the
+    reference's ``lm_loss`` (its ``cfg`` is the model's)."""
+    tokens = batch["tokens"]
+    logits, _, aux = forward(
+        params, tokens, mode="train", vision_embeds=batch.get("vision_embeds"),
+        encoder_frames=batch.get("encoder_frames"), return_aux=True,
+    )
+    logits = logits[:, :-1].float()
+    labels = tokens[:, 1:]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold) + AUX_LOSS_COEF * aux
+
+
+@contextlib.contextmanager
+def _recording(params: LM) -> Iterator[dict]:
+    """The model's parameters by name, recording gradients inside the block
+    (they are created without, so serving builds no graph)."""
+    named = dict(params.named_parameters())
+    saved = {n: p.requires_grad for n, p in named.items()}
+    try:
+        for p in named.values():
+            p.requires_grad_(True)
+        yield named
+    finally:
+        for n, p in named.items():
+            p.requires_grad_(saved[n])
+
+
+def value_and_grad(params: LM, batch: dict) -> tuple[torch.Tensor, dict]:
+    """(:func:`lm_loss`, its gradient by parameter name): the reference's
+    ``jax.value_and_grad(lm_loss)``.  A parameter the loss does not reach
+    gets zeros, as JAX gives them."""
+    with torch.enable_grad(), _recording(params) as named:
+        loss = lm_loss(params, batch)
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(named.items(), grads)}
+
+
+def make_train_step(optimizer, *, microbatches: int = 1):
+    """train_step(params, opt_state, batch) -> (params, opt_state, {"loss"}).
+
+    ``optimizer`` is a :class:`repro_torch.optim.Optimizer` whose state was
+    made by ``optimizer.init(dict(params.named_parameters()))``.  The step
+    updates the model's parameters in place and returns the model.
+    ``microbatches > 1`` splits the batch along its first dim and
+    accumulates float32 gradients (and the loss) over the pieces, divided by
+    their count, as the reference's scan does: activation memory bounded at
+    the cost of one forward and backward per piece.
+    """
+    from repro_torch.optim import apply_updates
+
+    def train_step(params: LM, opt_state: dict, batch: dict):
+        if microbatches == 1:
+            loss, grads = value_and_grad(params, batch)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
+            n = B // microbatches
+            loss, grads = torch.zeros((), dtype=torch.float32, device=params.embed.device), None
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, g = value_and_grad(params, mb)
+                loss = loss + l
+                if grads is None:
+                    grads = {k: t.float() for k, t in g.items()}
+                else:
+                    for k, t in g.items():
+                        grads[k] += t
+                del g
+            loss = loss / microbatches
+            grads = {k: t / microbatches for k, t in grads.items()}
+        named = {n: p.detach() for n, p in params.named_parameters()}
+        updates, opt_state = optimizer.update(grads, opt_state, named)
+        del grads
+        new = apply_updates(named, updates)
+        del updates
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(new[n])
+        return params, opt_state, {"loss": loss}
+
+    return train_step
 
 
 def make_prefill_step(max_len: Optional[int] = None):

@@ -12,6 +12,13 @@ runs through :func:`repro_torch.kernels.wkv.wkv`: on CUDA the hand-written
 kernel runs the prefill (the prompt) in parallel chunks and decode (one step)
 with each (batch, head) state on chip, in place of the reference's two-level
 ``lax.scan``; on the CPU its plain twin steps the same recurrence.
+
+Both blocks train under autograd as plain PyTorch (no in-place writes on
+the training path), the weights of two or more dimensions cast to the
+compute dtype where they are used, as the reference casts them per
+super-block.  The WKV kernel has no backward yet, so RWKV6 trains on the
+CPU, through the twin, and raises on the card (ROADMAP Queue 1, the WKV
+backward).
 """
 from __future__ import annotations
 
@@ -291,7 +298,7 @@ def _rwkv_projections(params: RWKV, cfg: ArchConfig, x: torch.Tensor,
     """x, x_prev: (B, S, D) -> r, k, v (B, S, H, hd), g (B, S, D), w float32."""
     B, S, D = x.shape
     H, hd = rwkv_dims(cfg)
-    mu = params.mu
+    mu = params.mu.to(dtype)   # every weight of two or more dims in the compute dtype
 
     def mixed(i):
         return x + mu[i][None, None] * (x_prev - x)
@@ -326,7 +333,8 @@ def rwkv_time_mix(params: RWKV, cfg: ArchConfig, x: torch.Tensor,
     r, k, v, g, w = _rwkv_projections(params, cfg, x, x_prev, dtype)
 
     # r, k, v in the compute dtype: the kernel converts bfloat16 on load
-    outs, wkv_state = wkv(r, k, v, w, params.u, None if state is None else state.wkv)
+    outs, wkv_state = wkv(r, k, v, w, params.u.to(dtype),
+                          None if state is None else state.wkv)
     y = outs.reshape(B, S, D)                              # float32
 
     # per-head group norm
@@ -347,7 +355,7 @@ def rwkv_channel_mix(params: RWKV, cfg: ArchConfig, x: torch.Tensor,
                      state: Optional[RWKVState], dtype: torch.dtype
                      ) -> tuple[torch.Tensor, Optional[RWKVState]]:
     x_prev = _token_shift(x, None if state is None else state.x_cm)
-    mu = params.mu_c
+    mu = params.mu_c.to(dtype)
     xk = x + mu[0][None, None] * (x_prev - x)
     xr = x + mu[1][None, None] * (x_prev - x)
     kk = torch.square(F.relu(mm(xk, params.Wck, dtype)))

@@ -26,7 +26,11 @@ and 12 x 3, on column views of a wider stack, twice bitwise, square against
 rectangle, and PACFL at p = 16 to the CPU's labels.  Flash attention also
 runs at head dims 112 and 256 (split-KV decode merged at hd 256, ring and
 cache-view forms), and every LM family serves at reduced size, float32,
-card against CPU.
+card against CPU.  The flash backward kernel is held to its twin within
+1e-4 (float32) / 2e-2 (bfloat16) of max|plain|, launched twice and bitwise
+equal; reduced models' float32 gradients on the card within 1e-4 of the
+CPU's; rwkv6 training on the card raises; the training launcher runs three
+reduced steps.
 """
 import numpy as np
 import pytest
@@ -825,3 +829,126 @@ def test_pacfl_at_p16_on_cuda_matches_cpu(cuda):
         cpu = one_shot_clustering(data, cfg, device="cpu")
         np.testing.assert_array_equal(gpu.labels, cpu.labels)
         assert gpu.n_clusters == 3
+
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset): the training forms
+# (q_offset 0) at every head dim of the zoo's training families, ragged, GQA
+# up to G = 6, windowed, non-causal with Sq != Skv (whisper's cross
+# attention), and a query offset.
+FLASH_BWD_CASES = [
+    (2, 256, 256, 32, 4, 64, True, None, 0),
+    (2, 77, 77, 8, 4, 256, True, 33, 0),
+    (1, 200, 200, 8, 4, 256, True, None, 0),
+    (2, 100, 100, 32, 32, 112, True, None, 0),
+    (1, 150, 300, 16, 16, 64, False, None, 0),
+    (1, 130, 130, 24, 8, 128, True, None, 0),
+    (1, 90, 90, 24, 4, 32, True, 17, 0),
+    (1, 65, 65, 6, 1, 64, False, None, 0),
+    (1, 50, 70, 24, 4, 16, True, None, 20),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,hd,causal,window,qoff", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain_and_repeats(cuda, B, Sq, Skv, Hq, Hkv, hd,
+                                                         causal, window, qoff, dtype):
+    """dq, dk, dv within 1e-4 (float32) / 2e-2 (bfloat16, one rounding of
+    each output) of max|plain|, the forward's lse within 1e-5 of the twin's,
+    one counted launch, and two launches bitwise equal."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
+        flash_attention_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(Sq * 5 + Skv)
+    q, do = (torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = flash_attention_bwd_plain(q, k, v, o, do, want_lse, **kw)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
+        assert torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+def test_attention_under_grad_goes_through_both_kernels(cuda):
+    """flash_attention with inputs that require grad runs the FlashAttention
+    Function on the card: one forward and one backward launch, gradients
+    as the twin's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).requires_grad_()
+               for s in ((2, 40, 8, 64), (2, 40, 2, 64), (2, 40, 2, 64)))
+    _build.reset_launches()
+    out = flash_attention(q, k, v)
+    out.sum().backward()
+    assert dict(_build.LAUNCHES) == {"flash_attention": 1, "flash_attention_bwd": 1}
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    flash_attention(qc, kc, vc).sum().backward()
+    for a, b in ((q, qc), (k, kc), (v, vc)):
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= 1e-4 * b.grad.abs().max().item()
+
+
+def test_rwkv6_training_on_cuda_raises(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    params = lm.init_params(get_config("rwkv6-1.6b").reduced(), dtype=torch.float32, device=cuda)
+    tokens = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the WKV backward"):
+        lm.value_and_grad(params, {"tokens": tokens})
+    with torch.inference_mode():   # serving the same model still runs
+        lm.forward(params, tokens)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "whisper-medium"])
+def test_lm_gradients_on_cuda_match_cpu(cuda, arch):
+    """Reduced model in float32: loss and every gradient of the card (flash
+    kernels forward and backward) within 1e-4 of the CPU's (twins), each
+    leaf relative to its max |g|; 2 forward launches (remat) and 1 backward
+    launch per attention call."""
+    from repro_torch._device import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).reduced()
+    gpu = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    batch = synthetic_batch(cfg, 2, 24, torch.Generator(device=cuda).manual_seed(0))
+    _build.reset_launches()
+    with float32_math():
+        loss, grads = lm.value_and_grad(gpu, batch)
+    calls = lm.attention_calls(cfg, True)
+    assert _build.LAUNCHES["flash_attention"] == 2 * calls
+    assert _build.LAUNCHES["flash_attention_bwd"] == calls
+    cpu = gpu.to("cpu")
+    want_loss, want = lm.value_and_grad(cpu, {k: v.cpu() for k, v in batch.items()})
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for name, g in want.items():
+        err = (grads[name].cpu() - g).abs().max().item()
+        assert err <= 1e-4 * max(g.abs().max().item(), 1e-30), name
+
+
+def test_reduced_training_runs_on_cuda(cuda):
+    """Three steps of the launcher (float32 masters, bfloat16 compute) on the
+    card: finite losses, the flash kernels forward and backward."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    _build.reset_launches()
+    losses = train.main(["--reduced", "--steps", "3", "--batch", "2", "--seq", "32"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert _build.LAUNCHES["flash_attention_bwd"] == 3 * 2     # 2 layers a step
+    assert _build.LAUNCHES["flash_attention"] == 3 * 2 * 2     # remat: twice a layer

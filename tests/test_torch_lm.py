@@ -141,8 +141,11 @@ def test_full_sequence_logits_match_reference(arch):
 def test_train_mode_and_bad_calls_raise():
     port = lm.init_params(get_config("tinyllama-1.1b").reduced(), dtype=torch.float32, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="train step"):
-        lm.forward(port, tokens, mode="train")
+    # train mode runs (tests/test_torch_lm_train.py), but takes no cache
+    with pytest.raises(ValueError, match="no cache"):
+        lm.forward(port, tokens, mode="train", cache=lm.init_cache(port, 1, 4))
+    with pytest.raises(ValueError, match="unknown mode"):
+        lm.forward(port, tokens, mode="eval")
     with pytest.raises(ValueError, match="decode needs"):
         lm.forward(port, tokens[:, :1], mode="decode")
     with pytest.raises(RuntimeError, match="CUDA"):

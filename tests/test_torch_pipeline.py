@@ -220,5 +220,7 @@ def test_port_imports_without_jax():
         "repro_torch.core.pacfl", "repro_torch.core.engine.engine",
         "repro_torch.kernels.proximity.proximity", "repro_torch.kernels.tsgemm.tsgemm",
         "repro_torch.serving.dispatch", "repro_torch.convert",
+        "repro_torch.optim", "repro_torch.ckpt", "repro_torch.launch.train",
+        "repro_torch.kernels.flash_attention.flash_attention_bwd",
     ):
         assert required in res["mods"]
