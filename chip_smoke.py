@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits nonzero:
    flash-attention backward's) into ``build/kernels/``, printing
    each source's ``nvcc`` time, the count of tensor-core instructions in
    the SASS of the bfloat16 flash-attention kernels (``HMMA``; the
-   backward's, with its registers and stack) and of the
+   backward's at every head dim, with its registers and stack, none
+   allowed) and of the
    eq3 and eq2 proximity kernels (``DMMA``; also of each instantiation the
    p = 16 routes of phase 4b launch, with its registers and stack), and
    the registers and stack of the main paths' eq2, the any-rank eq2 reduce
@@ -103,7 +104,8 @@ Phases, each printing its own lines; any failure exits nonzero:
    10 ``make_train_step`` steps on one repeated batch (finite losses, at
    least 0.5 nat lower at the last step than at the first, exactly 44
    flash forward and 22 backward launches a step; step time, peak memory,
-   device idle share), then 5 steps of ``repro_torch.launch.train.main``
+   device idle share), two fresh same-seed steps run twice (the losses
+   and parameters bitwise equal), then 5 steps of ``repro_torch.launch.train.main``
    with a fresh batch each step; (b) whole-model float32 gradients at full
    width, depth cut, card (kernels) against CPU (twins) for tinyllama,
    gemma3, qwen2-moe, zamba2, whisper and internvl2; (c) an rwkv6
@@ -123,7 +125,8 @@ Nothing of the JAX package is imported.
     python3 chip_smoke.py --time-kernels SRC
 
 builds the four kernels of the ``repro_torch`` under the directory SRC,
-times tsgemm, flash attention, WKV (prefill and decode) and proximity (eq3
+times tsgemm, flash attention (and its backward at phase 8's three
+training shapes), WKV (prefill and decode) and proximity (eq3
 and eq2 at K = 1024, eq2 at K = 97, eq3 at K = 100, the any-rank route at
 p = 16 and 12 and at 3 x 12) at phase 8's shapes with phase 8's timers and
 prints one JSON line of milliseconds, with each source's ``nvcc`` seconds
@@ -156,6 +159,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import functools
 import json
 import math
 import statistics
@@ -322,7 +326,7 @@ TRAINED_FORMS = (
 
 # The revision in which each hand-written kernel was last redesigned (earlier
 # times are in PERF.md section 6).
-REDESIGNED_IN = {"flash_attention": 13, "tsgemm": 13,
+REDESIGNED_IN = {"flash_attention": 13, "flash_attention_bwd": 21, "tsgemm": 13,
                  "wkv": {"prefill": 14, "decode": 16},
                  "proximity": {"eq3": 14, "eq2": 16, "any_rank": 18}}
 
@@ -486,14 +490,21 @@ def phase_device(torch) -> dict:
     return {"kind": name, "count": count, "smi": smi}
 
 
-def count_mma(lib_path, function_substring: str, opcodes=("HMMA", "HGMMA")) -> int:
-    """Tensor-core instructions (``opcodes``) in the SASS of the functions of
-    a built library whose names contain ``function_substring``."""
+@functools.lru_cache(maxsize=None)
+def _cuobjdump(lib_path: str, flag: str) -> str:
+    """``cuobjdump <flag>`` of a built library, once per library (its name
+    carries the hash of its source)."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+    return subprocess.run([str(cuobjdump), flag, lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
+def count_mma(lib_path, function_substring: str, opcodes=("HMMA", "HGMMA")) -> int:
+    """Tensor-core instructions (``opcodes``) in the SASS of the functions of
+    a built library whose names contain ``function_substring``."""
+    sass = _cuobjdump(str(lib_path), "--dump-sass")
     count, inside = 0, False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -507,11 +518,7 @@ def resource_usage(lib_path, mangled_substring: str):
     """(registers, stack bytes) of the first function of a built library
     whose mangled name contains ``mangled_substring``
     (``cuobjdump --dump-resource-usage``), or None if none is listed."""
-    from repro_torch.kernels import _build
-
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    usage = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(lib_path)],
-                           capture_output=True, text=True, timeout=300, check=True).stdout
+    usage = _cuobjdump(str(lib_path), "--dump-resource-usage")
     inside = False
     for line in usage.splitlines():
         if "Function" in line:
@@ -552,15 +559,24 @@ def phase_build() -> None:
                            ("flash_combine", "flash_combine")):
         usage = resource_usage(lib, mangled)
         log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
-    # the backward (a first version on the CUDA cores: no HMMA expected)
+    # the backward: bf16 on the tensor cores at every head dim, without
+    # spills; float32 on the CUDA cores (FP32 FMAs, no HMMA)
     bwd = _build.library_path("flash_attention_bwd")
-    hmma = count_mma(bwd, "flash_bwd_")
-    log("build", f"flash_attention_bwd.cu: nvcc {_build.BUILD_SECONDS.get('flash_attention_bwd', 0):.1f} "
-        f"s; {hmma} HMMA instructions in its SASS (FP32 FMAs on the CUDA cores)")
+    log("build", f"flash_attention_bwd.cu: nvcc "
+        f"{_build.BUILD_SECONDS.get('flash_attention_bwd', 0):.1f} s")
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    for hd in HEAD_DIMS:
+        for kernel in ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc"):
+            mangled = f"{kernel}ILi{hd}EE"
+            hmma, usage = count_mma(bwd, mangled), resource_usage(bwd, mangled)
+            log("build", f"{kernel}<{hd}> (bf16): {hmma} HMMA/HGMMA instructions; {usage[0]} "
+                f"registers a thread, {usage[1]} bytes of stack (spills)")
+            require(hmma > 0 and usage[1] == 0, f"{kernel}<{hd}>: {hmma} HMMA, {usage}")
     for hd in (64, 112, 128, 256):
         for kernel in ("flash_bwd_dkdv", "flash_bwd_dq"):
-            usage = resource_usage(bwd, f"{kernel}I13__nv_bfloat16Li{hd}EE") or ("?", "?")
-            log("build", f"{kernel}<bf16, {hd}>: {usage[0]} registers a thread, {usage[1]} "
+            usage = resource_usage(bwd, f"{kernel}IfLi{hd}EE") or ("?", "?")
+            log("build", f"{kernel}<float, {hd}>: {usage[0]} registers a thread, {usage[1]} "
                 f"bytes of stack")
     for kernel in ("eq3_tc", "eq2_tc"):
         dmma = count_mma(_build.library_path("proximity"), kernel, ("DMMA",))
@@ -2009,6 +2025,47 @@ def _loss_drop_run(torch, device, checked: set) -> dict:
             "run_launches": {k: sum(c[k] for c in counts) for k in want}}
 
 
+def _same_seed_steps(torch, device) -> dict:
+    """Phase 10a: two fresh same-seed steps of ``make_train_step`` at full
+    width (phase 10a's model, optimizer and batch shape), run twice: the
+    losses and every parameter bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = get_config(TRAIN_ARCH)
+
+    def run():
+        params = lm.init_params(cfg, seed=SEED + 3, dtype=torch.float32,
+                                compute_dtype=torch.bfloat16, device=device)
+        opt = adamw(cosine_schedule(TRAIN_LR, warmup=2, total=TRAIN_STEPS))
+        state = opt.init(dict(params.named_parameters()))
+        step = lm.make_train_step(opt)
+        batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                torch.Generator(device=device).manual_seed(SEED + 3))
+        losses = []
+        for _ in range(2):
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        flat = torch.cat([p.detach().reshape(-1) for p in params.parameters()])
+        del params, state, batch
+        torch.cuda.empty_cache()
+        return losses, flat
+
+    t0 = time.perf_counter()
+    (la, fa), (lb, fb) = run(), run()
+    same = la == lb and torch.equal(fa, fb)
+    differ = int((fa != fb).sum())
+    log("train", f"{TRAIN_ARCH}: two fresh same-seed steps, twice: losses {la} and {lb}; "
+        f"{differ} of {fa.numel()} parameters differ; bitwise equal: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(same, f"two same-seed train steps differ: losses {la} / {lb}, {differ} parameters")
+    del fa, fb
+    torch.cuda.empty_cache()
+    return {"losses": la, "bitwise": same}
+
+
 def phase_lm_training(torch, device, checked: set) -> dict:
     """Phase 10: (a) tinyllama-1.1b training at full width, then the
     launcher; (b) whole-model float32 gradients, card against CPU; (c) rwkv6
@@ -2025,6 +2082,7 @@ def phase_lm_training(torch, device, checked: set) -> dict:
     t_phase = time.perf_counter()
     out = _loss_drop_run(torch, device, checked)
     torch.cuda.empty_cache()
+    out["repeat"] = _same_seed_steps(torch, device)
     _build.reset_launches()
     t0 = time.perf_counter()
     losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_LAUNCHER_STEPS), "--batch",
@@ -2104,6 +2162,21 @@ def phase_lm_training(torch, device, checked: set) -> dict:
     return out
 
 
+# The backward's timed shapes (phase 8 and --time-kernels): tinyllama's
+# training call and gemma3's local and global layers.
+FLASH_BWD_TIMED = (TRAINED_FORMS[0], *TRAINED_FORMS[2:4])
+
+
+def flash_bwd_bound(dims, causal: bool, window) -> tuple[float, str]:
+    """The backward's least time: 10 hd flops per valid (query head, key)
+    pair at the bfloat16 peak, or q, k, v, o, dO, lse read and dq, dk, dv
+    written once (bf16, lse float32)."""
+    B, Sq, Skv, Hq, Hkv, hd = dims
+    pairs = flash_pairs(Sq, Skv, causal, window, 0)
+    return bound(2.0 * (4 * B * Sq * Hq * hd + 4 * B * Skv * Hkv * hd) + 4.0 * B * Hq * Sq,
+                 10.0 * B * Hq * hd * pairs, PEAK_BF16_FLOPS)
+
+
 def flash_bwd_rows(torch, device, train, errs) -> list:
     """Phase 8's rows for the backward kernel at tinyllama's and gemma3's
     training shapes (bfloat16): kernel, plain twin and SDPA's backward
@@ -2118,7 +2191,7 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     rows = []
-    for label, dims, causal, window in (TRAINED_FORMS[0], *TRAINED_FORMS[2:4]):
+    for label, dims, causal, window in FLASH_BWD_TIMED:
         form = flash_form(dims, causal, window, 0, None)
         B, Sq, Skv, Hq, Hkv, hd = dims
         (q, k, v, do), kw = flash_bwd_operands(torch, gen, device, form, torch.bfloat16)
@@ -2137,9 +2210,7 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
         dot = do.transpose(1, 2)
         lib_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                                             retain_graph=True), iters=10)
-        pairs = flash_pairs(Sq, Skv, causal, window, 0)
-        b_ms, b_by = bound(2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * B * Hq * Sq,
-                           10.0 * B * Hq * hd * pairs, PEAK_BF16_FLOPS)
+        b_ms, b_by = flash_bwd_bound(dims, causal, window)
         log("time", f"flash backward {label}: q {tuple(q.shape)} k {tuple(k.shape)} bf16 {kw}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
@@ -2154,6 +2225,7 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
             "max_abs_err_f32": max(errs[torch.float32]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "ported": 20,
+            "redesigned": REDESIGNED_IN["flash_attention_bwd"],
         })
         del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
         torch.cuda.empty_cache()
@@ -2505,11 +2577,12 @@ def family_flash_rows(torch, device, launches, errs) -> list:
 
 def time_kernels(torch) -> dict:
     """Milliseconds of the imported ``repro_torch``'s tsgemm, bfloat16
-    flash-attention, float32 WKV and proximity wrappers at phase 8's
-    main-path shapes (the wrappers' calls that earlier trees also take),
-    and the bounds of the proximity and WKV decode cases."""
+    flash-attention (forward and backward), float32 WKV and proximity
+    wrappers at phase 8's main-path shapes (the wrappers' calls that earlier
+    trees also take), and the bounds of the flash, proximity and WKV decode
+    cases."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.proximity import proximity_cuda
     from repro_torch.kernels.tsgemm import tsgemm_cuda
     from repro_torch.kernels.wkv import wkv_cuda
@@ -2541,6 +2614,16 @@ def time_kernels(torch) -> dict:
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 
     bounds = {}
+    for label, dims, causal, window in FLASH_BWD_TIMED:
+        (qb, kb, vb, dob), kw = flash_bwd_operands(
+            torch, gen, device, flash_form(dims, causal, window, 0, None), bf16)
+        ob, lseb = flash_attention_cuda(qb, kb, vb, return_lse=True, **kw)
+        key = f"flash backward {label}"
+        ms[key] = time_ms(torch, lambda: flash_attention_bwd_cuda(qb, kb, vb, ob, dob, lseb, **kw),
+                          iters=10)
+        bounds[key] = flash_bwd_bound(dims, causal, window)[0]
+        del qb, kb, vb, dob, ob, lseb
+    torch.cuda.empty_cache()
     for case in FAMILY_FLASH:
         label, hd = case[1], case[2][5]
         if hd not in HEAD_DIMS:       # a tree from before the head dim was ported
@@ -2686,7 +2769,6 @@ def sweep_any_rank(torch) -> dict:
     of the reduce (``reduce_jobs``) and two workspace caps, each with its
     device time by kernel (torch.profiler).  The plan is set through the
     module's functions."""
-    import functools
     import importlib
 
     from repro_torch.kernels import _build

@@ -9,6 +9,12 @@ sorted order, as JAX flattens them, so the two packages read each other's
 checkpoints.  The reference also writes its tree structure (``treedef``) as
 a string; the port writes the same field from its own walk, for reading
 only, and never parses it.
+
+A bfloat16 leaf is written as the reference's ``np.savez`` writes a JAX
+bfloat16 array: 2-byte ``|V2`` records holding its bits.  ``restore`` gives
+those records back, as the reference's does, except where ``like``'s leaf
+is a bfloat16 tensor: that leaf comes back as a ``torch.bfloat16`` tensor
+with the same bits.
 """
 from __future__ import annotations
 
@@ -35,8 +41,19 @@ def _leaves(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
 
 def _numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:    # NumPy has no bfloat16: its bits as |V2
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _leaf_like(arr: np.ndarray, like):
+    """``arr`` as ``like``'s leaf wants it: |V2 records as bfloat16 where
+    ``like`` is a bfloat16 tensor, else as stored."""
+    if isinstance(like, torch.Tensor) and like.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return arr
 
 
 def _structure(tree) -> str:
@@ -75,10 +92,12 @@ def restore(path, like: Any = None):
     """Returns ``(tree, meta)`` with NumPy leaves.
 
     With ``like``, the arrays fill its structure (its leaves are read only
-    for their paths).  Without it, the tree is rebuilt from the key paths;
-    where the reference's ``restore`` leaves a list (the LM's ``stages``) as
-    a dict keyed ``"0"``, ``"1"``, ... this one gives the list back, so
-    :func:`repro_torch.convert.lm_params_from_numpy` takes it as it is.
+    for their paths, and for whether a leaf is a bfloat16 tensor, which
+    comes back as one).  Without it, the tree is rebuilt from the key
+    paths; where the reference's ``restore`` leaves a list (the LM's
+    ``stages``) as a dict keyed ``"0"``, ``"1"``, ... this one gives the
+    list back, so :func:`repro_torch.convert.lm_params_from_numpy` takes it
+    as it is.
     """
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
@@ -89,7 +108,7 @@ def restore(path, like: Any = None):
                 return {k: fill(node[k], f"{prefix}[{k!r}]") for k in node}
             if isinstance(node, (list, tuple)):
                 return type(node)(fill(v, f"{prefix}[{i}]") for i, v in enumerate(node))
-            return data[prefix]
+            return _leaf_like(data[prefix], node)
         return fill(like), meta
     out: dict = {}
     for key in meta["keys"]:

@@ -28,7 +28,8 @@ runs at head dims 112 and 256 (split-KV decode merged at hd 256, ring and
 cache-view forms), and every LM family serves at reduced size, float32,
 card against CPU.  The flash backward kernel is held to its twin within
 1e-4 (float32) / 2e-2 (bfloat16) of max|plain|, launched twice and bitwise
-equal; reduced models' float32 gradients on the card within 1e-4 of the
+equal (at the bf16 kernels' tile edges too); two same-seed bf16 train steps
+of a reduced tinyllama repeat bit for bit; reduced models' float32 gradients on the card within 1e-4 of the
 CPU's; rwkv6 training on the card raises; the training launcher runs three
 reduced steps.
 """
@@ -845,6 +846,14 @@ FLASH_BWD_CASES = [
     (1, 90, 90, 24, 4, 32, True, 17, 0),
     (1, 65, 65, 6, 1, 64, False, None, 0),
     (1, 50, 70, 24, 4, 16, True, None, 20),
+    # the bf16 kernels' tile edges: S one below and one above a 64-key /
+    # 64-row tile (hd 64, G = 1) and a 32-row / 32-key tile (hd 256), and a
+    # window crossing 64-key tile edges at hd 256
+    (1, 63, 63, 8, 8, 64, True, None, 0),
+    (1, 65, 65, 8, 8, 64, True, None, 0),
+    (1, 31, 31, 4, 4, 256, True, None, 0),
+    (1, 33, 33, 4, 4, 256, True, None, 0),
+    (1, 160, 160, 8, 4, 256, True, 70, 0),
 ]
 
 
@@ -898,6 +907,35 @@ def test_attention_under_grad_goes_through_both_kernels(cuda):
     flash_attention(qc, kc, vc).sum().backward()
     for a, b in ((q, qc), (k, kc), (v, vc)):
         assert (a.grad.cpu() - b.grad).abs().max().item() <= 1e-4 * b.grad.abs().max().item()
+
+
+def test_lm_train_steps_repeat_bitwise(cuda):
+    """Two make_train_step steps of a reduced tinyllama (float32 masters,
+    bfloat16 compute, AdamW) from one seed, run twice on the card: the same
+    losses and parameters, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+
+    def run():
+        params = lm.init_params(cfg, seed=7, dtype=torch.float32,
+                                compute_dtype=torch.bfloat16, device=cuda)
+        opt = adamw(cosine_schedule(1e-3, warmup=2, total=10))
+        state = opt.init(dict(params.named_parameters()))
+        step = lm.make_train_step(opt)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        losses = []
+        for _ in range(2):
+            params, state, metrics = step(params, state, synthetic_batch(cfg, 2, 64, gen))
+            losses.append(float(metrics["loss"]))
+        return losses, {n: p.detach().clone() for n, p in params.named_parameters()}
+
+    (la, pa), (lb, pb) = run(), run()
+    assert la == lb and np.isfinite(la).all()
+    assert pa.keys() == pb.keys() and all(torch.equal(pa[n], pb[n]) for n in pa)
 
 
 def test_rwkv6_training_on_cuda_raises(cuda):
