@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits nonzero:
 1. device: the card, its power limit, the float32 matmul settings;
 2. build: compiles the port's CUDA kernel sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel; the four TPU kernels' and the
-   flash-attention backward's) into ``build/kernels/``, printing
+   flash-attention and WKV backwards') into ``build/kernels/``, printing
    each source's ``nvcc`` time, the count of tensor-core instructions in
    the SASS of the bfloat16 flash-attention kernels (``HMMA``; the
    backward's at every head dim, with its registers and stack, none
@@ -16,7 +16,8 @@ Phases, each printing its own lines; any failure exits nonzero:
    eq3 and eq2 proximity kernels (``DMMA``; also of each instantiation the
    p = 16 routes of phase 4b launch, with its registers and stack), and
    the registers and stack of the main paths' eq2, the any-rank eq2 reduce
-   (``eq2_form_any``, ``eq2_jacobi_any``) and WKV decode (no stack allowed);
+   (``eq2_form_any``, ``eq2_jacobi_any``), WKV decode and the WKV
+   backward's kernels (no stack allowed);
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
    at the main paths' shapes plus ragged, cross, windowed, high-rank,
    split-KV / split-K, bfloat16 and fast-decay cases, and the square
@@ -33,7 +34,11 @@ Phases, each printing its own lines; any failure exits nonzero:
    the flash-attention backward (dq, dk, dv, and the forward's log-sum-exp)
    at every form phase 10 trains (``trained_flash_calls``) and the zoo's
    training forms besides, bfloat16 and float32, each launched twice and
-   required bitwise equal;
+   required bitwise equal; the WKV backward (dr, dk, dv, dw, du, dstate0
+   from the forward's chunk-start states) at rwkv6's training shape with
+   slow and fast decays, with and without state0 and dstateT, float32 and
+   bfloat16 r, k, v, S = 1, 47 and 1111, hd 16, 32 and 128, each launched
+   twice and required bitwise equal (``WKV_BWD_FORMS``);
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -88,7 +93,8 @@ Phases, each printing its own lines; any failure exits nonzero:
    16 and 12 and the 1024 x 256 cross block at p = 3 x q = 12; WKV decode
    replayed from a CUDA graph, and prefill also with float32 r, k, v; the
    flash-attention backward at tinyllama's and gemma3's training shapes
-   beside SDPA's backward);
+   beside SDPA's backward; the WKV backward at rwkv6's training shape
+   beside its twin);
 9. model-based signature families (run after phase 5, at most 150 s):
    ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192) on
    phase 5's mix4 clients with LeNet-5 at 32x32x3, the experiment suite's
@@ -108,13 +114,18 @@ Phases, each printing its own lines; any failure exits nonzero:
    and parameters bitwise equal), then 5 steps of ``repro_torch.launch.train.main``
    with a fresh batch each step; (b) whole-model float32 gradients at full
    width, depth cut, card (kernels) against CPU (twins) for tinyllama,
-   gemma3, qwen2-moe, zamba2, whisper and internvl2; (c) an rwkv6
-   train-mode forward on the card raises (the WKV kernel has no backward).
+   gemma3, qwen2-moe, zamba2, whisper, internvl2 and rwkv6 (beside it the
+   CPU's own gradients after every weight moves by one float32 ulp); (c)
+   rwkv6-1.6b at full width and depth as (a): 10 steps on one batch (loss
+   down >= 0.5 nat, exactly 48 WKV forward and 24 backward launches a step,
+   no flash), then 5 launcher steps.  Each training run prints its warm
+   step time, tok/s, model-FLOP utilisation (``launch.roofline``), device
+   idle share, largest kernels and peak memory.
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, each federation and each server call of phase 5, each
 architecture of 6, each family call, federation and the move of 9, each
-training step of 10a) and read just after; launches that only check a result (phase 5's ``admit_oracle``
+training step of 10a and 10c) and read just after; launches that only check a result (phase 5's ``admit_oracle``
 and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
 fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
 windows and splits the proximity launches by route (eq3, eq2 and, above
@@ -124,9 +135,10 @@ Nothing of the JAX package is imported.
 
     python3 chip_smoke.py --time-kernels SRC
 
-builds the four kernels of the ``repro_torch`` under the directory SRC,
+builds the kernels of the ``repro_torch`` under the directory SRC,
 times tsgemm, flash attention (and its backward at phase 8's three
-training shapes), WKV (prefill and decode) and proximity (eq3
+training shapes), WKV (prefill and decode, and its backward at rwkv6's
+training shape where SRC has it) and proximity (eq3
 and eq2 at K = 1024, eq2 at K = 97, eq3 at K = 100, the any-rank route at
 p = 16 and 12 and at 3 x 12) at phase 8's shapes with phase 8's timers and
 prints one JSON line of milliseconds, with each source's ``nvcc`` seconds
@@ -298,7 +310,11 @@ TRAIN_F32 = (
     ("zamba2-7b", {"n_layers": 6}, 1, 256),
     ("whisper-medium", {"n_layers": 2, "encoder_layers": 2}, 2, 256),
     ("internvl2-26b", {"n_layers": 2}, 1, 320),
+    ("rwkv6-1.6b", {"n_layers": 2}, 2, 256),
 )
+# LM training (phase 10c): rwkv6-1.6b at full width and depth, phase 10a's
+# settings and limit, through the WKV kernels forward and backward.
+RWKV_TRAIN_ARCH = "rwkv6-1.6b"
 # Limits, fixed before the first run.  The backward kernel against its twin:
 # max|kernel - plain| / max|plain| of each of dq, dk, dv; both compute in
 # float32 from the same inputs, so float32 differs by summation order
@@ -308,6 +324,28 @@ TRAIN_F32 = (
 # operation, amplified through the depth).
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_REL_TOL = 1e-3
+# The WKV backward against its twin (phase 3), fixed before the first run:
+# both compute in float32 from the same inputs (the forward holds 1e-5), so
+# each gradient the kernel writes within 1e-4 of its max|plain|; with
+# bfloat16 r, k, v, the dr, dk, dv the WKV Function rounds to bfloat16 (once
+# an element, 2^-8 relative) within 1e-2.  The forms: rwkv6's training
+# shape at the model's slow decays and at fast ones, with and without state0
+# and dstateT, float32 and bfloat16 r, k, v, S = 1, 47 and 1111 (ragged), hd
+# 16, 32 and 128: (label, (B, S, H, hd), fast, r k v dtype, state0, dstateT).
+WKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+WKV_BWD_FORMS = (
+    ("rwkv6 training", (4, 2048, 32, 64), False, "bfloat16", False, False),
+    ("rwkv6 training, float32", (4, 2048, 32, 64), False, "float32", False, False),
+    ("rwkv6 shape, fast decay, state0, dstateT", (4, 2048, 32, 64), True, "bfloat16", True, True),
+    ("rwkv6 shape, fast decay, state0", (4, 2048, 32, 64), True, "float32", True, False),
+    ("rwkv6 shape, dstateT", (4, 2048, 32, 64), False, "float32", False, True),
+    ("S=1", (4, 1, 32, 64), True, "float32", True, True),
+    ("S=47 (recurrent forward)", (4, 47, 32, 64), False, "bfloat16", True, False),
+    ("ragged S=1111", (2, 1111, 32, 64), True, "float32", False, True),
+    ("hd 16", (2, 300, 8, 16), True, "bfloat16", True, True),
+    ("hd 32", (2, 300, 8, 32), False, "float32", False, False),
+    ("hd 128", (2, 300, 8, 128), True, "float32", True, True),
+)
 # The zoo's training forms besides phase 10's calls, checked in phase 3:
 # label, (B, Sq, Skv, Hq, Hkv, hd), causal, window.
 TRAINED_FORMS = (
@@ -327,7 +365,7 @@ TRAINED_FORMS = (
 # The revision in which each hand-written kernel was last redesigned (earlier
 # times are in PERF.md section 6).
 REDESIGNED_IN = {"flash_attention": 13, "flash_attention_bwd": 21, "tsgemm": 13,
-                 "wkv": {"prefill": 14, "decode": 16},
+                 "wkv": {"prefill": 14, "decode": 16}, "wkv_bwd": None,
                  "proximity": {"eq3": 14, "eq2": 16, "any_rank": 18}}
 
 
@@ -596,7 +634,16 @@ def phase_build() -> None:
                                  ("proximity", "eq2_reduce_ws<3, 3>", "eq2_reduce_wsILi3ELi3E"),
                                  ("proximity", "eq2_form_any", "eq2_form_any"),
                                  ("proximity", "eq2_jacobi_any", "eq2_jacobi_any"),
-                                 ("wkv", "wkv_step<64, bf16>", "wkv_stepILi64E13__nv_bfloat16E")):
+                                 ("wkv", "wkv_step<64, bf16>", "wkv_stepILi64E13__nv_bfloat16E"),
+                                 # the WKV backward at rwkv6's head dim (each
+                                 # sub-block start state in registers) and hd 128
+                                 ("wkv_bwd", "wkv_bwd_grad<64, bf16>",
+                                  "wkv_bwd_gradILi64E13__nv_bfloat16E"),
+                                 ("wkv_bwd", "wkv_bwd_grad<64, float>", "wkv_bwd_gradILi64EfE"),
+                                 ("wkv_bwd", "wkv_bwd_grad<128, float>", "wkv_bwd_gradILi128EfE"),
+                                 ("wkv_bwd", "wkv_bwd_chunk<64, bf16>",
+                                  "wkv_bwd_chunkILi64E13__nv_bfloat16E"),
+                                 ("wkv_bwd", "wkv_bwd_scan<64>", "wkv_bwd_scanILi64EE")):
         usage = resource_usage(_build.library_path(name), mangled)
         if usage is None:
             log("build", f"{label}: not in cuobjdump's resource usage")
@@ -973,6 +1020,56 @@ def check_wkv(torch, device, errs: list) -> None:
     compare("prefill with state0, fast decay, bfloat16 r k v", bf16(fast), state0)
     compare("ragged: S=1000 with state0, fast decay",
             tuple(a[:, :1000] if i < 4 else a for i, a in enumerate(fast)), state0)
+
+
+def wkv_bwd_operands(torch, gen, dims, fast, dtype, with_state, with_dT, device):
+    """r, k, v (in ``dtype``), w, u at ``wkv_inputs``' scales, and dout,
+    state0 (0.1 x normal) and dstateT (normal) or None."""
+    B, S, H, hd = dims
+    r, k, v, w, u = wkv_inputs(torch, gen, B, S, H, hd, device, fast=fast)
+    dout = torch.randn((B, S, H, hd), generator=gen, device=device)
+    s0 = (0.1 * torch.randn((B, H, hd, hd), generator=gen, device=device)
+          if with_state else None)
+    dT = torch.randn((B, H, hd, hd), generator=gen, device=device) if with_dT else None
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, u), dout, s0, dT
+
+
+def check_wkv_bwd(torch, device, errs: list) -> None:
+    """Phase 3, the WKV backward: at each of WKV_BWD_FORMS, the forward's
+    chunk-start states, then dr, dk, dv, dw, du, dstate0 of two launches
+    (bitwise equal) against the plain twin's (WKV_BWD_TOL)."""
+    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    for label, dims, fast, dtype_name, with_state, with_dT in WKV_BWD_FORMS:
+        dtype = getattr(torch, dtype_name)
+        (r, k, v, w, u), dout, s0, dT = wkv_bwd_operands(torch, gen, dims, fast, dtype,
+                                                         with_state, with_dT, device)
+        _, _, starts = wkv_cuda(r, k, v, w, u, s0, return_starts=True)
+        got = wkv_bwd_cuda(r, k, v, w, u, dout, starts, dT)
+        again = wkv_bwd_cuda(r, k, v, w, u, dout, starts, dT)
+        want = wkv_bwd_plain(r, k, v, w, u, dout, s0, dT)
+        torch.cuda.synchronize()
+        scale = [b.abs().max().item() for b in want]
+        rel = [(a - b).abs().max().item() / sc for a, b, sc in zip(got, want, scale)]
+        # the gradients the WKV Function hands back: dr, dk, dv in r, k, v's dtype
+        handed = [(a.to(dtype).float() - b).abs().max().item() / sc
+                  for a, b, sc in zip(got[:3], want[:3], scale[:3])]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        log("kernels", f"wkv backward {label}: r {tuple(r.shape)} {dtype_name}, "
+            f"{'fast' if fast else 'slow'} decay, state0 {with_state}, dstateT {with_dT}: "
+            f"{', '.join(f'{n} {x:.2e}' for n, x in zip(names, rel))} of max|plain| (limit "
+            f"{WKV_BWD_TOL['float32']}); in {dtype_name} dr, dk, dv "
+            f"{', '.join(f'{x:.2e}' for x in handed)} (limit {WKV_BWD_TOL[dtype_name]}); two "
+            f"launches bitwise equal: {same}")
+        require(finite and same and max(rel) <= WKV_BWD_TOL["float32"]
+                and max(handed) <= WKV_BWD_TOL[dtype_name],
+                f"wkv backward {label}: {rel}, {handed}, bitwise {same}")
+        errs.append(max((a - b).abs().max().item() for a, b in zip(got, want)))
+        del r, k, v, w, u, dout, s0, dT, starts, got, again, want
+    torch.cuda.empty_cache()
 
 
 def planted_data(torch, fed) -> dict:
@@ -1646,11 +1743,11 @@ def phase_families(torch, device, main, fl) -> dict:
 
 def kernel_calls(cfg, kernel: str, prefill: bool) -> int:
     """Launches of ``kernel`` in one forward of ``cfg``: its attention calls
-    (``lm.attention_calls``), one WKV call per RWKV6 layer."""
+    (``lm.attention_calls``) or WKV calls (``lm.wkv_calls``)."""
     from repro_torch.models import lm
 
     if kernel == "wkv":
-        return cfg.n_layers if cfg.block_kind == "rwkv6" else 0
+        return lm.wkv_calls(cfg)
     return lm.attention_calls(cfg, prefill)
 
 
@@ -1963,17 +2060,19 @@ def check_flash_bwd(torch, device, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _loss_drop_run(torch, device, checked: set) -> dict:
-    """Phase 10a: TRAIN_STEPS steps of ``make_train_step`` on one repeated
-    batch, the launch counts of each step set to 0 just before it and read
-    just after."""
-    from repro_torch.configs import get_config
+def _loss_drop_run(torch, device, checked: set, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 10a (10c for rwkv6): TRAIN_STEPS steps of ``make_train_step``
+    on one repeated batch, the launch counts of each step set to 0 just
+    before it and read just after, each step's required to be
+    ``lm.train_step_launches``."""
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.kernels import _build
+    from repro_torch.launch.roofline import model_flop_utilisation
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import lm
     from repro_torch.optim import adamw, cosine_schedule
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, compute_dtype=torch.bfloat16,
                             device=device)
     opt = adamw(cosine_schedule(TRAIN_LR, warmup=2, total=TRAIN_STEPS))
@@ -1981,9 +2080,9 @@ def _loss_drop_run(torch, device, checked: set) -> dict:
     step = lm.make_train_step(opt)
     batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
                             torch.Generator(device=device).manual_seed(SEED))
-    calls = lm.attention_calls(cfg, True)
+    want = lm.train_step_launches(cfg)
     n_params = sum(p.numel() for p in params.parameters())
-    log("train", f"{TRAIN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} "
+    log("train", f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} "
         f"B parameters, float32 masters, bfloat16 compute, remat {cfg.remat}; AdamW, "
         f"cosine_schedule({TRAIN_LR}, warmup=2, total={TRAIN_STEPS}); batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, one batch repeated")
@@ -2000,29 +2099,56 @@ def _loss_drop_run(torch, device, checked: set) -> dict:
             counts.append(dict(_build.LAUNCHES))
             losses.append(loss)
             log("train", f"step {i}: loss {loss:.4f}, {seconds[-1]:.3f} s, launches {counts[-1]}")
-    want = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
-    require(all(c == want for c in counts), f"{TRAIN_ARCH} training launches {counts}, "
+    require(all(c == want for c in counts), f"{arch} training launches {counts}, "
             f"expected {want} a step")
-    require_checked(f"{TRAIN_ARCH} training", flash_log.forms, checked)
+    require_checked(f"{arch} training", flash_log.forms, checked)
     require(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
     require(losses[-1] <= losses[0] - TRAIN_MIN_DROP,
             f"loss fell {losses[0] - losses[-1]:.4f} nat in {TRAIN_STEPS} steps "
             f"(at least {TRAIN_MIN_DROP} required)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     warm = statistics.median(seconds[1:])
+    mfu = model_flop_utilisation(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"), warm)
     # the device's share of a warm step: its kernels' device time (torch.profiler)
     kernels = profile_ms(torch, lambda: step(params, state, batch), iters=1)
     busy = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    log("train", f"{TRAIN_ARCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps "
+    wkv_bwd_ms = sum(v for k, v in kernels.items() if "wkv_bwd" in k)
+    wkv_note = f"WKV backward {wkv_bwd_ms:.1f} ms of the step; " if "wkv_bwd" in want else ""
+    log("train", f"{arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps "
         f"(limit: down {TRAIN_MIN_DROP}); first step {seconds[0]:.3f} s, warm step median "
-        f"{warm:.4f} s on the host clock ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} tok/s); "
-        f"kernels {busy:.4f} s of a profiled step, device idle {1 - busy / warm:.1%}; peak "
-        f"{peak:.1f} GiB allocated; flash launches a step {counts[-1]}")
+        f"{warm:.4f} s on the host clock ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} tok/s, model-FLOP "
+        f"utilisation {mfu:.1%} of 989 TFLOP/s); kernels {busy:.4f} s of a profiled step, "
+        f"device idle {1 - busy / warm:.1%}; {wkv_note}peak {peak:.1f} GiB allocated; launches "
+        f"a step {counts[-1]}")
     log("train", "largest kernels of a step (ms): " + ", ".join(f"{k[:60]} {v:.1f}" for k, v in top))
     return {"losses": losses, "step_s": warm, "first_s": seconds[0], "peak_gib": peak,
-            "idle": 1 - busy / warm, "launches": counts[-1],
-            "run_launches": {k: sum(c[k] for c in counts) for k in want}}
+            "idle": 1 - busy / warm, "mfu": mfu, "wkv_bwd_ms": wkv_bwd_ms,
+            "launches": counts[-1], "run_launches": {k: sum(c[k] for c in counts) for k in want}}
+
+
+def _launcher_steps(torch, arch: str) -> list:
+    """TRAIN_LAUNCHER_STEPS steps of ``launch.train.main`` at phase 10's
+    batch, a fresh batch each, its launches ``lm.train_step_launches`` a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", arch, "--steps", str(TRAIN_LAUNCHER_STEPS), "--batch",
+                         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    log("train", f"launch.train.main --arch {arch}: {TRAIN_LAUNCHER_STEPS} steps, a fresh batch "
+        f"each, losses {[round(x, 4) for x in losses]} in {time.perf_counter() - t0:.1f} s; "
+        f"launches {dict(_build.LAUNCHES)}")
+    require(len(losses) == TRAIN_LAUNCHER_STEPS and all(math.isfinite(x) for x in losses),
+            f"launch.train {arch} losses {losses}")
+    want = {k: n * TRAIN_LAUNCHER_STEPS for k, n in lm.train_step_launches(get_config(arch)).items()}
+    require(dict(_build.LAUNCHES) == want, f"launch.train {arch} launches {dict(_build.LAUNCHES)}")
+    torch.cuda.empty_cache()
+    return losses
 
 
 def _same_seed_steps(torch, device) -> dict:
@@ -2066,16 +2192,26 @@ def _same_seed_steps(torch, device) -> dict:
     return {"losses": la, "bitwise": same}
 
 
+def _worst_leaf(grads: dict, want: dict) -> tuple[float, str]:
+    """The largest max|g - want| / max|want| over the leaves, and its leaf."""
+    worst, worst_name = 0.0, ""
+    for name, g in want.items():
+        scale = g.abs().max().item()
+        rel = (grads[name] - g).abs().max().item() / (scale if scale > 0 else 1.0)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
 def phase_lm_training(torch, device, checked: set) -> dict:
     """Phase 10: (a) tinyllama-1.1b training at full width, then the
-    launcher; (b) whole-model float32 gradients, card against CPU; (c) rwkv6
-    training on the card raises."""
+    launcher; (b) whole-model float32 gradients, card against CPU; (c)
+    rwkv6-1.6b training at full width, then the launcher."""
     import dataclasses
 
     from repro_torch._device import float32_math
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.launch import train
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import lm, moe
 
@@ -2083,20 +2219,7 @@ def phase_lm_training(torch, device, checked: set) -> dict:
     out = _loss_drop_run(torch, device, checked)
     torch.cuda.empty_cache()
     out["repeat"] = _same_seed_steps(torch, device)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    losses = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_LAUNCHER_STEPS), "--batch",
-                         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
-    calls = lm.attention_calls(get_config(TRAIN_ARCH), True)
-    log("train", f"launch.train.main: {TRAIN_LAUNCHER_STEPS} steps, a fresh batch each, losses "
-        f"{[round(x, 4) for x in losses]} in {time.perf_counter() - t0:.1f} s; launches "
-        f"{dict(_build.LAUNCHES)}")
-    require(len(losses) == TRAIN_LAUNCHER_STEPS and all(math.isfinite(x) for x in losses),
-            f"launch.train losses {losses}")
-    require(dict(_build.LAUNCHES) == {"flash_attention": 2 * calls * TRAIN_LAUNCHER_STEPS,
-                                      "flash_attention_bwd": calls * TRAIN_LAUNCHER_STEPS},
-            f"launch.train launches {dict(_build.LAUNCHES)}")
-    torch.cuda.empty_cache()
+    _launcher_steps(torch, TRAIN_ARCH)
 
     # (b) whole-model float32 gradients: kernels on the card, twins on the CPU
     for arch, cut, batch_size, seq in TRAIN_F32:
@@ -2111,27 +2234,31 @@ def phase_lm_training(torch, device, checked: set) -> dict:
             sync(torch, device)
         t1 = time.perf_counter()
         launches = dict(_build.LAUNCHES)
-        calls = lm.attention_calls(cfg, True)
-        require(launches == {"flash_attention": 2 * calls, "flash_attention_bwd": calls},
-                f"{arch} float32 gradients: launches {launches}, {calls} attention calls")
+        require(launches == lm.train_step_launches(cfg),
+                f"{arch} float32 gradients: launches {launches}, expected "
+                f"{lm.train_step_launches(cfg)}")
         require_checked(f"{arch} float32 training", flash_log.forms, checked)
         grads = {n: g.cpu() for n, g in grads.items()}
         params = params.to("cpu")
+        batch = {k: v.cpu() for k, v in batch.items()}
         t2 = time.perf_counter()
         with _RouteLog(moe) as cpu_routes:
-            want_loss, want = lm.value_and_grad(params, {k: v.cpu() for k, v in batch.items()})
+            want_loss, want = lm.value_and_grad(params, batch)
         t3 = time.perf_counter()
-        worst, worst_name = 0.0, ""
-        for name, g in want.items():
-            scale = g.abs().max().item()
-            rel = (grads[name] - g).abs().max().item() / (scale if scale > 0 else 1.0)
-            if rel > worst:
-                worst, worst_name = rel, name
+        worst, worst_name = _worst_leaf(grads, want)
         loss_rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        floor = ""
+        if cfg.block_kind == "rwkv6":
+            # how far the CPU twin's own gradients move when every weight
+            # moves by one float32 ulp (phase 7's floor, for gradients)
+            _, moved = lm.value_and_grad(_ulp_perturbed(torch, params), batch)
+            ulp, ulp_name = _worst_leaf(moved, want)
+            floor = f"; one-ulp weight floor (CPU) {ulp:.3e} (leaf {ulp_name})"
         log("train32", f"{arch} float32, depth cut {cut}, batch {batch_size} x {seq}: loss card "
             f"{loss.item():.6f} CPU {want_loss.item():.6f} (relative {loss_rel:.2e}); worst "
             f"gradient leaf {worst_name}: {worst:.3e} of its max |g| (limit {GRAD_REL_TOL}) over "
-            f"{len(want)} leaves; launches {launches}; card {t1 - t0:.2f} s, CPU {t3 - t2:.2f} s")
+            f"{len(want)} leaves{floor}; launches {launches}; card {t1 - t0:.2f} s, CPU "
+            f"{t3 - t2:.2f} s")
         if cfg.is_moe:
             pairs = list(zip(card_routes.choices, cpu_routes.choices))
             differ = sum(int((a != b).sum()) for a, b in pairs)
@@ -2140,24 +2267,18 @@ def phase_lm_training(torch, device, checked: set) -> dict:
                 f"differ between the card and the CPU ({len(pairs)} route calls, remat included)")
         require(math.isfinite(loss.item()) and loss_rel <= GRAD_REL_TOL and worst <= GRAD_REL_TOL,
                 f"{arch} float32 gradients: loss {loss_rel}, worst leaf {worst_name} {worst}")
+        if cfg.block_kind == "rwkv6":
+            for name in want:
+                if name.rsplit(".", 1)[-1] in ("w_base", "w_A", "w_B", "u"):
+                    require(grads[name].abs().max().item() > 0,
+                            f"{arch}: the decay / bonus leaf {name} has a zero gradient")
         del params, grads, want, batch
         torch.cuda.empty_cache()
 
-    # (c) rwkv6 cannot train on the card yet
-    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=1)
-    params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, compute_dtype=torch.bfloat16,
-                            device=device)
-    batch = synthetic_batch(cfg, 1, 64, torch.Generator(device=device).manual_seed(SEED))
-    try:
-        lm.value_and_grad(params, batch)
-        raised = None
-    except NotImplementedError as exc:
-        raised = str(exc)
-    log("train", f"rwkv6-1.6b (1 layer) train-mode forward on the card raises: {raised!r}")
-    require(raised is not None and "ROADMAP Queue 1, the WKV backward" in raised,
-            "rwkv6 training on the card did not raise the WKV backward's NotImplementedError")
-    del params
+    # (c) rwkv6-1.6b at full width and depth through the WKV kernels
+    out["rwkv"] = _loss_drop_run(torch, device, checked, RWKV_TRAIN_ARCH)
     torch.cuda.empty_cache()
+    _launcher_steps(torch, RWKV_TRAIN_ARCH)
     log("train", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2230,6 +2351,53 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
         del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
         torch.cuda.empty_cache()
     return rows
+
+
+# The WKV backward's timed shape (phase 8 and --time-kernels): rwkv6's
+# training call, bfloat16 r, k, v at the model's decays.
+WKV_BWD_TIMED = (4, 2048, 32, 64)
+
+
+def wkv_bwd_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
+    """The WKV backward's least time: 12 flops a step and state entry
+    (recomputing the state 2; dS 2; dr, dk, dv and dw 2 each) at the FP32
+    rate, or r, k, v (``rkv_bytes`` each), w, dout, u and the chunk-start
+    states read and dr, dk, dv, dw (float32), du and dstate0 written once."""
+    from repro_torch.kernels.wkv import wkv_bwd_plan
+
+    n = B * S * H * hd
+    starts = B * H * wkv_bwd_plan(S).n_chunks * hd * hd
+    return bound(rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + starts)
+                 + 4.0 * (4 * n + H * hd + B * H * hd * hd), 12.0 * n * hd)
+
+
+def wkv_bwd_rows(torch, device, train, errs) -> list:
+    """Phase 8's row for the WKV backward at rwkv6's training shape: the
+    kernel and its plain twin beside the bound; no library call computes
+    it."""
+    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    (r, k, v, w, u), dout, _, _ = wkv_bwd_operands(torch, gen, WKV_BWD_TIMED, False,
+                                                   torch.bfloat16, False, False, device)
+    _, _, starts = wkv_cuda(r, k, v, w, u, return_starts=True)
+    ms = time_ms(torch, lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=10)
+    plain_ms = time_ms(torch, lambda: wkv_bwd_plain(r, k, v, w, u, dout), warmup=1, iters=3)
+    b_ms, b_by = wkv_bwd_bound(*WKV_BWD_TIMED, rkv_bytes=2)
+    log("time", f"wkv backward r {tuple(r.shape)} bf16 (rwkv6 training): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.1%} of the bound")
+    del r, k, v, w, u, dout, starts
+    torch.cuda.empty_cache()
+    return [{
+        "name": "wkv_bwd", "route": "cuda", "source": "src/repro_torch/csrc/wkv_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:303",
+        "note": "the reference differentiates rwkv_time_mix's scan with JAX's autodiff; the "
+                "TPU kernel src/repro/kernels/wkv/wkv.py:53 is forward only",
+        "launches": train["rwkv"]["run_launches"]["wkv_bwd"], "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "ported": 22, "redesigned": REDESIGNED_IN["wkv_bwd"],
+    }]
 
 
 def prox_bound(K: int, n: int, p: int, measure: str) -> tuple[float, str]:
@@ -2648,6 +2816,16 @@ def time_kernels(torch) -> dict:
     one = torch.zeros(1, device=device)
     ms["graph replay floor (one-element add)"] = graph_ms(torch, lambda: one.add_(1.0), reps=20)
     del ops, step, step_bf16, state
+    if "wkv_bwd" in _build.KERNELS:   # trees from before the WKV backward lack it
+        from repro_torch.kernels.wkv import wkv_bwd_cuda
+
+        (r, k, v, w, u), dout, _, _ = wkv_bwd_operands(torch, gen, WKV_BWD_TIMED, False, bf16,
+                                                       False, False, device)
+        _, _, starts = wkv_cuda(r, k, v, w, u, return_starts=True)
+        ms["wkv backward bf16"] = time_ms(
+            torch, lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=10)
+        bounds["wkv backward bf16"] = wkv_bwd_bound(*WKV_BWD_TIMED, rkv_bytes=2)[0]
+        del r, k, v, w, u, dout, starts
     fed = Federation(torch, device)
     bounds.update({
         "wkv decode (graph replay)": wkv_decode_bound(LM_BATCH, H, hd, rkv_bytes=4)[0],
@@ -2885,7 +3063,7 @@ def main(argv=None) -> int:
     phase_build()
     done("phase 2 (build)")
     fed = Federation(torch, torch.device("cuda"))
-    errs = {"proximity": [], "tsgemm": [], "wkv": [],
+    errs = {"proximity": [], "tsgemm": [], "wkv": [], "wkv_bwd": [],
             "flash_attention": {torch.float32: [], torch.bfloat16: [], "by_case": {}},
             "flash_attention_bwd": {torch.float32: [], torch.bfloat16: [], "by_case": {}}}
     check_proximity(torch, fed, errs["proximity"])
@@ -2893,6 +3071,7 @@ def main(argv=None) -> int:
     check_flash(torch, fed.device, errs["flash_attention"])
     check_flash_bwd(torch, fed.device, errs["flash_attention_bwd"])
     check_wkv(torch, fed.device, errs["wkv"])
+    check_wkv_bwd(torch, fed.device, errs["wkv_bwd"])
     done("phase 3 (kernels vs plain)")
     main_path = phase_main_path(torch, fed)
     any_rank = phase_any_rank(torch, fed.device)
@@ -2920,6 +3099,7 @@ def main(argv=None) -> int:
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
+    rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
     done("phase 8 (timings)")
     print(device["smi"])
     print(json.dumps({"kernels": rows}))

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 )
 
 # Every kernel source in csrc/, by name.
-KERNELS = ("proximity", "tsgemm", "flash_attention", "flash_attention_bwd", "wkv")
+KERNELS = ("proximity", "tsgemm", "flash_attention", "flash_attention_bwd", "wkv",
+           "wkv_bwd")
 
 LAUNCHES: collections.Counter = collections.Counter()
 ROUTE_LAUNCHES: collections.Counter = collections.Counter()

@@ -9,6 +9,13 @@ chunked route (``repro_torch/csrc/wkv.cu``), in plain PyTorch: per-chunk
 state contributions, a scan over the chunks, then per-chunk outputs, each
 chunk walked in sub-blocks.  Every decay factor is a product of w's, never
 a quotient, so no factor overflows however fast the decay.
+
+The backward has two twins.  :func:`wkv_bwd_ref` steps the reverse-time
+recurrence one step at a time from every forward state (the CPU path's
+backward and the card's yardstick); :func:`wkv_bwd_chunked_ref` computes the
+same gradients by the CUDA backward's own schedule
+(``repro_torch/csrc/wkv_bwd.cu``).  Neither divides by w: a decay that
+underflows to 0 gives the gradient the recurrence gives.
 """
 from __future__ import annotations
 
@@ -169,3 +176,166 @@ def wkv_chunked_ref(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
     out = torch.stack(outs, dim=3)           # (B, H, chunks, sub-blocks, sub, hd)
     out = out.permute(0, 2, 3, 4, 1, 5).reshape(B, n * chunk, H, hd)[:, :S]
     return out.contiguous(), s
+
+
+def _zeros_or(state, shape, like):
+    return (like.new_zeros(shape, dtype=torch.float32) if state is None else state.float())
+
+
+def wkv_bwd_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
+                dstateT: Optional[torch.Tensor] = None):
+    """Gradients of :func:`wkv_ref`, stepped backward in time in float32.
+
+    ``dout`` (B, S, H, hd) and ``dstateT`` (B, H, hd, hd, or None for zeros)
+    are the gradients of the output and of the final state.  Returns (dr,
+    dk, dv, dw, du, dstate0), all float32.  With the forward's states S_t
+    (kept for every step) and dS_{t+1} the gradient of the state after step
+    t, from dS_S = dstateT:
+
+      dr_t = S_t dout_t + u k_t (dout_t . v_t)
+      dk_t = r_t u (dout_t . v_t) + dS_{t+1} v_t
+      dv_t = (sum_i r_t u k_t) dout_t + dS_{t+1}^T k_t
+      dw_t = sum_j dS_{t+1} * S_t;   du += r_t k_t (dout_t . v_t)
+      dS_t = diag(w_t) dS_{t+1} + r_t dout_t^T
+    """
+    B, S, H, hd = r.shape
+    r, k, v, w, dout = (a.float() for a in (r, k, v, w, dout))
+    u = u.float()
+    s = _zeros_or(state0, (B, H, hd, hd), r)
+    states = []
+    for t in range(S):
+        states.append(s)
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    ds = _zeros_or(dstateT, (B, H, hd, hd), r)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in reversed(range(S)):
+        rt, kt, vt, wt, dot = r[:, t], k[:, t], v[:, t], w[:, t], dout[:, t]   # (B, H, hd)
+        st = states[t]
+        dov = (dot * vt).sum(-1, keepdim=True)                                  # (B, H, 1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", st, dot) + u * kt * dov
+        dk[:, t] = rt * u * dov + torch.einsum("bhij,bhj->bhi", ds, vt)
+        dv[:, t] = ((rt * u * kt).sum(-1, keepdim=True) * dot
+                    + torch.einsum("bhij,bhi->bhj", ds, kt))
+        dw[:, t] = (ds * st).sum(-1)
+        du = du + (rt * kt * dov).sum(0)
+        ds = wt[..., None] * ds + rt[..., None] * dot[:, :, None, :]
+    return dr, dk, dv, dw, du, ds
+
+
+def wkv_bwd_chunked_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
+                        dstateT: Optional[torch.Tensor] = None, *,
+                        starts: Optional[torch.Tensor] = None, chunk: Optional[int] = None,
+                        sub: int = 16, cols: int = 16):
+    """The gradients of :func:`wkv_bwd_ref` by the CUDA backward's schedule.
+
+    The sequence is cut into chunks of ``chunk`` steps (by default the
+    kernel's ``wkv.CHUNK``; the last padded with r = k = v = dout = 0, w = 1,
+    which change neither the state nor its gradient), each chunk into
+    sub-blocks of ``sub`` steps and the state's columns into slices of
+    ``cols``.  ``starts`` (B, H, chunks, hd, hd) are the chunk-start states
+    the forward's chunked route keeps; by default they are stepped here.
+
+    1. For every chunk, its share of the state gradient at its start,
+       G_c = sum_t (prod_{c0 <= m < t} w_m) r_t dout_t^T, and its decay
+       D_c = prod_t w_t (products formed forward, never divided).
+    2. The reverse scan dS_start(c) = D_c * dS_end(c) + G_c from dstateT
+       gives the gradient at every chunk's end, and dstate0.
+    3. For every chunk and slice of columns: the start state of each
+       sub-block, stepped forward from the chunk's start state; then the
+       sub-blocks last first: its states stepped forward again, then its
+       steps walked backward carrying the slice's dS, each step adding the
+       slice's part of dr, dk, dw (slices added in order) and writing dv
+       for the slice's columns.
+    4. du: each chunk's sum over its steps (summed over slices), then
+       summed over batch rows and chunks in order.
+    """
+    if chunk is None:
+        from repro_torch.kernels.wkv.wkv import CHUNK as chunk   # wkv imports this module
+    if chunk <= 0 or sub <= 0 or chunk % sub:
+        raise ValueError(f"chunk {chunk} must be a positive multiple of sub {sub}")
+    B, S, H, hd = r.shape
+    if cols <= 0 or hd % cols:
+        raise ValueError(f"cols {cols} must divide the head dim {hd}")
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def blocks(a, fill):
+        a = a.float()
+        if pad:
+            a = torch.cat([a, a.new_full((B, pad, H, hd), fill)], dim=1)
+        return a.reshape(B, n, chunk, H, hd).permute(0, 3, 1, 2, 4)   # (B, H, n, chunk, hd)
+
+    r, k, v, dout = (blocks(a, 0.0) for a in (r, k, v, dout))
+    w = blocks(w, 1.0)
+    u = u.float()[None, :, None, :]                                    # (1, H, 1, hd)
+    if starts is None:
+        s = _zeros_or(state0, (B, H, hd, hd), r)
+        kept = []
+        for c in range(n):
+            kept.append(s)
+            for t in range(chunk):
+                s = w[:, :, c, t, :, None] * s + k[:, :, c, t, :, None] * v[:, :, c, t, None, :]
+        starts = torch.stack(kept, dim=2)
+    starts = starts.float()
+
+    # 1. chunk contributions and decays
+    f = torch.ones_like(w[:, :, :, 0])
+    G = r.new_zeros((B, H, n, hd, hd))
+    for t in range(chunk):
+        G = G + (f * r[:, :, :, t])[..., None] * dout[:, :, :, t, None, :]
+        f = f * w[:, :, :, t]
+    # 2. reverse scan over chunks
+    g = _zeros_or(dstateT, (B, H, hd, hd), r)
+    ends = [None] * n
+    for c in reversed(range(n)):
+        ends[c] = g
+        g = f[:, :, c, :, None] * g + G[:, :, c]
+    dstate0 = g
+    ends = torch.stack(ends, dim=2)                                    # (B, H, n, hd, hd)
+
+    # 3. per chunk and slice: sub-blocks last first, steps last first
+    def advance(s, t, J):
+        return w[:, :, :, t, :, None] * s + k[:, :, :, t, :, None] * v[:, :, :, t, None, J]
+
+    dr, dk, dw = (torch.zeros_like(r) for _ in range(3))
+    dv = torch.empty_like(r)
+    du_part = torch.zeros_like(r[:, :, :, 0])                          # (B, H, n, hd)
+    for sl in range(hd // cols):
+        J = slice(sl * cols, (sl + 1) * cols)
+        s = starts[..., J]
+        sub_starts = []
+        for b0 in range(0, chunk, sub):
+            sub_starts.append(s)
+            for t in range(b0, b0 + sub):
+                s = advance(s, t, J)
+        ds = ends[..., J]
+        for si in reversed(range(chunk // sub)):
+            b0 = si * sub
+            s, kept = sub_starts[si], []
+            for t in range(b0, b0 + sub):
+                kept.append(s)
+                s = advance(s, t, J)
+            for t in reversed(range(b0, b0 + sub)):
+                rt, kt, wt = r[:, :, :, t], k[:, :, :, t], w[:, :, :, t]     # (B, H, n, hd)
+                vt, dt = v[:, :, :, t, J], dout[:, :, :, t, J]
+                st = kept[t - b0]                                           # (B, H, n, hd, cols)
+                dot = (dt * vt).sum(-1, keepdim=True)
+                dr[:, :, :, t] += (st * dt[..., None, :]).sum(-1) + u * kt * dot
+                dk[:, :, :, t] += (ds * vt[..., None, :]).sum(-1) + rt * u * dot
+                dw[:, :, :, t] += (ds * st).sum(-1)
+                dv[:, :, :, t, J] = (kt[..., None] * ds
+                                     + (rt * u * kt)[..., None] * dt[..., None, :]).sum(-2)
+                du_part += rt * kt * dot
+                ds = wt[..., None] * ds + rt[..., None] * dt[..., None, :]
+
+    # 4. du over batch rows, then chunks, in order
+    du = torch.zeros_like(u[0, :, 0])
+    for bi in range(B):
+        for c in range(n):
+            du = du + du_part[bi, :, c]
+
+    def unblock(a):
+        return a.permute(0, 2, 3, 1, 4).reshape(B, n * chunk, H, hd)[:, :S].contiguous()
+
+    return (unblock(dr), unblock(dk), unblock(dv), unblock(dw), du, dstate0)

@@ -9,8 +9,13 @@ groups of a column in one warp; decode and short sequences) and the chunked one
 under one call; prefill).  Both read r, k, v as float32 or
 bfloat16 and compute in float32.
 
-:func:`repro_torch.kernels.wkv.ops.wkv` takes the plain twin only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+The backward (``repro_torch/csrc/wkv_bwd.cu``, :func:`wkv_bwd_cuda`) walks
+the sequence in the chunks of :func:`wkv_bwd_plan` from the forward's
+chunk-start states (``wkv_cuda(..., return_starts=True)``), recomputing the
+states inside each chunk; :func:`wkv_bwd_plain` is its twin.
+
+:func:`repro_torch.kernels.wkv.ops.wkv` takes the plain twins only for
+tensors on the CPU; for CUDA tensors it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_BATCH = 65535
@@ -39,6 +44,8 @@ CHUNKED_MIN_S = 48
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
 
 
 class WkvPlan(NamedTuple):
@@ -61,6 +68,16 @@ def wkv_plan(S: int) -> WkvPlan:
     return WkvPlan("chunked", CHUNK, -(-S // CHUNK))
 
 
+def wkv_bwd_plan(S: int) -> WkvPlan:
+    """The backward's chunks for a sequence of ``S`` steps: chunks of
+    ``CHUNK`` whatever the forward's route, so that a sequence shorter than
+    ``CHUNKED_MIN_S`` (recurrent forward, no chunk states) is one chunk
+    starting from state0."""
+    if S < 1:
+        raise ValueError(f"S must be positive, got {S}")
+    return WkvPlan("chunked", CHUNK, -(-S // CHUNK))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv")
     if lib.wkv_fwd.argtypes is None:
@@ -68,6 +85,16 @@ def _lib() -> ctypes.CDLL:
         lib.wkv_fwd.restype = ctypes.c_int
         lib.wkv_error_string.argtypes = [ctypes.c_int]
         lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("wkv_bwd")
+    if lib.wkv_bwd.argtypes is None:
+        lib.wkv_bwd.argtypes = _BWD_ARGTYPES
+        lib.wkv_bwd.restype = ctypes.c_int
+        lib.wkv_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.wkv_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -94,34 +121,59 @@ def wkv_plain(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
     return wkv_ref(r, k, v, w, u, state0)
 
 
-def wkv_cuda(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
-    """Launch the CUDA kernel -> (out, final state), both float32.
+def wkv_bwd_plain(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
+                  dstateT: Optional[torch.Tensor] = None):
+    """Plain PyTorch twin of the backward kernel: the reverse-time
+    recurrence stepped from every forward state (:func:`wkv_bwd_ref`) ->
+    (dr, dk, dv, dw, du, dstate0), all float32."""
+    return wkv_bwd_ref(r, k, v, w, u, dout, state0, dstateT)
 
-    r, k, v: CUDA tensors of one dtype, float32 or bfloat16; w, u and state0
-    float32.  The route is :func:`wkv_plan` of the sequence length; one call
-    counts one launch whatever the route.
-    """
-    check_operands(r, k, v, w, u, state0)
-    operands = (r, k, v, w, u) + (() if state0 is None else (state0,))
+
+def _check_cuda_operands(fn: str, r, k, v, w, u, extra: dict) -> tuple[int, int, int, int]:
+    """The checks the forward and backward kernels share: CUDA tensors, r, k,
+    v of one dtype (float32 or bfloat16), w, u and ``extra`` float32, a head
+    dim and shape the kernels take.  Returns (B, S, H, hd)."""
+    operands = (r, k, v, w, u) + tuple(a for a in extra.values() if a is not None)
     for a in operands:
         if a.device.type != "cuda":
-            raise ValueError(f"wkv_cuda needs CUDA tensors, got {a.device}")
+            raise ValueError(f"{fn} needs CUDA tensors, got {a.device}")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"r, k, v must be one of float32 / bfloat16, got "
                          f"{r.dtype}, {k.dtype}, {v.dtype}")
-    for name, a in (("w", w), ("u", u), ("state0", state0)):
+    for name, a in (("w", w), ("u", u), *extra.items()):
         if a is not None and a.dtype != torch.float32:
-            raise ValueError(f"wkv_cuda takes a float32 {name}, got {a.dtype}")
+            raise ValueError(f"{fn} takes a float32 {name}, got {a.dtype}")
     B, S, H, hd = (int(s) for s in r.shape)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
     if min(B, S, H) == 0 or B > _MAX_BATCH or H > _MAX_BATCH or r.numel() >= 2**62:
         raise ValueError(f"unsupported shape {tuple(r.shape)}")
+    return B, S, H, hd
+
+
+def _aligned(*tensors):
+    """Each tensor contiguous and 16-byte aligned (the kernels load 4
+    elements at a time); None stays None."""
+    return tuple(a if a is None or a.data_ptr() % 16 == 0 else a.clone()
+                 for a in (None if x is None else x.contiguous() for x in tensors))
+
+
+def wkv_cuda(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
+             return_starts: bool = False):
+    """Launch the CUDA kernel -> (out, final state), both float32.
+
+    r, k, v: CUDA tensors of one dtype, float32 or bfloat16; w, u and state0
+    float32.  The route is :func:`wkv_plan` of the sequence length; one call
+    counts one launch whatever the route.  With ``return_starts`` the result
+    gains the state at the start of each of :func:`wkv_bwd_plan`'s chunks,
+    (B, H, chunks, hd, hd) float32, which the backward recomputes from: the
+    chunked route's own workspace, or state0 (zeros) as the one chunk of a
+    sequence the recurrent route takes.
+    """
+    check_operands(r, k, v, w, u, state0)
+    B, S, H, hd = _check_cuda_operands("wkv_cuda", r, k, v, w, u, {"state0": state0})
     plan = wkv_plan(S)
-    # contiguous and 16-byte aligned: the kernel loads 4 elements at a time
-    r, k, v, w, u, state0 = (
-        a if a is None or a.data_ptr() % 16 == 0 else a.clone()
-        for a in (None if x is None else x.contiguous() for x in (r, k, v, w, u, state0)))
+    r, k, v, w, u, state0 = _aligned(r, k, v, w, u, state0)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     stateT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     chunk, ws, wd = 0, None, None
@@ -146,4 +198,66 @@ def wkv_cuda(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
             f"(r {tuple(r.shape)}, {r.dtype}, {plan})"
         )
     _build.LAUNCHES["wkv"] += 1
-    return out, stateT
+    if not return_starts:
+        return out, stateT
+    if ws is None:   # one chunk (S < CHUNKED_MIN_S <= CHUNK), from state0
+        ws = (torch.zeros((B, H, 1, hd, hd), dtype=torch.float32, device=r.device)
+              if state0 is None else state0.reshape(B, H, 1, hd, hd).clone())
+    return out, stateT, ws
+
+
+def wkv_bwd_cuda(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = None):
+    """Launch the CUDA backward -> (dr, dk, dv, dw, du, dstate0), all
+    float32.
+
+    r, k, v, w, u as :func:`wkv_cuda` takes them; ``dout`` (B, S, H, hd) and
+    ``dstateT`` (B, H, hd, hd, or None for zeros) float32, the gradients of
+    the output and of the final state; ``starts`` the chunk-start states
+    that ``wkv_cuda(..., return_starts=True)`` gave for these operands.  Four
+    kernels (chunk shares of the state gradient, a reverse scan over the
+    chunks, each chunk's gradients, the sum of u's gradient) count one
+    launch.
+    """
+    check_operands(r, k, v, w, u)
+    B, S, H, hd = _check_cuda_operands("wkv_bwd_cuda", r, k, v, w, u, {
+        "dout": dout, "starts": starts, "dstateT": dstateT})
+    plan = wkv_bwd_plan(S)
+    if tuple(dout.shape) != (B, S, H, hd):
+        raise ValueError(f"dout must be {(B, S, H, hd)}, got {tuple(dout.shape)}")
+    if tuple(starts.shape) != (B, H, plan.n_chunks, hd, hd):
+        raise ValueError(f"starts must be {(B, H, plan.n_chunks, hd, hd)}, got "
+                         f"{tuple(starts.shape)}")
+    if dstateT is not None and tuple(dstateT.shape) != (B, H, hd, hd):
+        raise ValueError(f"dstateT must be {(B, H, hd, hd)}, got {tuple(dstateT.shape)}")
+    devices = {a.device for a in (r, dout, starts) + (() if dstateT is None else (dstateT,))}
+    if len(devices) != 1:
+        raise ValueError(f"operands on {sorted(map(str, devices))}")
+    r, k, v, w, u, dout, starts, dstateT = _aligned(r, k, v, w, u, dout, starts, dstateT)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=r.device)
+
+    dr, dk, dv, dw = (f32(B, S, H, hd) for _ in range(4))
+    du, dstate0 = f32(H, hd), f32(B, H, hd, hd)
+    # the chunks' state-gradient shares, overwritten by the scan with the
+    # gradient at each chunk's end; their decays; each chunk's share of du
+    wsd = f32(B, H, plan.n_chunks, hd, hd)
+    wd, du_part = f32(B, H, plan.n_chunks, hd), f32(B, H, plan.n_chunks, hd)
+    lib = _bwd_lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.wkv_bwd(
+            _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), dout.data_ptr(), starts.data_ptr(),
+            None if dstateT is None else dstateT.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            dstate0.data_ptr(), wsd.data_ptr(), wd.data_ptr(), du_part.data_ptr(),
+            B, S, H, hd, plan.chunk, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"wkv backward kernel launch failed: {lib.wkv_bwd_error_string(rc).decode()} "
+            f"(r {tuple(r.shape)}, {r.dtype}, {plan})"
+        )
+    _build.LAUNCHES["wkv_bwd"] += 1
+    return dr, dk, dv, dw, du, dstate0

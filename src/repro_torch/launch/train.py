@@ -9,9 +9,11 @@ steps and at the last.
     python -m repro_torch.launch.train --reduced --device cpu
 
 On the card the model keeps float32 masters and computes in bfloat16 (the
-reference's TPU policy), through the flash-attention kernels forward and
-backward; on the CPU it computes in float32 through their plain twins.
-rwkv6 trains on the CPU only (the WKV kernel has no backward yet).
+reference's TPU policy), through the flash-attention and WKV kernels
+forward and backward; on the CPU it computes in float32 through their plain
+twins.  Every family trains on both:
+
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 10 --batch 4 --seq 2048
 """
 from __future__ import annotations
 

@@ -120,6 +120,29 @@ def attention_calls(cfg: ArchConfig, prefill: bool) -> int:
     return calls + (cfg.encoder_layers if prefill else 0)
 
 
+def wkv_calls(cfg: ArchConfig) -> int:
+    """WKV calls (WKV kernel launches on the card) in one forward: one per
+    RWKV6 layer."""
+    return sum(stage.repeats * len(stage.sub) for stage in stages_for(cfg)
+               if stage.kind == "rwkv")
+
+
+def train_step_launches(cfg: ArchConfig) -> dict:
+    """Kernel launches of one training step on the card (one
+    :func:`value_and_grad`), by kernel: each attention and WKV call's
+    forward kernel once, twice with ``cfg.remat`` (the super-block runs
+    again in the backward), and its backward kernel once.  Kernels the
+    model does not call are left out."""
+    forwards = 2 if cfg.remat else 1
+    out = {}
+    attn, rwkv = attention_calls(cfg, True), wkv_calls(cfg)
+    if attn:
+        out.update(flash_attention=forwards * attn, flash_attention_bwd=attn)
+    if rwkv:
+        out.update(wkv=forwards * rwkv, wkv_bwd=rwkv)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------

@@ -13,12 +13,12 @@ kernel runs the prefill (the prompt) in parallel chunks and decode (one step)
 with each (batch, head) state on chip, in place of the reference's two-level
 ``lax.scan``; on the CPU its plain twin steps the same recurrence.
 
-Both blocks train under autograd as plain PyTorch (no in-place writes on
-the training path), the weights of two or more dimensions cast to the
-compute dtype where they are used, as the reference casts them per
-super-block.  The WKV kernel has no backward yet, so RWKV6 trains on the
-CPU, through the twin, and raises on the card (ROADMAP Queue 1, the WKV
-backward).
+Both blocks train under autograd (no in-place writes on the training
+path), the weights of two or more dimensions cast to the compute dtype
+where they are used, as the reference casts them per super-block.  Mamba2
+is plain PyTorch; RWKV6's WKV runs through the ``WKV`` autograd Function:
+on CUDA the forward kernel, then the hand-written backward kernel
+(``csrc/wkv_bwd.cu``), on the CPU their plain twins.
 """
 from __future__ import annotations
 

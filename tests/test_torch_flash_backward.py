@@ -166,23 +166,38 @@ def test_no_graph_without_grad():
 
 
 class _CardStandIn:
-    """Stands in for a CUDA tensor that autograd records: the WKV wrapper
-    must refuse it before it reads anything else."""
+    """Stands in for a CUDA tensor that autograd records (shape (1, 5, 2,
+    16); ``u`` (2, 16))."""
 
     device = torch.device("cuda")
     requires_grad = True
+    ndim = 4
+    shape = (1, 5, 2, 16)
 
 
-def test_wkv_on_the_card_refuses_to_train():
-    x = _CardStandIn()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the WKV backward"):
-        wkv(x, x, x, x, x)
-    # on the CPU the twin trains
+class _CardU(_CardStandIn):
+    shape = (2, 16)
+
+
+def test_wkv_on_the_card_trains_through_the_function(monkeypatch):
+    """On the card, where autograd records, the WKV wrapper hands its
+    operands to the WKV Function (forward and backward kernels) instead of
+    refusing them; on the CPU the same Function trains through the twins."""
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    x, u_card = _CardStandIn(), _CardU()
+    calls = []
+    monkeypatch.setattr(wkv_ops.WKV, "apply", lambda *a: calls.append(a) or "recorded")
+    assert wkv(x, x, x, x, u_card) == "recorded"
+    assert calls == [(x, x, x, x, u_card, None)]
+    monkeypatch.undo()
+    # on the CPU the twin trains, through the Function
     rng = np.random.default_rng(0)
     r, k, v = (torch.from_numpy(rng.normal(size=(1, 5, 2, 16)).astype(np.float32))
                .requires_grad_() for _ in range(3))
     w = torch.full((1, 5, 2, 16), 0.9)
     u = torch.zeros((2, 16))
     out, _ = wkv(r, k, v, w, u)
+    assert out.grad_fn is not None and "WKVBackward" in out.grad_fn.name()
     out.sum().backward()
     assert r.grad is not None and torch.isfinite(r.grad).all()

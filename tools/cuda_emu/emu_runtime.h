@@ -1,9 +1,10 @@
-// CPU thread emulation of the CUDA subset the port's proximity kernel uses,
-// for checking its index arithmetic and reductions without a GPU
-// (tools/cuda_emu/proximity_check.py).  A block's threads run as OS threads;
-// __syncthreads is a barrier over them, mma_f64 (m16n8k16 FP64) an exchange
-// among a warp's 32 threads, cp.async a plain copy (with its zero fill);
-// shared memory is poisoned with NaN at each block's start.
+// CPU thread emulation of the CUDA subset the port's proximity and WKV
+// backward kernels use, for checking their index arithmetic and reductions
+// without a GPU (tools/cuda_emu/proximity_check.py, wkv_bwd_check.py).  A
+// block's threads run as OS threads; __syncthreads is a barrier over them,
+// mma_f64 (m16n8k16 FP64) and __shfl_xor_sync exchanges among a warp's 32
+// threads, cp.async a plain copy (with its zero fill); bfloat16 is its
+// 16-bit pattern; shared memory is poisoned with NaN at each block's start.
 #pragma once
 #include <cmath>
 #include <cstddef>
@@ -34,6 +35,15 @@ template <class T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+struct __nv_bfloat16 { unsigned short bits; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__uint_as_float(unsigned(v.x.bits) << 16), __uint_as_float(unsigned(v.y.bits) << 16)}; }
 using std::min; using std::max;
 
 struct Barrier {
@@ -41,7 +51,7 @@ struct Barrier {
   explicit Barrier(int n_) : n(n_) {}
   void wait() { std::unique_lock<std::mutex> l(m); int g = gen; if (++count == n) { count = 0; gen++; cv.notify_all(); } else cv.wait(l, [&] { return gen != g; }); }
 };
-struct WarpScratch { Barrier bar{32}; double A[16][16]; double B[16][8]; };
+struct WarpScratch { Barrier bar{32}; double A[16][16]; double B[16][8]; float lanes[32]; };
 struct BlockCtx { Barrier* bar; std::vector<std::unique_ptr<WarpScratch>> warps; char* dyn; char* stat; };
 extern thread_local BlockCtx* emu_ctx;
 inline void __syncthreads() { emu_ctx->bar->wait(); }
@@ -64,6 +74,15 @@ inline void mma_f64(double (&d)[4], const double (&a)[8], const double (&b)[4]) 
     d[i] = s;
   }
   w.bar.wait();
+}
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  WarpScratch& w = *emu_ctx->warps[threadIdx.x / 32];
+  const int l = threadIdx.x % 32;
+  w.lanes[l] = v;
+  w.bar.wait();
+  const float got = w.lanes[l ^ off];
+  w.bar.wait();
+  return got;
 }
 template <class F> void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F fn) {
   gridDim = {grid.x, grid.y, grid.z}; blockDim = {block.x, block.y, block.z};

@@ -2,7 +2,8 @@
 
     python3 tools/cuda_emu/transform.py SRC.cu OUT.cpp
 
-Includes ``emu_runtime.h`` in place of ``cuda_runtime.h``, drops the inline
+Includes ``emu_runtime.h`` in place of ``cuda_runtime.h`` (and
+``cuda_bf16.h``, whose types it emulates), drops the inline
 PTX helpers that the header emulates (``cp_async*``, ``mma_f64``), turns
 shared-memory declarations into the emulated block's buffers and each
 ``kernel<<<grid, block, smem, stream>>>(args)`` into
@@ -14,6 +15,7 @@ import sys
 
 def transform(s: str) -> str:
     s = s.replace('#include <cuda_runtime.h>', '#include "emu_runtime.h"')
+    s = s.replace('#include <cuda_bf16.h>\n', '')
     for name in ('cp_async4', 'cp_async16', 'cp_async_commit', 'mma_f64'):
         s = re.sub(r'__device__ __forceinline__ void ' + name + r'\(.*?\n}\n', '', s, count=1,
                    flags=re.S)
