@@ -17,7 +17,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    p = 16 routes of phase 4b launch, with its registers and stack), and
    the registers and stack of the main paths' eq2, the any-rank eq2 reduce
    (``eq2_form_any``, ``eq2_jacobi_any``), WKV decode and the WKV
-   backward's kernels (no stack allowed);
+   backward's kernels (no stack allowed; its two tensor-core kernels
+   ``wkv_bwd_chunk_tc`` and ``wkv_bwd_grad_tc`` also with ``HMMA``
+   instructions, at hd 64 and 128 with bfloat16 and float32 r, k, v);
 3. kernels vs plain: each kernel against its plain PyTorch twin on the card,
    at the main paths' shapes plus ragged, cross, windowed, high-rank,
    split-KV / split-K, bfloat16 and fast-decay cases, and the square
@@ -94,7 +96,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    replayed from a CUDA graph, and prefill also with float32 r, k, v; the
    flash-attention backward at tinyllama's and gemma3's training shapes
    beside SDPA's backward; the WKV backward at rwkv6's training shape
-   beside its twin);
+   beside its twin, its bound at the rates its kernels run on and the
+   stepwise kernel's bound, and each of its four kernels' device time a
+   call from torch.profiler, every launch recorded);
 9. model-based signature families (run after phase 5, at most 150 s):
    ``weight_delta`` (sketch n = 256) and ``inference`` (probe n = 192) on
    phase 5's mix4 clients with LeNet-5 at 32x32x3, the experiment suite's
@@ -365,7 +369,7 @@ TRAINED_FORMS = (
 # The revision in which each hand-written kernel was last redesigned (earlier
 # times are in PERF.md section 6).
 REDESIGNED_IN = {"flash_attention": 13, "flash_attention_bwd": 21, "tsgemm": 13,
-                 "wkv": {"prefill": 14, "decode": 16}, "wkv_bwd": None,
+                 "wkv": {"prefill": 14, "decode": 16}, "wkv_bwd": 23,
                  "proximity": {"eq3": 14, "eq2": 16, "any_rank": 18}}
 
 
@@ -481,23 +485,11 @@ def graph_ms(torch, fn, *, reps=1, iters=10) -> float:
 
 def profile_ms(torch, fn, *, iters=10) -> dict:
     """Device milliseconds per call of each CUDA kernel that ``fn()``
-    launches, by kernel name (``torch.profiler``, after a warm-up)."""
-    from torch.profiler import ProfilerActivity, profile
+    launches, by kernel name (``launch.kernel_times``: every launch's device
+    record present, or it raises)."""
+    from repro_torch.launch.kernel_times import kernel_times
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    def short(key):
-        return key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
-
-    out: dict = collections.defaultdict(float)
-    for e in prof.key_averages():
-        if e.device_time_total > 0:   # names that shorten alike add up
-            out[short(e.key)] += e.device_time_total / iters / 1e3
-    return dict(out)
+    return kernel_times(fn, iters=iters).ms
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
@@ -635,14 +627,6 @@ def phase_build() -> None:
                                  ("proximity", "eq2_form_any", "eq2_form_any"),
                                  ("proximity", "eq2_jacobi_any", "eq2_jacobi_any"),
                                  ("wkv", "wkv_step<64, bf16>", "wkv_stepILi64E13__nv_bfloat16E"),
-                                 # the WKV backward at rwkv6's head dim (each
-                                 # sub-block start state in registers) and hd 128
-                                 ("wkv_bwd", "wkv_bwd_grad<64, bf16>",
-                                  "wkv_bwd_gradILi64E13__nv_bfloat16E"),
-                                 ("wkv_bwd", "wkv_bwd_grad<64, float>", "wkv_bwd_gradILi64EfE"),
-                                 ("wkv_bwd", "wkv_bwd_grad<128, float>", "wkv_bwd_gradILi128EfE"),
-                                 ("wkv_bwd", "wkv_bwd_chunk<64, bf16>",
-                                  "wkv_bwd_chunkILi64E13__nv_bfloat16E"),
                                  ("wkv_bwd", "wkv_bwd_scan<64>", "wkv_bwd_scanILi64EE")):
         usage = resource_usage(_build.library_path(name), mangled)
         if usage is None:
@@ -650,6 +634,18 @@ def phase_build() -> None:
             continue
         log("build", f"{label}: {usage[0]} registers a thread, {usage[1]} bytes of stack")
         require(usage[1] == 0, f"{label} spills to the stack ({usage[1]} bytes)")
+    # the WKV backward's tensor-core kernels (3xTF32 mma.sync) at rwkv6's head
+    # dim and at hd 128, both r, k, v dtypes: HMMA instructions, no stack
+    bwd = _build.library_path("wkv_bwd")
+    for kernel in ("wkv_bwd_chunk_tc", "wkv_bwd_grad_tc"):
+        for hd in (64, 128):
+            for dtype, mangled_type in (("bf16", "13__nv_bfloat16"), ("float", "f")):
+                mangled = f"{kernel}ILi{hd}E{mangled_type}E"
+                hmma, usage = count_mma(bwd, mangled), resource_usage(bwd, mangled)
+                log("build", f"{kernel}<{hd}, {dtype}>: {hmma} HMMA instructions; {usage[0]} "
+                    f"registers a thread, {usage[1]} bytes of stack")
+                require(hmma > 0 and usage[1] == 0,
+                        f"{kernel}<{hd}, {dtype}>: {hmma} HMMA, {usage}")
 
 
 def any_rank_instantiations() -> list:
@@ -2109,8 +2105,20 @@ def _loss_drop_run(torch, device, checked: set, arch: str = TRAIN_ARCH) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     warm = statistics.median(seconds[1:])
     mfu = model_flop_utilisation(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"), warm)
-    # the device's share of a warm step: its kernels' device time (torch.profiler)
-    kernels = profile_ms(torch, lambda: step(params, state, batch), iters=1)
+    # the device's share of a warm step: its kernels' device time (torch.profiler,
+    # every launch recorded), each WKV backward kernel once a backward launch
+    from repro_torch.launch.kernel_times import kernel_times
+
+    traced = kernel_times(lambda: step(params, state, batch), iters=1)
+    kernels = traced.ms
+    bwd_launches = collections.Counter()
+    for name, n in traced.launches.items():
+        if name.startswith("wkv_bwd_"):
+            bwd_launches[name.split("<")[0]] += n
+    require(all(n == want.get("wkv_bwd", 0) for n in bwd_launches.values())
+            and len(bwd_launches) == (len(WKV_BWD_KERNELS) if "wkv_bwd" in want else 0),
+            f"{arch}: the profiled step ran WKV backward kernels {dict(bwd_launches)}, expected "
+            f"{sorted(WKV_BWD_KERNELS)} {want.get('wkv_bwd', 0)} times each")
     busy = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     wkv_bwd_ms = sum(v for k, v in kernels.items() if "wkv_bwd" in k)
@@ -2119,7 +2127,8 @@ def _loss_drop_run(torch, device, checked: set, arch: str = TRAIN_ARCH) -> dict:
         f"(limit: down {TRAIN_MIN_DROP}); first step {seconds[0]:.3f} s, warm step median "
         f"{warm:.4f} s on the host clock ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} tok/s, model-FLOP "
         f"utilisation {mfu:.1%} of 989 TFLOP/s); kernels {busy:.4f} s of a profiled step, "
-        f"device idle {1 - busy / warm:.1%}; {wkv_note}peak {peak:.1f} GiB allocated; launches "
+        f"device idle {1 - busy / warm:.1%} (the trace lost {traced.pad_lost} of its padding "
+        f"kernels and none of the step's); {wkv_note}peak {peak:.1f} GiB allocated; launches "
         f"a step {counts[-1]}")
     log("train", "largest kernels of a step (ms): " + ", ".join(f"{k[:60]} {v:.1f}" for k, v in top))
     return {"losses": losses, "step_s": warm, "first_s": seconds[0], "peak_gib": peak,
@@ -2356,19 +2365,45 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
 # The WKV backward's timed shape (phase 8 and --time-kernels): rwkv6's
 # training call, bfloat16 r, k, v at the model's decays.
 WKV_BWD_TIMED = (4, 2048, 32, 64)
+# The kernels of one WKV backward launch (csrc/wkv_bwd.cu), each run once.
+WKV_BWD_KERNELS = ("wkv_bwd_chunk_tc", "wkv_bwd_scan", "wkv_bwd_grad_tc", "wkv_bwd_du")
+WKV_BWD_SUB = 16                # steps a sub-block (csrc/wkv_bwd.cu kT)
+PEAK_3XTF32_FLOPS = 495e12 / 3  # float32-accurate products as three TF32 passes
 
 
-def wkv_bwd_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
-    """The WKV backward's least time: 12 flops a step and state entry
-    (recomputing the state 2; dS 2; dr, dk, dv and dw 2 each) at the FP32
-    rate, or r, k, v (``rkv_bytes`` each), w, dout, u and the chunk-start
-    states read and dr, dk, dv, dw (float32), du and dstate0 written once."""
+def wkv_bwd_bytes(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> float:
+    """The WKV backward's least bytes: r, k, v (``rkv_bytes`` each), w, dout,
+    u and the chunk-start states read and dr, dk, dv, dw (float32), du and
+    dstate0 written once."""
     from repro_torch.kernels.wkv import wkv_bwd_plan
 
     n = B * S * H * hd
     starts = B * H * wkv_bwd_plan(S).n_chunks * hd * hd
-    return bound(rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + starts)
-                 + 4.0 * (4 * n + H * hd + B * H * hd * hd), 12.0 * n * hd)
+    return (rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + starts)
+            + 4.0 * (4 * n + H * hd + B * H * hd * hd))
+
+
+def wkv_bwd_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
+    """The WKV backward's least time at the rates its kernels run on: 12 hd^2
+    + 2 T hd flops a step on the TF32 tensor cores as 3xTF32 (a third of 495
+    TFLOP/s: five hd x hd products a sub-block and M = V dout^T in
+    wkv_bwd_grad_tc, G_c in wkv_bwd_chunk_tc; T = 16 steps a sub-block),
+    the pair terms' 8 T hd flops a step on the FP32 cores beside them, or
+    ``wkv_bwd_bytes`` at the memory rate, whichever takes longest."""
+    steps = B * S * H
+    t_tc = (12.0 * hd + 2.0 * WKV_BWD_SUB) * steps * hd / PEAK_3XTF32_FLOPS * 1e3
+    t_fp32 = 8.0 * WKV_BWD_SUB * steps * hd / PEAK_F32_FLOPS * 1e3
+    t_bytes = wkv_bwd_bytes(B, S, H, hd, rkv_bytes) / PEAK_BYTES_PER_S * 1e3
+    return max((t_bytes, "bytes"), (max(t_tc, t_fp32), "operations"))
+
+
+def wkv_bwd_bound_stepwise(B: int, S: int, H: int, hd: int, rkv_bytes: int
+                           ) -> tuple[float, str]:
+    """The bound the stepwise WKV backward was held to, kept so that its
+    rows compare: 12 flops a step and state entry (recomputing the state 2;
+    dS 2; dr, dk, dv and dw 2 each) at the FP32 rate, or ``wkv_bwd_bytes``
+    at the memory rate."""
+    return bound(wkv_bwd_bytes(B, S, H, hd, rkv_bytes), 12.0 * B * S * H * hd * hd)
 
 
 def wkv_bwd_rows(torch, device, train, errs) -> list:
@@ -2376,17 +2411,26 @@ def wkv_bwd_rows(torch, device, train, errs) -> list:
     kernel and its plain twin beside the bound; no library call computes
     it."""
     from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda
+    from repro_torch.launch.kernel_times import kernel_times
 
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     (r, k, v, w, u), dout, _, _ = wkv_bwd_operands(torch, gen, WKV_BWD_TIMED, False,
                                                    torch.bfloat16, False, False, device)
     _, _, starts = wkv_cuda(r, k, v, w, u, return_starts=True)
     ms = time_ms(torch, lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=10)
+    traced = kernel_times(lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=10)
+    require(sorted(n.split("<")[0] for n in traced.launches) == sorted(WKV_BWD_KERNELS)
+            and all(n == 10 for n in traced.launches.values()),
+            f"ten WKV backward calls ran {traced.launches}")
     plain_ms = time_ms(torch, lambda: wkv_bwd_plain(r, k, v, w, u, dout), warmup=1, iters=3)
     b_ms, b_by = wkv_bwd_bound(*WKV_BWD_TIMED, rkv_bytes=2)
+    old_ms, old_by = wkv_bwd_bound_stepwise(*WKV_BWD_TIMED, rkv_bytes=2)
     log("time", f"wkv backward r {tuple(r.shape)} bf16 (rwkv6 training): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}), "
-        f"{b_ms / ms:.1%} of the bound")
+        f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; 3xTF32 and FP32 "
+        f"rates), {b_ms / ms:.1%} of the bound; the stepwise kernel's bound {old_ms:.4f} ms "
+        f"({old_by}), {old_ms / ms:.1%} of it; by kernel (torch.profiler, ms a call, each once "
+        f"a call; the trace lost {traced.pad_lost} padding kernels): "
+        + ", ".join(f"{name} {t:.4f}" for name, t in traced.ms.items()))
     del r, k, v, w, u, dout, starts
     torch.cuda.empty_cache()
     return [{
@@ -2396,6 +2440,7 @@ def wkv_bwd_rows(torch, device, train, errs) -> list:
                 "TPU kernel src/repro/kernels/wkv/wkv.py:53 is forward only",
         "launches": train["rwkv"]["run_launches"]["wkv_bwd"], "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "stepwise_bound_ms": old_ms, "stepwise_bound_by": old_by, "ms_by_kernel": traced.ms,
         "library_ms": None, "ported": 22, "redesigned": REDESIGNED_IN["wkv_bwd"],
     }]
 

@@ -223,48 +223,79 @@ def wkv_bwd_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
     return dr, dk, dv, dw, du, ds
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+    """``einsum(eq, a, b)`` in float32; with ``tf32`` as the CUDA backward's
+    tensor cores form it (3xTF32): each operand split as hi = tf32(x), lo =
+    tf32(x - hi), and lo hi + hi lo + hi hi (lo lo dropped)."""
+    if not tf32:
+        return torch.einsum(eq, a, b)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
 def wkv_bwd_chunked_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
                         dstateT: Optional[torch.Tensor] = None, *,
                         starts: Optional[torch.Tensor] = None, chunk: Optional[int] = None,
-                        sub: int = 16, cols: int = 16):
+                        sub: int = 16, tf32: bool = False):
     """The gradients of :func:`wkv_bwd_ref` by the CUDA backward's schedule.
 
     The sequence is cut into chunks of ``chunk`` steps (by default the
     kernel's ``wkv.CHUNK``; the last padded with r = k = v = dout = 0, w = 1,
     which change neither the state nor its gradient), each chunk into
-    sub-blocks of ``sub`` steps and the state's columns into slices of
-    ``cols``.  ``starts`` (B, H, chunks, hd, hd) are the chunk-start states
-    the forward's chunked route keeps; by default they are stepped here.
+    sub-blocks of ``sub`` steps.  ``starts`` (B, H, chunks, hd, hd) are the
+    chunk-start states the forward's chunked route keeps; by default they
+    are stepped here.  With ``tf32`` every product over a head dim or a
+    sub-block (``_product``) is formed as the kernel's tensor cores form it.
 
-    1. For every chunk, its share of the state gradient at its start,
-       G_c = sum_t (prod_{c0 <= m < t} w_m) r_t dout_t^T, and its decay
-       D_c = prod_t w_t (products formed forward, never divided).
+    In a sub-block [b, e) with start state S_b and state gradient dS_e at its
+    end, A_t = prod_{b<=m<t} w_m, Z_t = prod_{t<m<e} w_m, D = A_e and P(s, t)
+    = prod_{s<m<t} w_m, all products formed by multiplying, never dividing.
+    X = S_b dout^T, Y = dS_e V^T and M = V dout^T (M[s, t] = v_s . dout_t):
+
+      dr_t = A_t X_t + sum_{s<t} P(s,t) k_s M[s,t] + u k_t M[t,t]
+      dk_t = Z_t Y_t + sum_{s>t} P(t,s) r_s M[t,s] + u r_t M[t,t]
+      dw_t = A_t Z_t rowsum(S_b * dS_e) + A_t sum_{s>t} P(t,s) r_s X_s
+             + Z_t sum_{s<t} P(s,t) k_s Y_s + sum_{s<t<s'} P(s,t) P(t,s') k_s r_s' M[s,s']
+      dv_t = dS_e^T (Z_t k_t) + sum_{s>=t} C[t,s] dout_s,   C[t,s] = sum_i k_t P(t,s) r_s
+             (s > t), C[t,t] = sum_i r_t u k_t
+      du  += sum_t r_t k_t M[t,t]
+      dS_b = D dS_e + (A R)^T dout,   S_e = D S_b + (Z K)^T V
+
+    the sums over s < t (and s > t) run as the kernel runs them: a running
+    L_{t+1} = w_t L_t + k_t M[t, :] (and its mirror backward in time).
+
+    1. For every chunk, its share of the state gradient at its start G_c
+       (the rule for dS_b from dS = 0, sub-blocks last first) and its decay
+       D_c, the product of the sub-blocks' D.
     2. The reverse scan dS_start(c) = D_c * dS_end(c) + G_c from dstateT
        gives the gradient at every chunk's end, and dstate0.
-    3. For every chunk and slice of columns: the start state of each
-       sub-block, stepped forward from the chunk's start state; then the
-       sub-blocks last first: its states stepped forward again, then its
-       steps walked backward carrying the slice's dS, each step adding the
-       slice's part of dr, dk, dw (slices added in order) and writing dv
-       for the slice's columns.
-    4. du: each chunk's sum over its steps (summed over slices), then
-       summed over batch rows and chunks in order.
+    3. For every chunk: the sub-blocks' start states, stepped forward from
+       the chunk's start state; then the sub-blocks last first, each giving
+       its steps' dr, dk, dv, dw, its share of du and dS at its start.
+    4. du: each chunk's sum, then summed over batch rows and chunks in order.
     """
     if chunk is None:
         from repro_torch.kernels.wkv.wkv import CHUNK as chunk   # wkv imports this module
     if chunk <= 0 or sub <= 0 or chunk % sub:
         raise ValueError(f"chunk {chunk} must be a positive multiple of sub {sub}")
     B, S, H, hd = r.shape
-    if cols <= 0 or hd % cols:
-        raise ValueError(f"cols {cols} must divide the head dim {hd}")
-    n = -(-S // chunk)
+    n, T, nsub = -(-S // chunk), sub, chunk // sub
     pad = n * chunk - S
 
     def blocks(a, fill):
         a = a.float()
         if pad:
             a = torch.cat([a, a.new_full((B, pad, H, hd), fill)], dim=1)
-        return a.reshape(B, n, chunk, H, hd).permute(0, 3, 1, 2, 4)   # (B, H, n, chunk, hd)
+        # (B, H, n, sub-blocks, sub, hd)
+        return a.reshape(B, n, nsub, T, H, hd).permute(0, 4, 1, 2, 3, 5)
 
     r, k, v, dout = (blocks(a, 0.0) for a in (r, k, v, dout))
     w = blocks(w, 1.0)
@@ -274,60 +305,78 @@ def wkv_bwd_chunked_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = No
         kept = []
         for c in range(n):
             kept.append(s)
-            for t in range(chunk):
-                s = w[:, :, c, t, :, None] * s + k[:, :, c, t, :, None] * v[:, :, c, t, None, :]
+            for j in range(nsub):
+                for t in range(T):
+                    s = (w[:, :, c, j, t, :, None] * s
+                         + k[:, :, c, j, t, :, None] * v[:, :, c, j, t, None, :])
         starts = torch.stack(kept, dim=2)
     starts = starts.float()
+    A = _exclusive_cumprod(w, -2)                    # prod_{b<=m<t} w_m
+    Z = _exclusive_cumprod(w, -2, reverse=True)      # prod_{t<m<e} w_m
+    D = A[..., -1, :] * w[..., -1, :]                # (B, H, n, sub-blocks, hd)
+    AR, ZK = A * r, Z * k
 
-    # 1. chunk contributions and decays
-    f = torch.ones_like(w[:, :, :, 0])
+    # 1. chunk shares of the state gradient, and decays
     G = r.new_zeros((B, H, n, hd, hd))
-    for t in range(chunk):
-        G = G + (f * r[:, :, :, t])[..., None] * dout[:, :, :, t, None, :]
-        f = f * w[:, :, :, t]
+    Dc = torch.ones_like(D[:, :, :, 0])
+    for j in reversed(range(nsub)):
+        G = D[:, :, :, j, :, None] * G + _product("bhnti,bhntj->bhnij", AR[:, :, :, j],
+                                                  dout[:, :, :, j], tf32)
+        Dc = Dc * D[:, :, :, j]
     # 2. reverse scan over chunks
     g = _zeros_or(dstateT, (B, H, hd, hd), r)
     ends = [None] * n
     for c in reversed(range(n)):
         ends[c] = g
-        g = f[:, :, c, :, None] * g + G[:, :, c]
+        g = Dc[:, :, c, :, None] * g + G[:, :, c]
     dstate0 = g
-    ends = torch.stack(ends, dim=2)                                    # (B, H, n, hd, hd)
 
-    # 3. per chunk and slice: sub-blocks last first, steps last first
-    def advance(s, t, J):
-        return w[:, :, :, t, :, None] * s + k[:, :, :, t, :, None] * v[:, :, :, t, None, J]
-
-    dr, dk, dw = (torch.zeros_like(r) for _ in range(3))
-    dv = torch.empty_like(r)
-    du_part = torch.zeros_like(r[:, :, :, 0])                          # (B, H, n, hd)
-    for sl in range(hd // cols):
-        J = slice(sl * cols, (sl + 1) * cols)
-        s = starts[..., J]
-        sub_starts = []
-        for b0 in range(0, chunk, sub):
-            sub_starts.append(s)
-            for t in range(b0, b0 + sub):
-                s = advance(s, t, J)
-        ds = ends[..., J]
-        for si in reversed(range(chunk // sub)):
-            b0 = si * sub
-            s, kept = sub_starts[si], []
-            for t in range(b0, b0 + sub):
-                kept.append(s)
-                s = advance(s, t, J)
-            for t in reversed(range(b0, b0 + sub)):
-                rt, kt, wt = r[:, :, :, t], k[:, :, :, t], w[:, :, :, t]     # (B, H, n, hd)
-                vt, dt = v[:, :, :, t, J], dout[:, :, :, t, J]
-                st = kept[t - b0]                                           # (B, H, n, hd, cols)
-                dot = (dt * vt).sum(-1, keepdim=True)
-                dr[:, :, :, t] += (st * dt[..., None, :]).sum(-1) + u * kt * dot
-                dk[:, :, :, t] += (ds * vt[..., None, :]).sum(-1) + rt * u * dot
-                dw[:, :, :, t] += (ds * st).sum(-1)
-                dv[:, :, :, t, J] = (kt[..., None] * ds
-                                     + (rt * u * kt)[..., None] * dt[..., None, :]).sum(-2)
-                du_part += rt * kt * dot
-                ds = wt[..., None] * ds + rt[..., None] * dt[..., None, :]
+    # 3. per chunk: sub-block start states forward, then the sub-blocks backward
+    states = [starts]
+    for j in range(nsub - 1):
+        states.append(D[:, :, :, j, :, None] * states[-1]
+                      + _product("bhnsi,bhnsj->bhnij", ZK[:, :, :, j], v[:, :, :, j], tf32))
+    dS = torch.stack(ends, dim=2)                                      # (B, H, n, hd, hd)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.zeros_like(r[:, :, :, 0, 0])                       # (B, H, n, hd)
+    for j in reversed(range(nsub)):
+        rj, kj, vj, wj, dj = (a[:, :, :, j] for a in (r, k, v, w, dout))   # (B, H, n, T, hd)
+        Aj, Zj = A[:, :, :, j], Z[:, :, :, j]
+        Sb = states[j]
+        X = _product("bhnij,bhntj->bhnti", Sb, dj, tf32)
+        Y = _product("bhnij,bhntj->bhnti", dS, vj, tf32)
+        M = _product("bhnsj,bhntj->bhnst", vj, dj, tf32)
+        Md = torch.diagonal(M, dim1=-2, dim2=-1)                       # (B, H, n, T)
+        diag = (Sb * dS).sum(-1)
+        f = _pair_decays(wj)               # f[t, s] = P(s, t) for s < t, else 0
+        # forward in time: dr, the Y term of dw and the pair term, from L
+        L = torch.zeros_like(rj)           # L[c] = sum_{s<t} P(s,t) k_s M[s,c]
+        F = torch.zeros_like(rj[..., 0, :])
+        for t in range(T):
+            dr[:, :, :, j, t] = (Aj[..., t, :] * X[..., t, :] + L[..., t, :]
+                                 + u * kj[..., t, :] * Md[..., t, None])
+            beta = f[..., :, t, :] * rj                                # P(t, c) r_c, c > t
+            dw[:, :, :, j, t] = (Aj[..., t, :] * Zj[..., t, :] * diag + Zj[..., t, :] * F
+                                 + (beta * L).sum(-2))
+            L = wj[..., t, None, :] * L + kj[..., t, None, :] * M[..., t, :, None]
+            F = wj[..., t, :] * F + kj[..., t, :] * Y[..., t, :]
+        # backward in time: dk and the X term of dw, from the mirror of L
+        Lb = torch.zeros_like(rj)          # Lb[c] = sum_{s>t} P(t,s) r_s M[c,s]
+        E = torch.zeros_like(F)
+        for t in reversed(range(T)):
+            dk[:, :, :, j, t] = (Zj[..., t, :] * Y[..., t, :] + Lb[..., t, :]
+                                 + u * rj[..., t, :] * Md[..., t, None])
+            dw[:, :, :, j, t] += Aj[..., t, :] * E
+            Lb = wj[..., t, None, :] * Lb + rj[..., t, None, :] * M[..., :, t, None]
+            E = wj[..., t, :] * E + rj[..., t, :] * X[..., t, :]
+        # dv: the state term over rows, then the pair and bonus terms
+        C = torch.einsum("bhnsti,bhnsi,bhnti->bhnts", f, rj, kj)      # C[t, s], s > t
+        C = C + torch.diag_embed((rj * u[:, :, :, None] * kj).sum(-1))
+        dv[:, :, :, j] = (_product("bhnti,bhnij->bhntj", ZK[:, :, :, j], dS, tf32)
+                          + torch.einsum("bhnts,bhnsj->bhntj", C, dj))
+        du_part += (rj * kj * Md[..., None]).sum(-2)
+        dS = (D[:, :, :, j, :, None] * dS
+              + _product("bhnti,bhntj->bhnij", AR[:, :, :, j], dj, tf32))
 
     # 4. du over batch rows, then chunks, in order
     du = torch.zeros_like(u[0, :, 0])
@@ -336,6 +385,6 @@ def wkv_bwd_chunked_ref(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = No
             du = du + du_part[bi, :, c]
 
     def unblock(a):
-        return a.permute(0, 2, 3, 1, 4).reshape(B, n * chunk, H, hd)[:, :S].contiguous()
+        return a.permute(0, 2, 3, 4, 1, 5).reshape(B, n * chunk, H, hd)[:, :S].contiguous()
 
     return (unblock(dr), unblock(dk), unblock(dv), unblock(dw), du, dstate0)

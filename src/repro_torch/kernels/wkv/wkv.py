@@ -11,8 +11,10 @@ bfloat16 and compute in float32.
 
 The backward (``repro_torch/csrc/wkv_bwd.cu``, :func:`wkv_bwd_cuda`) walks
 the sequence in the chunks of :func:`wkv_bwd_plan` from the forward's
-chunk-start states (``wkv_cuda(..., return_starts=True)``), recomputing the
-states inside each chunk; :func:`wkv_bwd_plain` is its twin.
+chunk-start states (``wkv_cuda(..., return_starts=True)``), each chunk in
+16-step sub-blocks by the chunk form of gated linear attention on the
+tensor cores (3xTF32); :func:`wkv_bwd_plain` is its twin and
+:func:`~repro_torch.kernels.wkv.ref.wkv_bwd_chunked_ref` its schedule.
 
 :func:`repro_torch.kernels.wkv.ops.wkv` takes the plain twins only for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises.
@@ -44,8 +46,10 @@ CHUNKED_MIN_S = 48
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
+# The backward's scratch: each chunk's sub-block start states.
+BWD_STATE_SLOTS = CHUNK // SUB_BLOCK
 
 
 class WkvPlan(NamedTuple):
@@ -216,7 +220,8 @@ def wkv_bwd_cuda(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = 
     that ``wkv_cuda(..., return_starts=True)`` gave for these operands.  Four
     kernels (chunk shares of the state gradient, a reverse scan over the
     chunks, each chunk's gradients, the sum of u's gradient) count one
-    launch.
+    launch.  Scratch: each chunk's sub-block start states, ``BWD_STATE_SLOTS``
+    (hd, hd) float32 states a chunk (268 MB at rwkv6's (4, 2048, 32, 64)).
     """
     check_operands(r, k, v, w, u)
     B, S, H, hd = _check_cuda_operands("wkv_bwd_cuda", r, k, v, w, u, {
@@ -243,6 +248,7 @@ def wkv_bwd_cuda(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = 
     # gradient at each chunk's end; their decays; each chunk's share of du
     wsd = f32(B, H, plan.n_chunks, hd, hd)
     wd, du_part = f32(B, H, plan.n_chunks, hd), f32(B, H, plan.n_chunks, hd)
+    wss = f32(B, H, plan.n_chunks, BWD_STATE_SLOTS, hd, hd)
     lib = _bwd_lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -252,7 +258,7 @@ def wkv_bwd_cuda(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = 
             None if dstateT is None else dstateT.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
             dstate0.data_ptr(), wsd.data_ptr(), wd.data_ptr(), du_part.data_ptr(),
-            B, S, H, hd, plan.chunk, stream,
+            wss.data_ptr(), B, S, H, hd, plan.chunk, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -1,7 +1,9 @@
 """Entry points of the port (``python -m repro_torch.launch.<name>``).
 
 ``train``, ``serve``, ``fl_train`` and ``assign_serve`` port the reference's
-launchers; ``roofline`` its analytic model FLOPs, over an H100's peaks.
+launchers; ``roofline`` its analytic model FLOPs, over an H100's peaks;
+``kernel_times`` reads each CUDA kernel's device time from torch.profiler
+with every launch accounted for.
 
 Not applicable on one H100, and not ported (no stubs):
 

@@ -34,7 +34,8 @@ CPU's (rwkv6's through the WKV backward kernel, with exact launch counts);
 the training launcher runs three reduced steps.  The WKV backward kernel is
 held to its twin within 1e-4 of each gradient's max|plain| (1e-2 for
 bfloat16 r, k, v's dr, dk, dv, once the Function rounds them), launched
-twice and bitwise equal, at chip_smoke.py's phase-3 forms.
+twice and bitwise equal, at chip_smoke.py's phase-3 forms, and runs its
+four kernels of the sub-block chunk form at rwkv6's training shape.
 """
 import numpy as np
 import pytest
@@ -1013,6 +1014,30 @@ def test_wkv_backward_kernel_matches_plain_and_repeats(cuda, dims, fast, dtype, 
         assert (a - b).abs().max().item() <= 1e-4 * scale
         if dtype == torch.bfloat16 and i < 3:
             assert (a.to(dtype).float() - b).abs().max().item() <= 1e-2 * scale
+
+
+# The WKV backward's kernels since its redesign (csrc/wkv_bwd.cu): the
+# sub-block chunk form on the tensor cores (chunk shares, gradients), the
+# scan over chunks and the du sum.
+_WKV_BWD_KERNELS = {"wkv_bwd_chunk_tc", "wkv_bwd_scan", "wkv_bwd_grad_tc", "wkv_bwd_du"}
+
+
+def test_wkv_backward_runs_the_tensor_core_kernels(cuda):
+    """At rwkv6's training shape (bfloat16 r, k, v, the model's decays)
+    three backward calls run each of the four kernels of the sub-block
+    chunk form exactly three times (torch.profiler, every launch's device
+    record present), and not the stepwise wkv_bwd_grad / wkv_bwd_chunk they
+    replace."""
+    from repro_torch.launch.kernel_times import kernel_times
+    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_cuda
+
+    (r, k, v, w, u), _ = _wkv_operands(cuda, 4, 2048, 32, 64, 7, "slow", False, torch.bfloat16)
+    dout = torch.randn(r.shape, generator=torch.Generator(device=cuda).manual_seed(7),
+                       device=cuda)
+    _, _, starts = wkv_cuda(r, k, v, w, u, return_starts=True)
+    traced = kernel_times(lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=3)
+    ran = {name.split("<")[0]: n for name, n in traced.launches.items()}
+    assert ran == {name: 3 for name in _WKV_BWD_KERNELS}, traced.launches
 
 
 def test_wkv_under_grad_goes_through_both_kernels(cuda):

@@ -11,7 +11,7 @@ cotangent on the output and on the final state) and of its
   gradient's max |value|: both sides step the same recurrence in float32 in
   nearly the same order.
 - ``wkv_bwd_chunked_ref`` (the CUDA backward's schedule: chunks, a reverse
-  scan over them, sub-blocks, column slices) within ATOL + SCALE_RTOL of
+  scan over them, the sub-block chunk form) within ATOL + SCALE_RTOL of
   each gradient's max |value|, as ``test_torch_wkv.py`` holds the forward's
   chunked route: its sums run in another order, and in the slow regime the
   state and its gradient sum nearly all of the sequence (values in the
@@ -21,6 +21,10 @@ cotangent on the output and on the final state) and of its
   chunk, ragged chunks), head dims 16 and 32, with and without state0.
 - No step divides by w: fast decays with entries of w exactly 0 give finite
   gradients equal to the stepwise twin's within REL_TOL.
+- The kernel's 3xTF32 tensor-core products, modelled (``tf32=True``: each
+  operand split into hi and lo parts rounded to 10 mantissa bits, lo lo
+  dropped), stay within REL_TOL of the stepwise twin in all three regimes,
+  w = 0 exactly included.
 - The port's ``rwkv_time_mix`` under autograd (the reference's parameters,
   reduced rwkv6) within MIX_REL_TOL = 1e-4 of each leaf's max |g|: the
   per-head group norm divides by each head's spread of the WKV outputs,
@@ -119,16 +123,16 @@ def test_function_and_chunked_ref_match_reference_vjp(regime, S, hd, with_state)
         assert err <= ATOL + SCALE_RTOL * np.abs(b).max(), (name, err, np.abs(b).max())
 
 
-@pytest.mark.parametrize("S,chunk,sub,cols", [(100, 32, 16, 8), (70, 16, 16, 16),
-                                              (33, 64, 32, 4)])
-def test_chunked_ref_other_tilings_match_stepwise_twin(S, chunk, sub, cols):
-    """Chunks shorter than the kernel's, one sub-block a chunk, narrow
-    slices: the schedule's bookkeeping holds for any tiling."""
+@pytest.mark.parametrize("S,chunk,sub", [(100, 32, 8), (70, 16, 16), (33, 64, 32)])
+def test_chunked_ref_other_tilings_match_stepwise_twin(S, chunk, sub):
+    """Chunks shorter than the kernel's, one sub-block a chunk, sub-blocks
+    shorter and longer than the kernel's 16 steps: the schedule's
+    bookkeeping holds for any tiling."""
     ops = _operands(1, S, 2, 16, seed=S, regime="fast", with_state=True)
     r, k, v, w, u, s0, dout, dT = (torch.from_numpy(a) for a in ops)
     want = wkv_bwd_plain(r, k, v, w, u, dout, s0, dT)
-    got = wkv_bwd_chunked_ref(r, k, v, w, u, dout, s0, dT, chunk=chunk, sub=sub, cols=cols)
-    _assert_rel(got, [b.numpy() for b in want], REL_TOL, (chunk, sub, cols))
+    got = wkv_bwd_chunked_ref(r, k, v, w, u, dout, s0, dT, chunk=chunk, sub=sub)
+    _assert_rel(got, [b.numpy() for b in want], REL_TOL, (chunk, sub))
 
 
 def test_chunked_ref_rejects_bad_tilings():
@@ -136,8 +140,26 @@ def test_chunked_ref_rejects_bad_tilings():
                                  for a in _operands(1, 8, 1, 16, 0, "fast", False))
     with pytest.raises(ValueError, match="multiple"):
         wkv_bwd_chunked_ref(r, k, v, w, u, dout, chunk=24)
-    with pytest.raises(ValueError, match="divide"):
-        wkv_bwd_chunked_ref(r, k, v, w, u, dout, cols=5)
+    with pytest.raises(ValueError, match="multiple"):
+        wkv_bwd_chunked_ref(r, k, v, w, u, dout, chunk=32, sub=0)
+
+
+@pytest.mark.parametrize("regime", ["slow", "sigmoid", "fast"])
+def test_chunked_ref_with_tf32_products_matches_stepwise_twin(regime):
+    """The kernel's arithmetic: every product over the head dim or a
+    sub-block as 3xTF32 (hi and lo parts rounded to nearest at 10 mantissa
+    bits, lo lo dropped), at rwkv6's head dim 64 over two chunks, a ragged
+    one last; in the fast regime with decays of exactly 0 (a row reset
+    within a sub-block, a whole step at the end)."""
+    S = CHUNK + 37
+    ops = list(_operands(2, S, 2, 64, seed=23, regime=regime, with_state=True))
+    if regime == "fast":
+        ops[3][0, S // 2, 0, :5] = 0.0
+        ops[3][:, -1] = 0.0
+    r, k, v, w, u, s0, dout, dT = (torch.from_numpy(a) for a in ops)
+    want = [b.numpy() for b in wkv_bwd_plain(r, k, v, w, u, dout, s0, dT)]
+    got = wkv_bwd_chunked_ref(r, k, v, w, u, dout, s0, dT, tf32=True)
+    _assert_rel(got, want, REL_TOL, ("tf32", regime))
 
 
 @pytest.mark.parametrize("S", [5, 40, 150])

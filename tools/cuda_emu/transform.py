@@ -4,7 +4,8 @@
 
 Includes ``emu_runtime.h`` in place of ``cuda_runtime.h`` (and
 ``cuda_bf16.h``, whose types it emulates), drops the inline
-PTX helpers that the header emulates (``cp_async*``, ``mma_f64``), turns
+PTX helpers that the header emulates (``cp_async*``, ``mma_f64``,
+``mma_tf32``, ``tf32_rna``), turns
 shared-memory declarations into the emulated block's buffers and each
 ``kernel<<<grid, block, smem, stream>>>(args)`` into
 ``emu_launch(grid, block, smem, stream, [=] { kernel(args); })``.
@@ -16,8 +17,9 @@ import sys
 def transform(s: str) -> str:
     s = s.replace('#include <cuda_runtime.h>', '#include "emu_runtime.h"')
     s = s.replace('#include <cuda_bf16.h>\n', '')
-    for name in ('cp_async4', 'cp_async16', 'cp_async_commit', 'mma_f64'):
-        s = re.sub(r'__device__ __forceinline__ void ' + name + r'\(.*?\n}\n', '', s, count=1,
+    for name in ('cp_async4', 'cp_async16', 'cp_async_commit', 'mma_f64', 'mma_tf32',
+                 'tf32_rna'):
+        s = re.sub(r'__device__ __forceinline__ \w+ ' + name + r'\(.*?\n}\n', '', s, count=1,
                    flags=re.S)
     s = re.sub(r'template <int N>\n__device__ __forceinline__ void cp_async_wait\(\).*?\n}\n', '',
                s, count=1, flags=re.S)

@@ -4,7 +4,8 @@
 
 Builds the kernel source with g++ through the thread emulation of
 ``emu_runtime.h`` (a block's threads are OS threads, ``__syncthreads`` a
-barrier, ``__shfl_xor_sync`` a warp-collective exchange) into
+barrier, ``__shfl_xor_sync`` and the TF32 ``mma.sync`` warp-collective
+exchanges, ``cp.async`` a copy) into
 ``build/cuda_emu/`` and runs it, called as ``wkv_bwd_cuda`` calls it, at
 small sizes against the plain twin ``wkv_bwd_plain``: head dims 16, 32, 64
 and 128, S = 1, 20, 40, 47, 129 and 300 (one chunk, ragged chunks), with
@@ -61,12 +62,13 @@ class Emulated:
         du, dstate0 = nan(H, hd), nan(B, H, hd, hd)
         wsd = nan(B, H, plan.n_chunks, hd, hd)
         wd, du_part = nan(B, H, plan.n_chunks, hd), nan(B, H, plan.n_chunks, hd)
+        wss = nan(B, H, plan.n_chunks, self.W.BWD_STATE_SLOTS, hd, hd)
         rc = self.lib.wkv_bwd(
             self.W._DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), dout.data_ptr(), starts.data_ptr(),
             None if dstateT is None else dstateT.data_ptr(), dr.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(), wsd.data_ptr(),
-            wd.data_ptr(), du_part.data_ptr(), B, S, H, hd, plan.chunk, None)
+            wd.data_ptr(), du_part.data_ptr(), wss.data_ptr(), B, S, H, hd, plan.chunk, None)
         if rc != 0:
             raise RuntimeError(f"launch refused: {rc} ({plan})")
         return dr, dk, dv, dw, du, dstate0
