@@ -52,6 +52,16 @@ Phases, each printing its own lines; any failure exits nonzero:
    singular values from 40 down to 1), once under eq3 and once under eq2,
    each required to recover the clusters, place every newcomer and query
    in its own and launch the proximity kernel's any-rank route;
+4c. the ``"sharded"`` proximity backend (at most 60 s): at K = 16384 (n =
+   3072, p = 3) the square and a 16384 x 64 cross block, and the any-rank
+   route's square at K = 2048, p = 16, each under eq3 and eq2 through
+   ``backend="sharded"`` (row strips over every local card, the count
+   printed) and through the strip function over the card listed four
+   times, each against the ``"kernel"`` backend: eq3 bitwise, eq2 bitwise
+   where the kernel's and every strip's ``eq2_plan`` take one split of n
+   (the plans printed), else within 1e-3 degrees; CUDA-event times of
+   each; and phase 4's one-shot clustering again through ``"sharded"``,
+   its labels required equal to phase 4's;
 5. federated-learning main path and the assignment server (at most 120 s),
    every federation through ``run_federation`` (float32 convolutions, the
    entry point's own setting): mix4 at CIFAR-10 geometry
@@ -127,13 +137,15 @@ Phases, each printing its own lines; any failure exits nonzero:
    idle share, largest kernels and peak memory.
 
 Launch counts are set to 0 just before each main path (phase 4, each
-measure of 4b, each federation and each server call of phase 5, each
+measure of 4b, phase 4c's sharded calls, each federation and each server call of phase 5, each
 architecture of 6, each family call, federation and the move of 9, each
 training step of 10a and 10c) and read just after; launches that only check a result (phase 5's ``admit_oracle``
 and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
 fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
 windows and splits the proximity launches by route (eq3, eq2 and, above
-rank 8, eq3_any_rank, eq2_any_rank). The second-to-last line is the
+rank 8, eq3_any_rank, eq2_any_rank); phase 4c's window stands apart, on
+its own line and under the proximity row's ``sharded`` key, with its
+times. The second-to-last line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device": {...}}``.
 Nothing of the JAX package is imported.
 
@@ -1147,15 +1159,20 @@ def pacfl_path(torch, fed, config, data, tag) -> dict:
         f"{N_NEWCOMERS} newcomers and {N_QUERIES} queries in their clusters")
     return {"launches": launches, "routes": routes, "engine": extended.engine,
             "config": config, "queries": torch.cat(queries), "served": served,
-            "label_of": label_of}
+            "label_of": label_of, "labels": labels, "one_shot_s": t1 - t0}
 
 
 def phase_main_path(torch, fed) -> dict:
+    """Phase 4; its clients stay in the result under ``"data"`` until phase
+    4c has clustered them again."""
     from repro_torch.core.pacfl import PACFLConfig
 
     config = PACFLConfig(p=RANK, measure="eq3", beta=BETA_DEG,
                          svd_method="randomized_tsgemm", proximity_backend="auto")
-    return pacfl_path(torch, fed, config, planted_data(torch, fed), "main")
+    data = planted_data(torch, fed)
+    run = pacfl_path(torch, fed, config, data, "main")
+    run["data"] = data
+    return run
 
 
 def phase_any_rank(torch, device) -> dict:
@@ -1178,6 +1195,166 @@ def phase_any_rank(torch, device) -> dict:
         launches.update(run["launches"])
         routes.update(run["routes"])
     return {"launches": dict(launches), "routes": dict(routes)}
+
+
+# The "sharded" proximity backend (phase 4c): the K x K matrix in row strips,
+# one per local card, each strip the kernel's cross form against the whole
+# stack.  At K = 16384 clients of phase 4's geometry (n = 3072, p = 3: a 0.6
+# GB stack, a 1.07 GB matrix) through "kernel", "sharded" over every local
+# card and the strip function over SHARDED_STRIPS copies of one card; the
+# any-rank route (p = 16) at K = 2048; a 16384 x 64 cross block; phase 4's
+# one-shot clustering again through "sharded".  At most 60 s.
+SHARDED_K, SHARDED_ANY_RANK_K, SHARDED_CROSS_KB = 16384, 2048, 64
+SHARDED_STRIPS = 4
+SHARDED_BUDGET_S = 60.0
+
+
+def phase_sharded(torch, device, main) -> dict:
+    """Phase 4c: the ``"sharded"`` backend through its entry points.
+
+    One launch window holds the main path: ``proximity_matrix`` and
+    ``cross_proximity`` with ``backend="sharded"``, the strip function over
+    the card listed SHARDED_STRIPS times, and phase 4's one-shot clustering
+    through ``"sharded"`` (its labels must be phase 4's).  Outside it, each
+    result is held against the ``"kernel"`` backend's on the same stack:
+    eq3 bitwise; eq2 bitwise where the square's and every strip's
+    ``eq2_plan`` take one split of n, else within PROX_TOL_DEG; then each
+    call is timed with CUDA events."""
+    import dataclasses
+
+    from repro_torch.core import angles
+    from repro_torch.core.pacfl import one_shot_clustering
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity import proximity_cross
+    from repro_torch.kernels.proximity.proximity import eq2_plan
+
+    t_start = time.perf_counter()
+    card = torch.device("cuda", torch.cuda.current_device())
+    ndev = torch.cuda.device_count()
+    four = [card] * SHARDED_STRIPS
+    sms = _build.sm_count(card.index)
+    log("sharded", f"'sharded' over {ndev} local card(s) "
+        f"({', '.join(torch.cuda.get_device_name(i) for i in range(ndev))}); "
+        f"the strip function over {SHARDED_STRIPS} strips of {card}")
+    fed = Federation(torch, device, seed=SEED + 21)
+    U = fed.signatures(planted(SHARDED_K))
+    V = fed.signatures(planted(SHARDED_CROSS_KB))
+    U16 = Federation(torch, device, p=ANY_RANK_P, seed=SEED + 22).signatures(
+        planted(SHARDED_ANY_RANK_K))
+    stacks = {f"K={SHARDED_K}": (U, U), f"cross {SHARDED_K}x{SHARDED_CROSS_KB}": (U, V),
+              f"any rank K={SHARDED_ANY_RANK_K} p={ANY_RANK_P}": (U16, U16)}
+    log("sharded", f"stacks: {SHARDED_K} x {N_FEATURES} x {RANK} float32 "
+        f"({U.numel() * 4 / 1e9:.2f} GB; matrix {SHARDED_K ** 2 * 4 / 1e9:.2f} GB), "
+        f"{SHARDED_CROSS_KB} newcomers, {SHARDED_ANY_RANK_K} x {N_FEATURES} x {ANY_RANK_P}")
+
+    def calls(Ua, Ub, measure):
+        """label -> the raw (Ka, Kb) result's function, per route."""
+        if Ua is Ub:
+            public = lambda: angles._proximity_strips(Ua, Ua, measure,
+                                                      angles._strip_devices(card))
+        else:
+            public = lambda: angles.cross_proximity(Ua, Ub, measure, backend="sharded")
+        return {"sharded": public,
+                f"strips x{SHARDED_STRIPS}": lambda: angles._proximity_strips(Ua, Ub, measure,
+                                                                              four)}
+
+    # -- the main path, in its own launch window -----------------------------
+    _build.reset_launches()
+    got = {}
+    for label, (Ua, Ub) in stacks.items():
+        for measure in ("eq3", "eq2"):
+            if Ua is Ub:
+                got[label, measure, "sharded"] = angles.proximity_matrix(
+                    Ua, measure, backend="sharded")
+                got[label, measure, f"strips x{SHARDED_STRIPS}"] = angles._hygiene(
+                    angles._proximity_strips(Ua, Ua, measure, four))
+            else:
+                for route, fn in calls(Ua, Ub, measure).items():
+                    got[label, measure, route] = fn()
+    config = dataclasses.replace(main["config"], proximity_backend="sharded")
+    t0 = time.perf_counter()
+    clustering = one_shot_clustering(main["data"]["clients"], config, seed=SEED, device=device)
+    sync(torch, device)
+    one_shot_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    routes = dict(_build.ROUTE_LAUNCHES)
+    log("sharded", f"launch window: kernel launches {launches}, proximity by route "
+        f"{ {r: c for (k, r), c in routes.items() if k == 'proximity'} }")
+    # one launch a non-empty strip: the square and the cross block at K =
+    # 16384 and the any-rank square, each measure, each route; the one-shot
+    per_measure = 2 * (min(ndev, SHARDED_K) + SHARDED_STRIPS) + (
+        min(ndev, SHARDED_ANY_RANK_K) + SHARDED_STRIPS)
+    want_launches = 2 * per_measure + min(ndev, N_CLIENTS)
+    require(launches.get("proximity", 0) == want_launches,
+            f"phase 4c: {launches.get('proximity', 0)} proximity launches, want {want_launches}")
+    require(routes.get(("proximity", "eq3_any_rank"), 0) > 0
+            and routes.get(("proximity", "eq2_any_rank"), 0) > 0,
+            "phase 4c never launched the any-rank route")
+    require(bool((clustering.labels == main["labels"]).all()),
+            "phase 4c: one-shot labels through 'sharded' differ from phase 4's")
+    log("sharded", f"phase 4's one-shot clustering through 'sharded': {one_shot_s:.2f} s "
+        f"(phase 4: {main['one_shot_s']:.2f} s), {clustering.n_clusters} clusters, labels "
+        f"equal to phase 4's")
+    del clustering
+    main.pop("data")
+
+    # -- held against the "kernel" backend -----------------------------------
+    out = {"launches": launches, "routes": routes, "ndev": ndev, "one_shot_s": one_shot_s}
+    for label, (Ua, Ub) in stacks.items():
+        Ka, n, p = Ua.shape
+        Kb, _, q = Ub.shape
+        square = Ua is Ub
+        for measure in ("eq3", "eq2"):
+            want = proximity_cross(Ua, Ub, measure)
+            if square:
+                want = angles._hygiene(want)
+            sync(torch, device)
+            for route, devs in (("sharded", angles._strip_devices(card)),
+                                (f"strips x{SHARDED_STRIPS}", four)):
+                plans = ""
+                one_split = True
+                if measure == "eq2":
+                    strip_plans = [eq2_plan(len(r), Kb, n, p, q, False, sms) for r in
+                                   torch.tensor_split(torch.arange(Ka), len(devs)) if len(r)]
+                    plan_sq = eq2_plan(Ka, Kb, n, p, q, square, sms)
+                    one_split = all(pl.splits == 1 for pl in [plan_sq] + strip_plans)
+                    plans = (f"; kernel's plan {plan_sq}; strip plans "
+                             f"{sorted(set(strip_plans), key=str)}")
+                g = got.pop((label, measure, route))
+                diff = (g - want).abs().max().item()
+                same = torch.equal(g, want)
+                finite = bool(torch.isfinite(g).all())
+                log("sharded", f"{label} {measure} {route} ({len(devs)} strips): shape "
+                    f"{tuple(g.shape)}, max|{route} - kernel| = {diff:.3e} deg, bitwise "
+                    f"{same}{plans}")
+                require(finite and g.device == Ua.device, f"phase 4c {label} {measure} {route}")
+                if measure == "eq3" or one_split:
+                    require(same, f"phase 4c {label} {measure} {route} differs from 'kernel' "
+                            f"by {diff}")
+                else:
+                    require(diff <= PROX_TOL_DEG,
+                            f"phase 4c {label} {measure} {route}: {diff} deg")
+                del g
+            del want
+            # CUDA-event times of the raw result (no hygiene), each route
+            times = {"kernel": time_ms(torch, lambda: proximity_cross(Ua, Ub, measure),
+                                       warmup=1, iters=3)}
+            for route, fn in calls(Ua, Ub, measure).items():
+                times[route] = time_ms(torch, fn, warmup=1, iters=3)
+            b_ms, b_by = (prox_bound(Ka, n, p, measure) if square
+                          else cross_bound(Ka, Kb, n, p, q, measure))
+            log("sharded", f"time {label} {measure}: " + ", ".join(
+                f"{r} {ms:.4f} ms" for r, ms in times.items())
+                + f"; bound {b_ms:.4f} ms ({b_by})")
+            out[label, measure, "ms"] = times
+            torch.cuda.empty_cache()
+    del U, V, U16
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_start
+    log("sharded", f"phase 4c took {seconds:.1f} s (budget {SHARDED_BUDGET_S:.0f} s)")
+    require(seconds <= SHARDED_BUDGET_S, f"phase 4c took {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
 
 
 # FL loop (phase 5): the launcher's settings (launch/fl_train.py) on LeNet-5
@@ -3121,6 +3298,8 @@ def main(argv=None) -> int:
     main_path = phase_main_path(torch, fed)
     any_rank = phase_any_rank(torch, fed.device)
     done("phases 4 and 4b (PACFL)")
+    sharded = phase_sharded(torch, fed.device, main_path)
+    done("phase 4c (sharded proximity)")
     fl = phase_fl(torch, fed.device, main_path)
     families = phase_families(torch, fed.device, main_path, fl)
     done("phases 5 and 9 (FL, model families)")
@@ -3145,6 +3324,12 @@ def main(argv=None) -> int:
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
     rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
+    # phase 4c's window and times beside the proximity row's own counts
+    next(r for r in rows if r["name"] == "proximity")["sharded"] = {
+        "launches": sharded["launches"].get("proximity", 0), "cards": sharded["ndev"],
+        "strips_of_one_card": SHARDED_STRIPS, "seconds": sharded["seconds"],
+        "ms": {f"{k[0]} {k[1]}": v for k, v in sharded.items()
+               if isinstance(k, tuple) and k[-1] == "ms"}}
     done("phase 8 (timings)")
     print(device["smi"])
     print(json.dumps({"kernels": rows}))

@@ -30,12 +30,12 @@ CNN_TOP_LEVEL = {
     "resnet9": {"b1", "b2", "b3a", "b3b", "b4", "b5", "b6a", "b6b", "fc"},
 }
 
-# Reference proximity backends -> the port's.  The device-sharded backend
-# has no counterpart on one card.
+# Reference proximity backends -> the port's.
 BACKEND_FROM_REFERENCE = {
     "auto": "auto",
     "jnp": "torch",
     "jnp_blocked": "torch_blocked",
+    "jnp_sharded": "sharded",
     "pallas": "kernel",
 }
 
@@ -44,8 +44,8 @@ def config_from_reference(ref: dict) -> PACFLConfig:
     """A :class:`PACFLConfig` from ``dataclasses.asdict`` of the reference's.
 
     The proximity backend is renamed (``jnp`` -> ``torch``, ``jnp_blocked``
-    -> ``torch_blocked``, ``pallas`` -> ``kernel``); ``jnp_sharded`` and
-    unknown fields raise.
+    -> ``torch_blocked``, ``jnp_sharded`` -> ``sharded``, ``pallas`` ->
+    ``kernel``); an unknown backend and unknown fields raise.
     """
     fields = {f.name for f in dataclasses.fields(PACFLConfig)}
     unknown = set(ref) - fields

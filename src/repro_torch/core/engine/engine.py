@@ -75,7 +75,8 @@ class EngineConfig:
     backend / block_size: forwarded to
         :func:`repro_torch.core.angles.proximity_matrix` / ``cross_proximity``
         for the admission blocks (defaults: backend ``"auto"``,
-        block_size ``None`` = the backend's tuned tile edge).
+        block_size ``None`` = the backend's tuned tile edge; ``"sharded"``
+        computes them in row strips across every local card).
     memory: distance-store memory policy mode — ``"auto"`` (default) |
         ``"dense"`` | ``"banded"`` | ``"condensed_only"`` | ``"spilled"``;
         see :class:`repro_torch.core.engine.memory.MemoryPolicy`.  All modes

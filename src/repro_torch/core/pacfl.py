@@ -64,8 +64,9 @@ class PACFLConfig:
     # does not.  Ignored when n_clusters is set.
     beta_quantile: Optional[float] = None
     # Proximity backend dispatch (see repro_torch.core.angles.proximity_matrix):
-    # "auto" | "torch" | "torch_blocked" | "kernel".  "auto" takes the CUDA
-    # kernel on CUDA tensors.
+    # "auto" | "torch" | "torch_blocked" | "kernel" | "sharded".  "auto" takes
+    # the CUDA kernel on CUDA tensors; "sharded" the kernel in row strips
+    # across every local card.
     proximity_backend: str = "auto"
     # Client tile edge for the blocked path; None picks its default
     # (64 eq3 / 96 eq2).  The kernel's tile is fixed in its source.

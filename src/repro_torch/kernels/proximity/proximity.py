@@ -338,10 +338,29 @@ def proximity_plain(
     return measure_from_gram(G, measure, eq2_solver="jacobi")
 
 
+def check_out(out: torch.Tensor, Ka: int, Kb: int, device: torch.device) -> None:
+    """Raise on an ``out`` the kernel cannot write: it must be a float32
+    (Ka, Kb) view on the operands' device whose rows are unit-stride and do
+    not overlap (the kernel writes row a at ``out.data_ptr() + a * ldc``)."""
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, the operands on {device}")
+    if out.dtype != torch.float32:
+        raise ValueError(f"out must be float32, got {out.dtype}")
+    if tuple(out.shape) != (Ka, Kb):
+        raise ValueError(f"out has shape {tuple(out.shape)}, want {(Ka, Kb)}")
+    if out.stride(1) != 1 or (Ka > 1 and out.stride(0) < Kb):
+        raise ValueError(f"out's rows must be unit-stride and apart, got strides {out.stride()}")
+
+
 def proximity_cuda(
-    Ua: torch.Tensor, Ub: torch.Tensor, measure: str = "eq3"
+    Ua: torch.Tensor, Ub: torch.Tensor, measure: str = "eq3",
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on float32 CUDA stacks -> (Ka, Kb) degrees."""
+    """Launch the CUDA kernel on float32 CUDA stacks -> (Ka, Kb) degrees.
+
+    ``out``: a (Ka, Kb) float32 view on Ua's device with unit-stride rows
+    (:func:`check_out`), e.g. a strip of rows of a larger matrix, which the
+    kernel fills in place; returned.  Default: a new tensor."""
     check_operands(Ua, Ub, measure)
     for name, U in (("Ua", Ua), ("Ub", Ub)):
         if U.device.type != "cuda":
@@ -354,7 +373,11 @@ def proximity_cuda(
             raise ValueError(f"{name} is too large: {tuple(U.shape)}")
     Ka, n, p = (int(s) for s in Ua.shape)
     Kb, _, q = (int(s) for s in Ub.shape)
-    C = torch.empty((Ka, Kb), dtype=torch.float32, device=Ua.device)
+    if out is None:
+        C = torch.empty((Ka, Kb), dtype=torch.float32, device=Ua.device)
+    else:
+        check_out(out, Ka, Kb, Ua.device)
+        C = out
     plan, ws = None, None
     if measure == "eq2":
         # the kernel's symmetric test: one stack, same strides, on both sides
@@ -388,14 +411,16 @@ def proximity_cuda(
 
 
 def proximity_cross(
-    Ua: torch.Tensor, Ub: torch.Tensor, measure: str = "eq3"
+    Ua: torch.Tensor, Ub: torch.Tensor, measure: str = "eq3",
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(Ka, n, p) x (Kb, n, q) -> (Ka, Kb) degrees through the kernel.
 
-    CPU tensors take :func:`proximity_plain`; CUDA tensors launch the
-    kernel (and raise if it cannot), never the twin.
+    CPU tensors take :func:`proximity_plain`, which ignores ``out`` and
+    returns a new tensor; CUDA tensors launch the kernel (and raise if it
+    cannot), never the twin, writing into ``out`` where one is given.
     """
     check_operands(Ua, Ub, measure)
     if Ua.device.type == "cpu":
         return proximity_plain(Ua, Ub, measure)
-    return proximity_cuda(Ua.float(), Ub.float(), measure)
+    return proximity_cuda(Ua.float(), Ub.float(), measure, out=out)

@@ -35,7 +35,11 @@ the training launcher runs three reduced steps.  The WKV backward kernel is
 held to its twin within 1e-4 of each gradient's max|plain| (1e-2 for
 bfloat16 r, k, v's dr, dk, dv, once the Function rounds them), launched
 twice and bitwise equal, at chip_smoke.py's phase-3 forms, and runs its
-four kernels of the sub-block chunk form at rwkv6's training shape.
+four kernels of the sub-block chunk form at rwkv6's training shape.  The
+``"sharded"`` proximity backend's row strips, four on one card (and over
+every card where there are two or more), give the kernel's own bits under
+eq3, and under eq2 wherever every plan takes one split of n (else within
+1e-3 degrees); ``out=`` writes only its rows.
 """
 import numpy as np
 import pytest
@@ -1099,3 +1103,139 @@ def test_reduced_training_runs_on_cuda(cuda):
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert _build.LAUNCHES["flash_attention_bwd"] == 3 * 2     # 2 layers a step
     assert _build.LAUNCHES["flash_attention"] == 3 * 2 * 2     # remat: twice a layer
+
+
+# ---------------------------------------------------------------------------
+# the "sharded" backend: row strips of the proximity kernel's cross form
+# ---------------------------------------------------------------------------
+
+
+def _strip_rows(K: int, N: int) -> list:
+    return [len(s) for s in torch.tensor_split(torch.arange(K), N) if len(s)]
+
+
+def _strips_take_one_split(Ka, Kb, n, p, q, N, square):
+    """Whether the eq2 plan of every strip and of the kernel's own call take
+    one split of n (then the strips give the kernel's bits: per pair the
+    same Gram sums in the same order)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity.proximity import eq2_plan
+
+    sms = _build.sm_count(0)
+    plans = [eq2_plan(Ka, Kb, n, p, q, square, sms)]
+    plans += [eq2_plan(rows, Kb, n, p, q, False, sms) for rows in _strip_rows(Ka, N)]
+    return all(plan.splits == 1 for plan in plans)
+
+
+def _check_strips(U, V, devices):
+    """``_proximity_strips`` over ``devices`` against the kernel on U's card:
+    the square (U against itself, after hygiene) and the cross block U x V,
+    eq3 bitwise, eq2 bitwise where every plan takes one split and within
+    TOL_DEG elsewhere; one launch a non-empty strip; the result on U's card."""
+    from repro_torch.core import angles
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.proximity import proximity_cross
+
+    K, n, p = U.shape
+    N = len(devices)
+    for measure in ("eq3", "eq2"):
+        for Ub, square in ((U, True), (V, False)):
+            want = proximity_cross(U, Ub, measure)
+            before = _build.LAUNCHES["proximity"]
+            got = angles._proximity_strips(U, Ub, measure, devices)
+            assert _build.LAUNCHES["proximity"] == before + len(_strip_rows(K, N))
+            assert got.device == U.device and got.shape == want.shape
+            if square:
+                got, want = angles._hygiene(got), angles._hygiene(want)
+            if measure == "eq3" or _strips_take_one_split(K, Ub.shape[0], n, p, Ub.shape[2],
+                                                          N, square):
+                assert torch.equal(got, want), (measure, square, N)
+            else:
+                assert (got - want).abs().max().item() <= TOL_DEG, (measure, square, N)
+
+
+@pytest.mark.parametrize("K,n", [(1000, 300), (97, 3072), (3, 300)])
+def test_sharded_strips_on_one_card_equal_the_kernel(cuda, K, n):
+    """Four strips on one card (K = 1000: every plan one split; mix4's K =
+    97 at n = 3072: the plans split n; K = 3 < 4 strips) against the
+    kernel's own call, and the public backend (one strip a card)."""
+    from repro_torch.core import angles
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    U = _signatures(K, n, 3, seed=K, spread=0.3).to(cuda)
+    V = _signatures(37, n, 3, seed=7, spread=0.3).to(cuda)
+    _check_strips(U, V, [card] * 4)
+    if torch.cuda.device_count() == 1:
+        for measure in ("eq3", "eq2"):
+            assert torch.equal(angles.proximity_matrix(U, measure, backend="sharded"),
+                               angles.proximity_matrix(U, measure, backend="kernel"))
+            assert torch.equal(angles.cross_proximity(U, V, measure, backend="sharded"),
+                               angles.cross_proximity(U, V, measure, backend="kernel"))
+
+
+def test_sharded_strips_any_rank_equal_the_kernel(cuda):
+    """The any-rank route (p = 16) in four strips of one card."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    U = _signatures(300, 512, 16, seed=16, spread=0.3).to(cuda)
+    V = _signatures(40, 512, 16, seed=17, spread=0.3).to(cuda)
+    _check_strips(U, V, [card] * 4)
+
+
+def test_proximity_out_writes_only_its_rows(cuda):
+    """``out=`` takes a row strip (or a column window) of a larger matrix:
+    the kernel writes those entries, the same bits as a fresh result, and
+    nothing else; an ``out`` it cannot write raises."""
+    from repro_torch.kernels.proximity import proximity_cross, proximity_cuda
+
+    U = _signatures(64, 200, 3, seed=1, spread=0.3).to(cuda)
+    V = _signatures(20, 200, 3, seed=2, spread=0.3).to(cuda)
+    for measure in ("eq3", "eq2"):
+        C = torch.full((64, 20), float("nan"), device=cuda)
+        got = proximity_cross(U[16:40], V, measure, out=C[16:40])
+        assert got.data_ptr() == C[16:40].data_ptr()
+        assert torch.equal(C[16:40], proximity_cuda(U[16:40], V, measure))
+        assert torch.isnan(C[:16]).all() and torch.isnan(C[40:]).all()
+        D = torch.full((24, 30), float("nan"), device=cuda)
+        proximity_cuda(U[:24], V, measure, out=D[:, 5:25])
+        assert torch.equal(D[:, 5:25], proximity_cuda(U[:24], V, measure))
+        assert torch.isnan(D[:, :5]).all() and torch.isnan(D[:, 25:]).all()
+    for bad in (torch.empty((24, 20)), torch.empty((24, 21), device=cuda),
+                torch.empty((24, 20), dtype=torch.float64, device=cuda),
+                torch.empty((20, 24), device=cuda).T):
+        with pytest.raises(ValueError, match="out"):
+            proximity_cuda(U[:24], V, "eq3", out=bad)
+
+
+def test_strip_operands_on_two_devices_raise(cuda):
+    """A strip's operands (and its devices) are on one card, or it raises."""
+    from repro_torch.core import angles
+    from repro_torch.kernels.proximity import proximity_cross
+
+    U = _signatures(30, 200, 3, seed=3, spread=0.3).to(cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        proximity_cross(U, U.cpu(), "eq3")
+    with pytest.raises(ValueError, match="strips"):
+        angles._proximity_strips(U, U, "eq3", [U.device, torch.device("cpu")])
+    if torch.cuda.device_count() >= 2:
+        with pytest.raises(ValueError, match="operands on"):
+            proximity_cross(U, U.to(torch.device("cuda", 1)), "eq2")
+
+
+def test_sharded_across_local_cards(cuda):
+    """The public backend over every local card (peer copies of the stack,
+    strips copied back to the input's card), from the first card and the
+    last."""
+    from repro_torch.core import angles
+
+    N = torch.cuda.device_count()
+    if N < 2:
+        pytest.skip("one CUDA device: strips across cards need two or more")
+    devices = [torch.device("cuda", i) for i in range(N)]
+    assert angles._strip_devices(devices[0]) == devices
+    for home in (devices[0], devices[-1]):
+        U = _signatures(1000, 300, 3, seed=11, spread=0.3).to(home)
+        V = _signatures(37, 300, 3, seed=12, spread=0.3).to(home)
+        _check_strips(U, V, devices)
+        A = angles.proximity_matrix(U, "eq3", backend="sharded")
+        assert A.device == home
+        assert torch.equal(A, angles.proximity_matrix(U, "eq3", backend="kernel"))

@@ -182,11 +182,12 @@ def test_config_conversion_and_device_rules():
     ref = RefConfig(proximity_backend="pallas", memory="banded", beta=12.5)
     cfg = convert.config_from_reference(dataclasses.asdict(ref))
     assert cfg.proximity_backend == "kernel" and cfg.memory == "banded" and cfg.beta == 12.5
-    for backend, want in (("jnp", "torch"), ("jnp_blocked", "torch_blocked"), ("auto", "auto")):
+    for backend, want in (("jnp", "torch"), ("jnp_blocked", "torch_blocked"), ("auto", "auto"),
+                          ("jnp_sharded", "sharded")):
         got = convert.config_from_reference(dataclasses.asdict(RefConfig(proximity_backend=backend)))
         assert got.proximity_backend == want
     with pytest.raises(ValueError, match="no counterpart"):
-        convert.config_from_reference(dataclasses.asdict(RefConfig(proximity_backend="jnp_sharded")))
+        convert.config_from_reference(dataclasses.asdict(RefConfig(proximity_backend="bogus")))
     U = convert.signatures_from_numpy(np.zeros((2, 8, 3)), device="cpu")
     assert U.dtype == torch.float32 and U.device.type == "cpu"
     if not torch.cuda.is_available():

@@ -175,8 +175,15 @@ class TestRectangularAndLimits:
             angles.proximity_matrix(
                 torch.from_numpy(_signatures(3)), "eq2", backend="kernel", eq2_solver="svd"
             )
-        with pytest.raises(ValueError, match="unknown proximity backend"):
-            angles.proximity_matrix(torch.from_numpy(_signatures(3)), backend="jnp_sharded")
+        # the reference's jnp_sharded is the port's "sharded" (opt-in: "auto"
+        # never takes it); the reference's name, and a bogus one, still raise
+        assert angles._resolve_backend("sharded", 8, cpu) == "sharded"
+        U = torch.from_numpy(_signatures(3))
+        assert torch.equal(angles.proximity_matrix(U, backend="sharded"),
+                           angles.proximity_matrix(U, backend="kernel"))
+        for name in ("jnp_sharded", "bogus"):
+            with pytest.raises(ValueError, match="unknown proximity backend"):
+                angles.proximity_matrix(U, backend=name)
 
     def test_single_pair_entries_match_reference(self):
         U, W = _signatures(2, p=3, seed=9)
