@@ -94,6 +94,21 @@ Phases, each printing its own lines; any failure exits nonzero:
    attention call launched the flash kernel and every WKV call the WKV
    kernel, and timing the prefill and one decode step replayed from a CUDA
    graph beside their host-clock times;
+6b. sharded serving (after phase 6): tensor- and expert-parallel ranks in
+   fresh processes (``launch.mesh.run_ranks``, gloo) sharing the card, one
+   spawn a mesh, each rank drawing its shard with ``init_params_sharded``
+   and loading phase 2's flash build (never nvcc), each run against the
+   unsharded model alone on the card: llama4-scout at full width over 1x4
+   in float32 (2 layers, the experts whole on their rank) and bfloat16 (8
+   layers), qwen2-moe over 1x4 in float32 (2 layers, the experts' F over
+   the ranks) and bfloat16 (full depth), tinyllama over 1x2 in float32 and
+   bfloat16 (full depth): float32 logits within 1e-4 of max|logit| and
+   every token equal; bfloat16 logits within 2e-2 of max|logit| or the
+   unsharded model's one-ulp weight floor, each row's first token equal or
+   a tie within the measured difference, the first divergence printed;
+   every rank's launches the unsharded count and its flash forms checked in
+   phase 3; with four cards the float32 llama4 run over NCCL, a card a
+   rank, and llama4-scout at full depth; else one line saying so;
 7. whole model in float32 at full width: last-position logits of a prefill
    and 8 teacher-forced decode steps through the kernels on the card against
    the plain twins (the same model on the CPU);
@@ -171,6 +186,11 @@ session, e.g. on a parent unpacked with ``git archive`` into
 
     for s in build/parent/src src src build/parent/src; do
         python3 chip_smoke.py --time-kernels $s; python3 chip_smoke.py --time-fl $s; done
+
+    python3 chip_smoke.py --sharded-4card
+
+runs only phase 6b's four-card runs over NCCL (phase 2's flash build and
+phase 3's flash checks first) on a machine with four cards.
 
     python3 chip_smoke.py --sweep-wkv
     python3 chip_smoke.py --sweep-eq2
@@ -308,6 +328,53 @@ FAMILY_FLASH = (
      0, 1536),
 )
 
+# Sharded serving (phase 6b): tensor- and expert-parallel ranks, one fresh
+# process each (``launch.mesh.run_ranks``; one spawn a mesh serves all its
+# runs in turn), gloo over the one card they share, each run held against
+# the unsharded model on the card, run alone first: label, arch, config
+# changes, dtype, mesh (data, model), scheme, batch, prompt, tokens.  Each
+# sharding rule in float32 under float32_math, where only summation order
+# differs: llama4-scout's experts whole on their rank, qwen2-moe's on
+# slices of F (both at full width, 2 layers), tinyllama's dense blocks (G =
+# 8 a rank; full depth): last-position logits within 1e-4 of max|logit|
+# and every greedy token equal.  Then at the serving dtype, bfloat16:
+# llama4-scout at full width (215 GB at its 48 layers) with 8 layers (~39
+# GB), qwen2-moe and tinyllama at full width and depth; their prefill
+# logits within 2e-2 of max|logit|, or within the floor where that is
+# larger: how far the unsharded model's logits move when each of its
+# weights moves by one bfloat16 ulp (an MoE's expert choices flip at
+# rounding-level ties: qwen2-moe's logits differ by ~1e-1 of max|logit|
+# on an H100); each row's first token equal, or a tie within the
+# measured difference; the first divergence of the generated tokens
+# printed.  Where there are four cards, the float32 llama4 run again over
+# NCCL, a card a rank, against the same unsharded model, then llama4-scout
+# at full depth (SHARDED_4CARD).
+SHARDED_RUNS = (
+    dict(label="llama4-scout float32, 2 layers", arch="llama4-scout-17b-a16e",
+         cut={"n_layers": 2}, dtype="float32", mesh=(1, 4), scheme="tp_only",
+         batch=F32_BATCH, prompt=256 + F32_PROMPT, tokens=F32_DECODE),
+    dict(label="qwen2-moe float32, 2 layers", arch="qwen2-moe-a2.7b", cut={"n_layers": 2},
+         dtype="float32", mesh=(1, 4), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT,
+         tokens=F32_DECODE),
+    dict(label="llama4-scout bfloat16, 8 layers", arch="llama4-scout-17b-a16e",
+         cut={"n_layers": 8}, dtype="bfloat16", mesh=(1, 4), scheme="tp_only",
+         batch=LM_BATCH, prompt=LM_PROMPT, tokens=LM_TOKENS),
+    dict(label="qwen2-moe bfloat16", arch="qwen2-moe-a2.7b", cut={}, dtype="bfloat16",
+         mesh=(1, 4), scheme="tp_only", batch=LM_BATCH, prompt=LM_PROMPT, tokens=LM_TOKENS),
+    dict(label="tinyllama float32", arch="tinyllama-1.1b", cut={}, dtype="float32",
+         mesh=(1, 2), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT, tokens=F32_DECODE),
+    dict(label="tinyllama bfloat16", arch="tinyllama-1.1b", cut={}, dtype="bfloat16",
+         mesh=(1, 2), scheme="tp_only", batch=LM_BATCH, prompt=LM_PROMPT, tokens=LM_TOKENS),
+)
+SHARDED_4CARD = (
+    SHARDED_RUNS[0],
+    dict(label="llama4-scout bfloat16, full depth", arch="llama4-scout-17b-a16e",
+         cut={}, dtype="bfloat16", mesh=(1, 4), scheme="tp_only", batch=LM_BATCH,
+         prompt=LM_PROMPT, tokens=LM_TOKENS),
+)
+SHARDED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max|logit|
+SHARDED_TIMEOUT_S = 600.0
+
 # LM training (phase 10a): tinyllama-1.1b at full width and depth, float32
 # masters and bfloat16 compute, remat on, AdamW under a cosine schedule, on
 # one repeated batch; the loss must fall by TRAIN_MIN_DROP nat from the
@@ -391,6 +458,20 @@ def log(phase: str, msg: str) -> None:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def memory(torch) -> str:
+    """The host's available memory, this process's resident set and the
+    card's memory this process holds."""
+    def kib(path, key):
+        for line in Path(path).read_text().splitlines():
+            if line.startswith(key):
+                return int(line.split()[1])
+        return 0
+    return (f"host {kib('/proc/meminfo', 'MemAvailable:') / 2**20:.1f} GiB available, "
+            f"this process {kib('/proc/self/status', 'VmRSS:') / 2**20:.1f} GiB resident, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card "
+            f"({torch.cuda.memory_reserved() / 2**30:.1f} reserved)")
 
 
 def require(cond: bool, what: str) -> None:
@@ -894,7 +975,52 @@ def served_flash_calls() -> list:
                     form.q_offset)
     for _, label, dims, causal, window, q_off, slots in FAMILY_FLASH:
         calls.setdefault(flash_form(dims, causal, window, q_off, slots), label)
+    for label, form in sharded_flash_calls():
+        calls.setdefault(form, label)
     return [(label, form) for form, label in calls.items()]
+
+
+def sharded_flash_calls() -> list:
+    """(label, form) of every distinct flash call a rank of phase 6b makes
+    (and of the four-card run): on the rank's heads, 1 / model of each,
+    at prefill and at the first and the last decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    calls = {}
+    for run in SHARDED_RUNS + SHARDED_4CARD:
+        cfg = get_config(run["arch"])
+        data, model = run["mesh"]
+        heads = (cfg.n_heads // model, cfg.n_kv_heads // model, cfg.resolved_head_dim)
+        B, S, T = run["batch"] // data, run["prompt"], run["tokens"]
+        calls.setdefault(flash_form((B, S, S, *heads), True, None, 0, None),
+                         f"{run['label']}: a rank's prefill")
+        for pos in (S, S + T - 2):
+            form = attention.decode_form(S + T, pos, None)
+            calls.setdefault(flash_form((B, 1, S + T, *heads), form.causal, form.window,
+                                        form.q_offset, None),
+                             f"{run['label']}: a rank's decode at {pos}")
+    return [(label, form) for form, label in calls.items()]
+
+
+def sharded_flash_timed() -> tuple:
+    """Phase 8's cases (FAMILY_FLASH's layout, keyed by the phase-6b run)
+    for each bfloat16 run's per-rank prefill and last decode step."""
+    from repro_torch.configs import get_config
+
+    cases = []
+    for run in SHARDED_RUNS:
+        if run["dtype"] != "bfloat16":
+            continue
+        cfg = get_config(run["arch"])
+        heads = (cfg.n_heads // run["mesh"][1], cfg.n_kv_heads // run["mesh"][1],
+                 cfg.resolved_head_dim)
+        B, S, T = run["batch"] // run["mesh"][0], run["prompt"], run["tokens"]
+        cases.append((run["label"], f"{run['label']}: a rank's prefill", (B, S, S, *heads),
+                      True, None, 0, None))
+        cases.append((run["label"], f"{run['label']}: a rank's decode", (B, 1, S + T, *heads),
+                      True, None, S + T - 2, None))
+    return tuple(cases)
 
 
 def check_flash(torch, device, errs: dict) -> None:
@@ -1964,12 +2090,13 @@ def require_checked(arch: str, forms: list, checked: set) -> None:
                 f"{arch}: flash call {form} was not checked in phase 3")
 
 
-def phase_lm_serving(torch, device, checked: set) -> dict:
+def phase_lm_serving(torch, device, checked: set, outputs: dict) -> dict:
     """Phase 6: each architecture served at full width in bfloat16 (one at a
     time, each freed before the next); the launch counts are set to 0 just
     before and read just after each run, and each flash call's form is
     recorded and must be one of ``checked`` (phase 3's bfloat16 forms).
-    Returns each run's counts."""
+    Returns each run's counts; ``outputs[arch]`` gets its generated tokens
+    and last-position prefill logits (phase 6b's reference)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
@@ -2021,6 +2148,7 @@ def phase_lm_serving(torch, device, checked: set) -> dict:
             batch = {"tokens": prompt, **extra}
             logits, cache = prefill(params, batch)
             require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
+            outputs[arch] = {"tokens": toks.cpu(), "logits": logits.float().cpu()}
             tok = logits.argmax(-1)[:, None]
             step = lm.make_serve_step()
             dev_ms = graph_ms(torch, lambda: step(params, cache, tok, prompt_len))
@@ -2036,6 +2164,277 @@ def phase_lm_serving(torch, device, checked: set) -> dict:
         launches[arch] = counts
         del params, prompt, extra, batch, toks, logits, cache, tok
         torch.cuda.empty_cache()
+    return launches
+
+
+def _sharded_config(run: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(run["arch"]), **run["cut"])
+
+
+def _serve_run(torch, params, run: dict, device, mesh=None) -> dict:
+    """One phase-6b serving run on ``params`` (a rank's shard on ``mesh``,
+    or the unsharded model): the last-position prefill logits, then
+    ``serve.generate`` with the launch counts set to 0 just before and read
+    just after and every flash call's form recorded."""
+    import contextlib
+
+    from repro_torch._device import float32_math
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = params.cfg
+    dtype = getattr(torch, run["dtype"])
+    rows = run["batch"] // run["mesh"][0]
+    prompt = serve.random_prompt(cfg, run["batch"], run["prompt"], seed=SEED, device=device)
+    extra = serve.model_inputs(cfg, run["batch"], dtype=dtype, seed=SEED + 1, device=device)
+    if mesh is not None:   # this data group's rows
+        from repro_torch import sharding
+        extra = sharding.local_batch(cfg, {"tokens": prompt, **extra}, mesh)
+        prompt = extra.pop("tokens")
+    ctx = float32_math() if dtype == torch.float32 else contextlib.nullcontext()
+    with ctx:
+        with torch.inference_mode():
+            logits, _ = lm.make_prefill_step(run["prompt"] + run["tokens"])(
+                params, {"tokens": prompt, **extra})
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        _build.reset_launches()
+        with _FlashLog() as flash_log:
+            toks, times = serve.generate(params, prompt, run["tokens"], **extra)
+        launches = dict(_build.LAUNCHES)
+    require(tuple(toks.shape) == (rows, run["tokens"]), f"{run['label']}: tokens {toks.shape}")
+    return {"tokens": toks.cpu(), "logits": logits.float().cpu(), "launches": launches,
+            "forms": flash_log.forms, "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            **times}
+
+
+def _sharded_rank(runs: list) -> list:
+    """One rank of phase 6b's runs on one mesh, in its own process
+    (``run_ranks`` has joined the process group and set its card), each
+    freed before the next: the kernel phase 2 built is loaded, never built;
+    the rank's shard is drawn by ``init_params_sharded`` and served by
+    :func:`_serve_run`."""
+    import gc
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+
+    # the kernel the path launches, loaded as phase 2 built it (never nvcc)
+    require(_build.library_path("flash_attention").exists(),
+            f"rank {dist.get_rank()}: the flash-attention kernel was not built by phase 2")
+    torch.backends.cuda.matmul.allow_tf32 = False       # phase_device's settings
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(*runs[0]["mesh"], device_type="cuda")
+    t0 = time.perf_counter()
+    torch.zeros(1, device=device)   # the process's first CUDA work: its context
+    torch.cuda.synchronize(device)
+    context_s = time.perf_counter() - t0
+    out = []
+    for run in runs:
+        cfg = _sharded_config(run)
+        t0 = time.perf_counter()
+        params = sharding.init_params_sharded(cfg, sharding.plan_for(cfg, run["scheme"]), mesh,
+                                              seed=SEED, dtype=getattr(torch, run["dtype"]),
+                                              device=device)
+        torch.cuda.synchronize(device)
+        init_s = time.perf_counter() - t0
+        res = _serve_run(torch, params, run, device, mesh)
+        res.update(init_s=init_s, context_s=context_s, rank=dist.get_rank(),
+                   backend=dist.get_backend(), device=str(device),
+                   params=sum(p.numel() for p in params.parameters()),
+                   host_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        out.append(res)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ulp_floor(torch, params, run: dict, device, want) -> float:
+    """max|logits moved| when each bfloat16 weight of ``params`` moves by one
+    ulp, up or down at random (seeded); ``params`` is changed in place."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dtype == torch.bfloat16:
+                up = torch.rand(p.shape, generator=gen, device=device) < 0.5
+                step = up.to(torch.int16) * 2 - 1
+                p.view(torch.int16).add_(step.masked_fill_(p == 0, 0))
+                del up, step
+    cfg = params.cfg
+    prompt = serve.random_prompt(cfg, run["batch"], run["prompt"], seed=SEED, device=device)
+    extra = serve.model_inputs(cfg, run["batch"], dtype=torch.bfloat16, seed=SEED + 1,
+                               device=device)
+    with torch.inference_mode():
+        logits, _ = lm.make_prefill_step(run["prompt"] + run["tokens"])(
+            params, {"tokens": prompt, **extra})
+    return (logits.float().cpu() - want).abs().max().item()
+
+
+def _divergence(got, want) -> list:
+    """Each row's first step at which two token sequences differ (None if
+    they never do)."""
+    out = []
+    for a, b in zip(got.tolist(), want.tolist()):
+        out.append(next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None))
+    return out
+
+
+def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> None:
+    """Phase 6b's checks of one run (``ranks``: each rank's result):
+    every rank's logits and tokens the same, its flash launches the
+    unsharded count, its flash forms checked in phase 3 at the run's dtype,
+    and the logits and tokens against the unsharded model's (``want``,
+    with ``floor`` for bfloat16; None where it cannot run)."""
+    from repro_torch.models import lm
+
+    cfg = _sharded_config(run)
+    label, dtype = run["label"], run["dtype"]
+    r0 = ranks[0]
+    for r in ranks[1:]:   # activations replicated over the model axis
+        require(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"]),
+                f"{label}: rank {r['rank']}'s logits or tokens differ from rank 0's")
+    expected = lm.attention_calls(cfg, True) + (run["tokens"] - 1) * lm.attention_calls(cfg, False)
+    for r in ranks:
+        require(r["launches"].get("flash_attention", 0) == expected,
+                f"{label}: rank {r['rank']} launched {r['launches']}, expected {expected} flash")
+        require(len(r["forms"]) == expected, f"{label}: {len(r['forms'])} flash calls recorded")
+        require_checked(label, r["forms"], checked[dtype])
+    require(bool(torch.isfinite(r0["logits"]).all()), f"{label}: non-finite logits")
+    require(int(r0["tokens"].min()) >= 0 and int(r0["tokens"].max()) < cfg.vocab_padded,
+            f"{label}: tokens out of range")
+    shared = " (the ranks time-slice one card)" if len({r["device"] for r in ranks}) == 1 else ""
+    log("tp", f"{label}: ranks {[r['device'] for r in ranks]} over {r0['backend']}, "
+        f"{r0['params'] / 1e9:.3f} B parameters a rank, drawn in "
+        f"{[round(r['init_s'], 2) for r in ranks]} s (the processes' first CUDA call "
+        f"{[round(r['context_s'], 2) for r in ranks]} s); prefill "
+        f"{[round(r['prefill_s'], 4) for r in ranks]} s, {run['tokens'] - 1} decode steps "
+        f"{[round(r['decode_s'], 4) for r in ranks]} s{shared}; peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; {expected} flash launches a rank in "
+        f"{len(set(r0['forms']))} forms, each checked in phase 3; sample "
+        f"{r0['tokens'][0, :8].tolist()}")
+    if want is None:
+        return
+    scale = want["logits"].abs().max().item()
+    err = (r0["logits"] - want["logits"]).abs().max().item()
+    limit = SHARDED_TOL[dtype] * scale
+    floor_note = ""
+    if "floor" in want:
+        limit = max(limit, want["floor"])
+        floor_note = (f", the one-ulp weight floor {want['floor'] / scale:.3e}; limit "
+                      f"{limit / scale:.3e}")
+    first = r0["tokens"][:, 0] == want["tokens"][:, 0]
+    top2 = want["logits"].topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    div = _divergence(r0["tokens"], want["tokens"])
+    log("tp", f"{label}: against the unsharded model, max|logits difference| {err:.3e} of "
+        f"max|logit| {scale:.3f}, relative {err / scale:.3e} ({SHARDED_TOL[dtype]}"
+        f"{floor_note}); first tokens equal in {int(first.sum())} of {len(first)} rows "
+        f"(top-2 margins {[round(m, 4) for m in margin]}); first divergence by row {div} of "
+        f"{run['tokens']}")
+    require(err <= limit, f"{label}: logits {err} vs limit {limit} (max|logit| {scale})")
+    if dtype == "float32":
+        require(torch.equal(r0["tokens"], want["tokens"]), f"{label}: tokens {div}")
+    for row, same in enumerate(first.tolist()):
+        # a first token may differ only where the two runs' logits, each
+        # within err, leave the unsharded top two tied
+        require(same or margin[row] <= 2 * err,
+                f"{label}: row {row}'s first token differs with margin {margin[row]} > 2 x {err}")
+
+
+def _unsharded(torch, run: dict, device, served: dict) -> dict:
+    """The unsharded model of ``run`` alone on ``device`` (:func:`_serve_run`;
+    in bfloat16 with its one-ulp floor), freed before this returns; a
+    full-width bfloat16 run of a phase-6 configuration must repeat phase
+    6's tokens (``served``)."""
+    import gc
+
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    params = lm.init_params(_sharded_config(run), seed=SEED, dtype=getattr(torch, run["dtype"]),
+                            device=device)
+    want = _serve_run(torch, params, run, device)
+    same_as = served.get(run["arch"]) if not run["cut"] else None
+    repeat = ""
+    if same_as is not None and run["dtype"] == "bfloat16" and run["batch"] == LM_BATCH:
+        require(torch.equal(want["tokens"], same_as["tokens"]),
+                f"{run['label']}: the unsharded model does not repeat phase 6's tokens")
+        moved = (want["logits"] - same_as["logits"]).abs().max().item()
+        repeat = f", phase 6's tokens repeated (its logits to {moved:.3e})"
+    if run["dtype"] == "bfloat16":
+        want["floor"] = _ulp_floor(torch, params, run, device, want["logits"])
+    log("tp", f"{run['label']}: the unsharded model alone, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B parameters, peak "
+        f"{want['peak_gib']:.1f} GiB, prefill {want['prefill_s']:.4f} s, decode "
+        f"{want['decode_s']:.4f} s ({time.perf_counter() - t0:.1f} s in all){repeat}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_sharded_serving(torch, device, served: dict, checked: dict, *,
+                          one_card: bool = True) -> dict:
+    """Phase 6b: SHARDED_RUNS over ranks sharing the card through gloo
+    (``run_ranks``, one spawn a mesh), each against the unsharded model on
+    the card, run alone in this process first and freed before the ranks
+    start.  Then SHARDED_4CARD over NCCL where there are four cards, or one
+    line saying it was not made (``one_card=False``: only that).  Returns
+    each run's rank-0 launch counts."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    launches, wants = {}, {}
+    card = f"cuda:{torch.cuda.current_device()}"
+    meshes = sorted({run["mesh"] for run in SHARDED_RUNS}, reverse=True) if one_card else []
+    for mesh in meshes:
+        runs = [run for run in SHARDED_RUNS if run["mesh"] == mesh]
+        for run in runs:
+            wants[run["label"]] = _unsharded(torch, run, device, served)
+        n = mesh[0] * mesh[1]
+        log("tp", f"mesh {mesh}: starting {n} ranks; {memory(torch)}")
+        t0 = time.perf_counter()
+        results = run_ranks(_sharded_rank, n, runs, backend="gloo", devices=[card] * n,
+                            timeout=SHARDED_TIMEOUT_S)
+        log("tp", f"mesh {mesh}: {n} ranks on {card} served {len(runs)} runs in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, init, serve); the ranks' peak host "
+            f"memory {[round(r[-1]['host_gib'], 1) for r in results]} GiB resident")
+        for i, run in enumerate(runs):
+            _check_sharded(torch, run, [res[i] for res in results], wants[run["label"]], checked)
+            launches[run["label"]] = results[0][i]["launches"]
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        for run in SHARDED_4CARD:   # compared where the unsharded model fits one card
+            if run["cut"] and run["label"] not in wants:
+                wants[run["label"]] = _unsharded(torch, run, device, served)
+        t0 = time.perf_counter()
+        results = run_ranks(_sharded_rank, 4, list(SHARDED_4CARD), backend="nccl",
+                            devices=[f"cuda:{i}" for i in range(4)], timeout=SHARDED_TIMEOUT_S)
+        log("tp", f"four cards over NCCL: {len(SHARDED_4CARD)} runs in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, init, serve)")
+        for i, run in enumerate(SHARDED_4CARD):
+            _check_sharded(torch, {**run, "label": f"{run['label']} (NCCL, four cards)"},
+                           [res[i] for res in results], wants.get(run["label"]), checked)
+            launches[f"{run['label']} (NCCL, four cards)"] = results[0][i]["launches"]
+    else:
+        log("tp", f"{SHARDED_4CARD[-1]['label']}: not run: it needs four cards, this machine "
+            f"has {cards}")
+    log("tp", f"phase 6b took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2927,15 +3326,17 @@ def family_flash_case(torch, gen, device, case):
     return (q, k, v), kw, sdpa, b
 
 
-def family_flash_rows(torch, device, launches, errs) -> list:
-    """Phase 8's rows for the newer families' flash calls (FAMILY_FLASH):
-    kernel, plain twin and SDPA (the backend its dispatcher picks) beside
-    the bound.  Decode-sized calls are replayed from CUDA graphs."""
+def family_flash_rows(torch, device, launches, errs, cases=FAMILY_FLASH, key="family") -> list:
+    """Phase 8's rows for the newer families' flash calls (FAMILY_FLASH;
+    with ``cases``, another list in its layout, such as phase 6b's per-rank
+    calls, ``launches`` keyed by its first field): kernel, plain twin and
+    SDPA (the backend its dispatcher picks) beside the bound.  Decode-sized
+    calls are replayed from CUDA graphs."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     rows = []
-    for case in FAMILY_FLASH:
+    for case in cases:
         arch, label, (B, Sq, Skv, Hq, Hkv, hd) = case[:3]
         form = flash_form(*case[2:])
         (q, k, v), kw, sdpa, (b_ms, b_by) = family_flash_case(torch, gen, device, case)
@@ -2959,7 +3360,7 @@ def family_flash_rows(torch, device, launches, errs) -> list:
             "max_abs_err_f32": errs["flash_attention"]["by_case"][(form, torch.float32)],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "library_backend": sdpa.backend,
-            "family": arch,
+            key: arch,
         })
         del q, k, v
     return rows
@@ -3247,6 +3648,9 @@ def main(argv=None) -> int:
                     help="only time eq2 by split count at K = 97 (eq2_plan's one wave)")
     ap.add_argument("--sweep-any-rank", action="store_true",
                     help="only time eq2 at p = 16 by Gram piece, reduce jobs and workspace cap")
+    ap.add_argument("--sharded-4card", action="store_true",
+                    help="only phase 6b's four-card runs over NCCL (with phase 3's flash "
+                         "checks they need); needs four cards")
     args = ap.parse_args(argv)
     tree = args.time_kernels or args.time_fl
     src = Path(tree).resolve() if tree else ROOT / "src"
@@ -3277,10 +3681,21 @@ def main(argv=None) -> int:
     if args.sweep_any_rank:
         print(json.dumps({"device": device["smi"], "any_rank_eq2": sweep_any_rank(torch)}))
         return 0
+    if args.sharded_4card:
+        require(device["count"] >= 4, f"--sharded-4card needs four cards, not {device['count']}")
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+        errs = {torch.float32: [], torch.bfloat16: [], "by_case": {}}
+        check_flash(torch, torch.device("cuda"), errs)
+        checked = {"bfloat16": {f for f, d in errs["by_case"] if d == torch.bfloat16},
+                   "float32": {f for f, d in errs["by_case"] if d == torch.float32}}
+        print(json.dumps({"device": device["smi"], "sharded_4card": phase_sharded_serving(
+            torch, torch.device("cuda"), {}, checked, one_card=False)}))
+        return 0
     t_start = time.perf_counter()
 
     def done(phase):
-        log("time", f"{phase} done at {time.perf_counter() - t_start:.1f} s")
+        log("time", f"{phase} done at {time.perf_counter() - t_start:.1f} s; {memory(torch)}")
 
     phase_build()
     done("phase 2 (build)")
@@ -3312,8 +3727,14 @@ def main(argv=None) -> int:
                                       ("eq3", "eq2", "eq3_any_rank", "eq2_any_rank")}
     checked = {form for form, dtype in errs["flash_attention"]["by_case"]
                if dtype == torch.bfloat16}
-    lm_launches = phase_lm_serving(torch, fed.device, checked)
+    lm_outputs = {}
+    lm_launches = phase_lm_serving(torch, fed.device, checked, lm_outputs)
     done("phase 6 (LM serving)")
+    checked_by = {"bfloat16": checked, "float32": {
+        form for form, dtype in errs["flash_attention"]["by_case"] if dtype == torch.float32}}
+    tp_launches = phase_sharded_serving(torch, fed.device, lm_outputs, checked_by)
+    del lm_outputs
+    done("phase 6b (sharded serving)")
     phase_lm_float32(torch, fed.device)
     done("phase 7 (LM float32)")
     trained = {form for form, dtype in errs["flash_attention_bwd"]["by_case"]}
@@ -3322,6 +3743,8 @@ def main(argv=None) -> int:
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
+    rows += family_flash_rows(torch, fed.device, tp_launches, errs,
+                              cases=sharded_flash_timed(), key="sharded_run")
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
     rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
     # phase 4c's window and times beside the proximity row's own counts

@@ -11,7 +11,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -86,6 +86,55 @@ def engine_from_numpy(
     )
 
 
+def lm_leaves(model: lm.LM, ref: Any
+              ) -> Iterator[tuple[str, torch.nn.Parameter, Any, Optional[int]]]:
+    """``(port parameter name, port parameter, reference leaf, r)`` for
+    every leaf of a tree laid out as the reference's ``lm.init_params``
+    pytree (its values, or any tree of that layout, such as its
+    ``PartitionSpec``s): the tree walk that unstacks each stage's
+    ``(repeats, ...)`` leaves (the decoder's ``stages`` and the encoder's)
+    into super-block ``r``'s parameter (``stages.{si}.{r}...``); ``r`` is
+    None for a leaf outside the stages.  Raises on a reference key with no
+    port counterpart."""
+    def walk(module, tree: dict, prefix: str, index):
+        for key, val in tree.items():
+            if key == "stages":
+                if len(val) != len(module.stages):
+                    raise ValueError(f"{len(val)} reference stages vs {len(module.stages)}")
+                for si, (stage_ref, stage) in enumerate(zip(val, module.stages)):
+                    for r, superblock in enumerate(stage):
+                        yield from walk(superblock, stage_ref, f"{prefix}stages.{si}.{r}.", r)
+                continue
+            target = getattr(module, key, None)
+            if target is None:
+                raise ValueError(f"{key}: no port parameter or module of that name")
+            if isinstance(val, dict):
+                yield from walk(target, val, f"{prefix}{key}.", index)
+            else:
+                yield f"{prefix}{key}", target, val, index
+
+    yield from walk(model, ref, "", None)
+
+
+def _fill_from_numpy(model: lm.LM, ref: dict, local=None) -> lm.LM:
+    """Set every parameter of ``model`` (allocated, any shape plan) from the
+    reference tree, through ``local(name, array)`` when given (a rank's
+    slice), each exactly once with a matching shape."""
+    unset = {id(p) for p in model.parameters()}
+    for name, target, leaf, index in lm_leaves(model, ref):
+        arr = np.asarray(leaf if index is None else leaf[index])
+        if local is not None:
+            arr = local(name, torch.from_numpy(np.array(arr, dtype=np.float32))).numpy()
+        if tuple(target.shape) != arr.shape:
+            raise ValueError(f"{name.rsplit('.', 1)[-1]}: port {tuple(target.shape)} vs "
+                             f"reference {arr.shape}")
+        target.data.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        unset.discard(id(target))
+    if unset:
+        raise ValueError(f"{len(unset)} port parameters have no reference leaf")
+    return model
+
+
 def lm_params_from_numpy(
     cfg: ArchConfig, ref: dict, *, dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
@@ -95,44 +144,31 @@ def lm_params_from_numpy(
 
     Each stage's ``(repeats, ...)`` stacked leaves (the decoder's
     ``stages`` and the encoder's, ``encoder.stages``) are unstacked into
-    the stage's super-blocks; ``shared_attn`` and the encoder's
-    ``final_norm`` are single leaves, and MoE blocks keep their expert axis
-    (``w_in`` (E, D, F), ...).  Every port parameter is set exactly once,
-    with the reference's shape; weights of two or more dimensions land in
-    ``dtype``, as :func:`repro_torch.models.lm.init_params` stores them.
+    the stage's super-blocks (:func:`lm_leaves`); ``shared_attn`` and the
+    encoder's ``final_norm`` are single leaves, and MoE blocks keep their
+    expert axis (``w_in`` (E, D, F), ...).  Every port parameter is set
+    exactly once, with the reference's shape; weights of two or more
+    dimensions land in ``dtype``, as
+    :func:`repro_torch.models.lm.init_params` stores them.
     """
     dev = resolve_device(device)
     model = lm.init_params(cfg, dtype=dtype, device="meta").to_empty(device=dev)
-    unset = {id(p) for p in model.parameters()}
+    return _fill_from_numpy(model, ref)
 
-    def put(module, tree: dict, index=None) -> None:
-        for key, val in tree.items():
-            if key == "stages":
-                put_stages(module.stages, val)
-                continue
-            target = getattr(module, key, None)
-            if target is None:
-                raise ValueError(f"{key}: no port parameter or module of that name")
-            if isinstance(val, dict):
-                put(target, val, index)
-                continue
-            arr = np.asarray(val if index is None else val[index])
-            if tuple(target.shape) != arr.shape:
-                raise ValueError(f"{key}: port {tuple(target.shape)} vs reference {arr.shape}")
-            target.data.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-            unset.discard(id(target))
 
-    def put_stages(stages, refs: list) -> None:
-        if len(refs) != len(stages):
-            raise ValueError(f"{len(refs)} reference stages vs {len(stages)}")
-        for stage_ref, stage in zip(refs, stages):
-            for r, superblock in enumerate(stage):
-                put(superblock, stage_ref, r)
+def lm_shard_from_numpy(
+    cfg: ArchConfig, ref: dict, plan: dict, mesh, *, dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> lm.LM:
+    """:func:`lm_params_from_numpy` on one rank of ``mesh``: the rank's
+    slice of every leaf under ``plan`` (:mod:`repro_torch.sharding`), with
+    the mesh's model axis attached, as
+    :func:`repro_torch.sharding.init_params_sharded` lays it out."""
+    from repro_torch import sharding
 
-    put(model, ref)
-    if unset:
-        raise ValueError(f"{len(unset)} port parameters have no reference leaf")
-    return model
+    lay = sharding.layout(cfg, plan, mesh)
+    model = lay.skeleton(dtype).to_empty(device=resolve_device(device))
+    return _fill_from_numpy(model, ref, lambda name, t: lay.local(name, t).contiguous())
 
 
 def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]] = None

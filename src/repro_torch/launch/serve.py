@@ -1,4 +1,4 @@
-"""LM serving on one card: batched prefill, then greedy decode.
+"""LM serving: batched prefill, then greedy decode, on one card or sharded.
 
 Port of ``repro.launch.serve``, a generation-throughput smoke for the model
 zoo (not the membership service).  It builds the model at full width (or
@@ -14,6 +14,18 @@ greedily against the KV caches or recurrent state, and prints tok/s:
 
 On the card the model computes in bfloat16 with float32 accumulation, the
 reference's TPU policy; on the CPU in float32.
+
+``--mesh DATAxMODEL`` serves over ``data * model`` ranks, one process each
+(``torchrun`` starts them): weights sharded over ``model`` by ``--scheme``'s
+rules (:mod:`repro_torch.sharding`; tensor and expert parallel), each data
+group serving its rows of the batch.  Rank 0 prints its tokens and times:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --mesh 1x4 --batch 4 --prompt-len 1024 --tokens 32
+
+The backend is NCCL with a card a rank (``cuda:LOCAL_RANK``), gloo on the
+CPU; ranks that share one card take ``--backend gloo --device cuda:0``.
+The default ``--mesh 1x1`` is the one-card path, with no process group.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import ARCH_NAMES, ArchConfig, get_config
 from repro_torch.models import lm
+from repro_torch.sharding import SCHEMES
 
 def default_dtype(device: torch.device) -> torch.dtype:
     """bfloat16 on the card (the reference's TPU policy), float32 on the CPU."""
@@ -97,19 +110,72 @@ def generate(params: lm.LM, prompt: torch.Tensor, n_tokens: int, *,
     return torch.cat(out, dim=1), {"prefill_s": t1 - t0, "decode_s": t2 - t1}
 
 
-def main(argv: Optional[list[str]] = None) -> None:
+def _sharded(args, cfg: ArchConfig, data: int, model: int) -> dict:
+    """The ``--mesh`` path on this rank: join the process group (unless the
+    caller's process already has), build the rank's shard and serve its
+    data group's rows."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    joined = not dist.is_initialized()
+    if joined:
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        backend = args.backend or ("gloo" if cpu else "nccl")
+        device = init_ranks(backend, device=args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        mesh = make_mesh(data, model, device_type=device.type)
+        dtype = default_dtype(device)
+        plan = sharding.plan_for(cfg, args.scheme)
+        params = sharding.init_params_sharded(cfg, plan, mesh, seed=0, dtype=dtype, device=device)
+        batch = {"tokens": random_prompt(cfg, args.batch, args.prompt_len, seed=0, device=device),
+                 **model_inputs(cfg, args.batch, dtype=dtype, seed=1, device=device)}
+        local = sharding.local_batch(cfg, batch, mesh)
+        toks, times = generate(params, local.pop("tokens"), args.tokens, **local)
+        if device.type == "cuda":
+            times["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        if dist.get_rank() == 0:
+            total = times["prefill_s"] + times["decode_s"]
+            print(f"arch={cfg.name} {dtype} mesh {data}x{model} ({args.scheme}, "
+                  f"{dist.get_backend()}) on {device}: rank 0 generated {tuple(toks.shape)} in "
+                  f"{total:.2f}s (prefill {times['prefill_s']:.3f}s, decode "
+                  f"{times['decode_s']:.3f}s; {toks.numel() / total:.1f} tok/s a data group)")
+            print("sample:", toks[0][:16].tolist())
+        return {"tokens": toks.cpu(), **times}
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    """Serve once; returns this rank's tokens (B, tokens) and times."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_NAMES, default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
-    ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (with --mesh: cuda:LOCAL_RANK)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL ranks, one process each (default 1x1: one card)")
+    ap.add_argument("--scheme", choices=SCHEMES, default="tp_only",
+                    help="sharding rules (with --mesh)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend (default nccl; gloo with --device cpu)")
     args = ap.parse_args(argv)
+
+    from repro_torch.launch.mesh import parse_mesh
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    data, model = parse_mesh(args.mesh)
+    if (data, model) != (1, 1):
+        return _sharded(args, cfg, data, model)
     device = resolve_device(args.device)
     dtype = default_dtype(device)
     params = lm.init_params(cfg, seed=0, dtype=dtype, device=device)
@@ -121,6 +187,7 @@ def main(argv: Optional[list[str]] = None) -> None:
           f"{total:.2f}s (prefill {times['prefill_s']:.3f}s, decode "
           f"{times['decode_s']:.3f}s; {args.batch * args.tokens / total:.1f} tok/s)")
     print("sample:", toks[0][:16].tolist())
+    return {"tokens": toks.cpu(), **times}
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@ through :class:`repro_torch.kernels.flash_attention.FlashAttention`, the
 counterpart of the reference's custom VJP: on CUDA the forward and
 backward kernels, on the CPU their plain twins (the backward a port of the
 reference's ``_flash_bwd``).  KV caches are updated in place.
+
+Sharded over a model axis (``axis``, :mod:`repro_torch.sharding`), q, k and
+v hold the rank's contiguous heads (``n_heads`` and ``n_kv`` are the
+rank's counts; GQA groups stay whole because the KV heads divide by the
+axis), the KV cache the rank's KV heads, and ``o`` its rows: its float32
+partial is summed over the axis.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import dense_init, mm, param
+from repro_torch.models.layers import (
+    Keep, ModelAxis, dense_init, keep_all, mm, mm_f32, param, reduce_sum)
 
 NEG_INF = -1e30
 
@@ -179,12 +186,25 @@ class Attn(nn.Module):
         self.q, self.k, self.v, self.o = param(q), param(k), param(v), param(o)
 
 
-def init_attn(gen, d: int, n_heads: int, n_kv: int, hd: int, device) -> Attn:
-    q = dense_init(gen, d, n_heads * hd, device)
-    k = dense_init(gen, d, n_kv * hd, device)
-    v = dense_init(gen, d, n_kv * hd, device)
-    o = dense_init(gen, n_heads * hd, d, device, scale=(n_heads * hd) ** -0.5)
+def init_attn(gen, d: int, n_heads: int, n_kv: int, hd: int, device,
+              keep: Keep = keep_all) -> Attn:
+    q = keep("q", dense_init(gen, d, n_heads * hd, device))
+    k = keep("k", dense_init(gen, d, n_kv * hd, device))
+    v = keep("v", dense_init(gen, d, n_kv * hd, device))
+    o = keep("o", dense_init(gen, n_heads * hd, d, device, scale=(n_heads * hd) ** -0.5))
     return Attn(q, k, v, o)
+
+
+def out_proj(out: torch.Tensor, o: torch.Tensor, dtype: torch.dtype,
+             axis: Optional[ModelAxis] = None) -> torch.Tensor:
+    """The o projection of the heads' outputs (B, Sq, H, hd)."""
+    B, Sq, H, hd = out.shape
+    out = out.reshape(B, Sq, H * hd)
+    if axis is None:
+        return mm(out, o, dtype)
+    # row-parallel o: the rank's heads give a partial sum; reduction over
+    # the model axis
+    return reduce_sum(mm_f32(out, o, dtype), axis, dtype)
 
 
 class AttnCache(NamedTuple):
@@ -224,6 +244,7 @@ def cross_prefill(
     chunk: int = 1024,
     cache: Optional[AttnCache] = None,
     dtype: torch.dtype = torch.float32,
+    axis: Optional[ModelAxis] = None,
 ) -> torch.Tensor:
     """Cross-attention over the encoder output at prefill: no RoPE, not
     causal.  Fills ``cache`` (padded past ``S_enc`` slots) in place with the
@@ -242,7 +263,7 @@ def cross_prefill(
         cache.v[:, n_enc:] = 0
         cache.k[:, :n_enc] = k.to(cache.k.dtype)
         cache.v[:, :n_enc] = v.to(cache.v.dtype)
-    return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype)
+    return out_proj(out, params.o, dtype, axis)
 
 
 class DecodeForm(NamedTuple):
@@ -290,6 +311,7 @@ def attend(
     decode_pos: Optional[int] = None,  # position of the one new token when decoding
     cross_len: Optional[int] = None,   # cross-attention: valid slots of ``cache``
     dtype: torch.dtype = torch.float32,
+    axis: Optional[ModelAxis] = None,
 ) -> tuple[torch.Tensor, Optional[AttnCache]]:
     """Self-attention for prefill (``decode_pos`` None; fills ``cache`` in
     place when given, a ring shorter than the prompt with its tail at slot
@@ -312,7 +334,7 @@ def attend(
             q, cache.k, cache.v, q_pos, kv_pos, causal=False, chunk=chunk,
             q_offset=0, kv_len=cross_len, dtype=dtype,
         )
-        return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache
+        return out_proj(out, params.o, dtype, axis), cache
 
     q = rope(q, q_pos, theta)
     k = mm(x, params.k, dtype).reshape(B, Sq, n_kv, hd)
@@ -335,7 +357,7 @@ def attend(
                 roll = (Sq - s_cache) % s_cache
                 cache.k.copy_(torch.roll(k[:, -s_cache:], roll, dims=1))
                 cache.v.copy_(torch.roll(v[:, -s_cache:], roll, dims=1))
-        return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache
+        return out_proj(out, params.o, dtype, axis), cache
 
     # ----- decode: single new token against the cache -----------------------
     if cache is None:
@@ -350,4 +372,4 @@ def attend(
         q, cache.k, cache.v, q_pos, kv_pos, causal=form.causal, window=form.window,
         chunk=chunk, q_offset=form.q_offset, dtype=dtype,
     )
-    return mm(out.reshape(B, Sq, n_heads * hd), params.o, dtype), cache
+    return out_proj(out, params.o, dtype, axis), cache

@@ -30,6 +30,16 @@ optimizer step over it (:mod:`repro_torch.optim`), with gradient
 accumulation over microbatches.  A model that trains keeps float32 masters
 (``init_params(dtype=torch.float32, compute_dtype=...)``) and computes in
 its compute dtype, each weight cast where it is used.
+
+Sharded (tensor and expert parallel over a mesh's model axis,
+:mod:`repro_torch.sharding`), a model holds one rank's slices and its
+``model_axis``; activations are replicated over the axis (Megatron-style).
+The embedding is vocab-parallel (ids outside the rank's rows give zero
+rows, summed over the axis: exact), attention head-parallel, the MLP and
+MoE as :mod:`repro_torch.models.layers` and :mod:`repro_torch.models.moe`
+say, and the head's vocab-parallel logits are gathered by summing disjoint
+slices into a zeroed buffer (exact).  Only the attention + MLP / MoE
+families run sharded.
 """
 from __future__ import annotations
 
@@ -53,13 +63,17 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     MLP,
+    Keep,
+    ModelAxis,
     dense_init,
     embed_init,
     init_mlp,
+    keep_all,
     mlp_apply,
     mm,
     param,
     rmsnorm,
+    scoped,
 )
 from repro_torch.models.moe import MoE, init_moe, moe_apply
 
@@ -188,7 +202,9 @@ class LM(nn.Module):
     ``stages[si][r]`` is super-block ``r`` of stage ``si``: a ``ModuleDict``
     of sub-layers ``sub0, sub1, ...``, each the reference's stacked
     parameters at index ``r``.  ``shared_attn`` is zamba2's one shared
-    attention block, ``encoder`` whisper's encoder.
+    attention block, ``encoder`` whisper's encoder.  ``model_axis`` is
+    None, or the mesh axis a sharded model's slices are spread over
+    (:mod:`repro_torch.sharding` sets it).
     """
 
     def __init__(self, cfg: ArchConfig, compute_dtype: torch.dtype, embed: torch.Tensor,
@@ -204,20 +220,24 @@ class LM(nn.Module):
         self.stages = _stage_list(stages)
         self.shared_attn = shared_attn
         self.encoder = encoder
+        self.model_axis: Optional[ModelAxis] = None
 
 
-def _init_attn_block(gen, cfg: ArchConfig, cross: bool, device, moe: bool) -> AttnBlock:
+def _init_attn_block(gen, cfg: ArchConfig, cross: bool, device, moe: bool,
+                     keep: Keep = keep_all) -> AttnBlock:
     d, hd = cfg.d_model, cfg.resolved_head_dim
 
     def zeros():
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
-    def attn():
-        return init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device)
+    def attn(name):
+        return init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, device,
+                         keep=scoped(keep, f"{name}."))
 
-    ffn = {"moe": init_moe(gen, cfg, device)} if moe else {"mlp": init_mlp(gen, d, cfg.d_ff, device)}
-    xattn = {"lnx": zeros(), "xattn": attn()} if cross else {}
-    return AttnBlock(zeros(), attn(), zeros(), **ffn, **xattn)
+    ffn = ({"moe": init_moe(gen, cfg, device, keep=scoped(keep, "moe."))} if moe
+           else {"mlp": init_mlp(gen, d, cfg.d_ff, device, keep=scoped(keep, "mlp."))})
+    xattn = {"lnx": zeros(), "xattn": attn("xattn")} if cross else {}
+    return AttnBlock(zeros(), attn("attn"), zeros(), **ffn, **xattn)
 
 
 def _to_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -228,27 +248,33 @@ def _to_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
-def _init_block(gen, cfg: ArchConfig, stage: StageSpec, device, dtype) -> nn.Module:
+def _init_block(gen, cfg: ArchConfig, stage: StageSpec, device, dtype,
+                keep: Keep = keep_all) -> nn.Module:
+    if stage.kind != "attn" and keep is not keep_all:
+        raise NotImplementedError(f"{stage.kind} blocks have no sharded init")
     if stage.kind == "rwkv":
         block = ssm.init_rwkv(gen, cfg, device)
     elif stage.kind == "mamba":
         block = ssm.init_mamba(gen, cfg, device)
     else:
-        block = _init_attn_block(gen, cfg, stage.cross_attn, device, cfg.is_moe)
+        block = _init_attn_block(gen, cfg, stage.cross_attn, device, cfg.is_moe, keep)
     return _to_dtype(block, dtype)
 
 
-def _init_stages(gen, cfg: ArchConfig, specs: list[StageSpec], device, dtype):
+def _init_stages(gen, cfg: ArchConfig, specs: list[StageSpec], device, dtype,
+                 keep: Keep = keep_all, prefix: str = "stages."):
     return [
-        [{f"sub{i}": _init_block(gen, cfg, stage, device, dtype) for i in range(len(stage.sub))}
-         for _ in range(stage.repeats)]
-        for stage in specs
+        [{f"sub{i}": _init_block(gen, cfg, stage, device, dtype,
+                                 scoped(keep, f"{prefix}{si}.{r}.sub{i}."))
+          for i in range(len(stage.sub))}
+         for r in range(stage.repeats)]
+        for si, stage in enumerate(specs)
     ]
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None,
-                compute_dtype: Optional[torch.dtype] = None) -> LM:
+                compute_dtype: Optional[torch.dtype] = None, keep: Keep = keep_all) -> LM:
     """The port's own seeded initialization (a ``torch.Generator`` on the
     device; ``device="meta"`` allocates nothing, for :mod:`repro_torch.convert`).
 
@@ -261,23 +287,30 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, dtype: torch.dtype = torch.bf
     made, so the float32 draws of only one block are held at a time.
     ``compute_dtype`` (default ``dtype``) is the dtype the model computes
     in: training keeps float32 masters (``dtype=torch.float32``) and
-    computes in bfloat16 on the card, as the reference does.
+    computes in bfloat16 on the card, as the reference does.  ``keep``
+    (:data:`repro_torch.models.layers.Keep`) takes every drawn weight by
+    its parameter name and returns the part the model holds (a sharded
+    init's slice, :func:`repro_torch.sharding.init_params_sharded`); the
+    draws do not change.
     """
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     Vp, D = cfg.vocab_padded, cfg.d_model
-    embed = embed_init(gen, Vp, D, dev).to(dtype)
-    lm_head = None if cfg.tie_embeddings else dense_init(gen, D, Vp, dev, scale=D ** -0.5).to(dtype)
+    embed = keep("embed", embed_init(gen, Vp, D, dev)).to(dtype)
+    lm_head = (None if cfg.tie_embeddings
+               else keep("lm_head", dense_init(gen, D, Vp, dev, scale=D ** -0.5)).to(dtype))
     specs = stages_for(cfg)
-    stages = _init_stages(gen, cfg, specs, dev, dtype)
+    stages = _init_stages(gen, cfg, specs, dev, dtype, keep)
     shared = None
     if any(s.shared_attn for s in specs):
         # one set of shared-attention-block params (zamba2), never MoE
-        shared = _to_dtype(_init_attn_block(gen, cfg, False, dev, moe=False), dtype)
+        shared = _to_dtype(_init_attn_block(gen, cfg, False, dev, moe=False,
+                                            keep=scoped(keep, "shared_attn.")), dtype)
     encoder = None
     if cfg.is_enc_dec:
         encoder = Encoder(torch.zeros((D,), device=dev),
-                          _init_stages(gen, cfg, encoder_stages(cfg), dev, dtype))
+                          _init_stages(gen, cfg, encoder_stages(cfg), dev, dtype, keep,
+                                       prefix="encoder.stages."))
     return LM(cfg, compute_dtype or dtype, embed, lm_head, torch.zeros((D,), device=dev),
               stages, shared_attn=shared, encoder=encoder)
 
@@ -305,9 +338,11 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
     device = params.embed.device
     dtype = params.compute_dtype
     hd = cfg.resolved_head_dim
+    # a sharded model's cache holds the rank's KV heads
+    n_kv = cfg.n_kv_heads // (1 if params.model_axis is None else params.model_axis.size)
 
     def kv(slots):
-        return init_attn_cache(batch, slots, cfg.n_kv_heads, hd, dtype=dtype, device=device)
+        return init_attn_cache(batch, slots, n_kv, hd, dtype=dtype, device=device)
 
     caches = []
     for stage in stages_for(cfg):
@@ -338,12 +373,15 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
 def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: str,
                       q_pos: torch.Tensor, cache: Optional[dict],
                       decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
-                      dtype: torch.dtype, causal: bool = True):
+                      dtype: torch.dtype, causal: bool = True,
+                      axis: Optional[ModelAxis] = None):
     window = cfg.window if kind == "local" else None
+    n = 1 if axis is None else axis.size   # the rank's heads: a contiguous 1/n of each
+    heads = dict(n_heads=cfg.n_heads // n, n_kv=cfg.n_kv_heads // n, hd=cfg.resolved_head_dim,
+                 axis=axis)
     h = rmsnorm(x, p.ln1, cfg.norm_eps, dtype)
     attn_out, _ = attend(
-        p.attn, h,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.resolved_head_dim,
+        p.attn, h, **heads,
         theta=cfg.rope_theta, q_pos=q_pos, causal=causal, window=window,
         chunk=cfg.attn_chunk, cache=None if cache is None else cache["kv"],
         decode_pos=decode_pos, dtype=dtype,
@@ -355,24 +393,22 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
         if decode_pos is not None:
             # cross K/V already cached (projected at prefill)
             out, _ = attend(
-                p.xattn, hx,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.resolved_head_dim,
+                p.xattn, hx, **heads,
                 theta=cfg.rope_theta, q_pos=q_pos, chunk=cfg.attn_chunk,
                 cache=cache["cross"], cross_len=cfg.encoder_seq, dtype=dtype,
             )
         else:
             out = cross_prefill(
-                p.xattn, hx, enc_out, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                hd=cfg.resolved_head_dim, q_pos=q_pos, chunk=cfg.attn_chunk,
+                p.xattn, hx, enc_out, **heads, q_pos=q_pos, chunk=cfg.attn_chunk,
                 cache=None if cache is None else cache["cross"], dtype=dtype,
             )
         x = x + out
 
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps, dtype)
     if p.moe is not None:
-        y, aux = moe_apply(p.moe, h2, cfg, dtype)
+        y, aux = moe_apply(p.moe, h2, cfg, dtype, axis)
     else:
-        y, aux = mlp_apply(p.mlp, h2, cfg.act, dtype), None
+        y, aux = mlp_apply(p.mlp, h2, cfg.act, dtype, axis), None
     return x + y, cache, aux
 
 
@@ -401,7 +437,8 @@ def _apply_rwkv_block(p: ssm.RWKV, cfg: ArchConfig, x: torch.Tensor, *,
 def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
                 x: torch.Tensor, *, entry_cache: Optional[dict], q_pos: torch.Tensor,
                 decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
-                shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool):
+                shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool,
+                axis: Optional[ModelAxis] = None):
     """One super-block: its sub-layers, then the shared attention block
     where the stage has one.  Returns (x, cache entry, Switch loss summed
     over its MoE blocks, float32, or None without one)."""
@@ -413,7 +450,7 @@ def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
         if stage.kind == "attn":
             x, entry[f"sub{i}"], a = _apply_attn_block(
                 p, cfg, x, kind=kind, q_pos=q_pos, cache=c, decode_pos=decode_pos,
-                enc_out=enc_out, dtype=dtype, causal=causal,
+                enc_out=enc_out, dtype=dtype, causal=causal, axis=axis,
             )
             aux = _add(aux, a)
         elif stage.kind == "mamba":
@@ -442,7 +479,7 @@ def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
                  x: torch.Tensor, *, cache: Optional[list], q_pos: torch.Tensor,
                  decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
                  shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, axis: Optional[ModelAxis] = None):
     """The stage's super-blocks in order -> (x, new cache, Switch loss or
     None).  With ``remat`` each super-block runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
@@ -451,7 +488,8 @@ def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
     aux = None
     for r, superblock in enumerate(stage_params):
         kw = dict(entry_cache=None if cache is None else cache[r], q_pos=q_pos,
-                  decode_pos=decode_pos, shared_attn=shared_attn, dtype=dtype, causal=causal)
+                  decode_pos=decode_pos, shared_attn=shared_attn, dtype=dtype, causal=causal,
+                  axis=axis)
         if remat:
             def body(x, enc_out, superblock=superblock, kw=kw):
                 x, _, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
@@ -503,8 +541,11 @@ def forward(
         raise ValueError(f"{cfg.name} {mode} needs encoder_frames")
     dtype = params.compute_dtype
     remat = mode == "train" and cfg.remat
+    axis = params.model_axis
+    if axis is not None and mode == "train":
+        raise NotImplementedError("a sharded model serves; sharded training is not ported")
     B, S = tokens.shape
-    x = params.embed[tokens].to(dtype)
+    x = params.embed[tokens].to(dtype) if axis is None else _embed_sharded(params, tokens, dtype)
     if mode == "decode":
         q_pos = torch.full((1,), decode_pos, dtype=torch.int64, device=tokens.device)
     else:
@@ -535,7 +576,7 @@ def forward(
             params.stages[si], stage, cfg, x,
             cache=None if cache is None else cache[si],
             q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
-            shared_attn=params.shared_attn, dtype=dtype, remat=remat,
+            shared_attn=params.shared_attn, dtype=dtype, remat=remat, axis=axis,
         )
         aux_total = _add(aux_total, aux)
         if new_caches is not None:
@@ -546,11 +587,36 @@ def forward(
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = mm(x, head, dtype)
+    if axis is not None:
+        logits = _gather_vocab(logits, axis, dtype)
     if not return_aux:
         return logits, new_caches
     if aux_total is None:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, new_caches, aux_total
+
+
+def _embed_sharded(params: LM, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Vocab-parallel embedding: the rank holds rows [v0, v0 + V_l) of the
+    table; ids outside them give zero rows."""
+    axis, table = params.model_axis, params.embed
+    V_l = table.shape[0]
+    local = tokens - axis.rank * V_l
+    inside = (local >= 0) & (local < V_l)
+    rows = table[local.clamp(0, V_l - 1)].float()
+    rows = torch.where(inside[..., None], rows, 0.0)
+    # reduction over the model axis: one rank's row and zeros, exact
+    return axis.all_reduce(rows).to(dtype)
+
+
+def _gather_vocab(logits: torch.Tensor, axis: ModelAxis, dtype: torch.dtype) -> torch.Tensor:
+    """The rank's vocab-parallel logits (..., V_l) placed into a zeroed
+    (..., V_l * size) buffer at its columns and summed over the model
+    axis: a gather written as an exact all-reduce of disjoint slices."""
+    V_l = logits.shape[-1]
+    full = logits.new_zeros((*logits.shape[:-1], V_l * axis.size), dtype=torch.float32)
+    full[..., axis.rank * V_l:(axis.rank + 1) * V_l] = logits
+    return axis.all_reduce(full).to(dtype)
 
 
 def lm_loss(params: LM, batch: dict) -> torch.Tensor:

@@ -11,9 +11,23 @@ Llama-4: 1) run as one wide gated MLP on every token.  The Switch
 load-balancing loss comes back beside the output; serving ignores it.
 
 The reference computes all of this outside any Pallas kernel, so the port
-keeps it in plain PyTorch (``torch.einsum`` / cuBLAS on the card).  The
-reference's sharding notes (expert vs tensor parallelism) have no meaning
-on one card.
+keeps it in plain PyTorch (``torch.einsum`` / cuBLAS on the card).
+
+Sharded over a model axis (``axis``; the reference's rules,
+:mod:`repro_torch.sharding`): the router is replicated, so every rank
+routes every token over all E experts identically (capacity and queue
+positions included) and the tokens are already on every rank: no
+all-to-all.  With the experts over the axis (llama4: E % 16 == 0) a rank
+computes its E / model experts in full from its slice of the dispatch and
+combine tensors (the combine a partial over E); otherwise (qwen2: 60
+experts) every expert on its slice of F, its float32 partial ``y``
+combined as it is (the unsharded block rounds ``y`` first; summing ``y``
+before the combine would reduce ~5x the bytes at prefill, ~250x at
+decode).  The shared expert is split by F.  Each rank's float32 partials of
+a block, every chunk's and the shared expert's, are summed over the axis
+in one all-reduce; the experts' sum and the shared expert's are each
+rounded to the compute dtype and then added, as the unsharded block
+rounds and adds them.
 """
 from __future__ import annotations
 
@@ -25,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import MLP, act_fn, dense_init, init_mlp, mlp_apply, mm, param
+from repro_torch.models.layers import (
+    MLP, Keep, ModelAxis, act_fn, dense_init, init_mlp, keep_all, mlp_apply, mlp_hidden, mm,
+    mm_f32, param, scoped)
 
 
 class MoE(nn.Module):
@@ -40,13 +56,22 @@ class MoE(nn.Module):
         self.shared = shared
 
 
-def init_moe(gen, cfg: ArchConfig, device) -> MoE:
+def init_moe(gen, cfg: ArchConfig, device, keep: Keep = keep_all) -> MoE:
+    """Each expert's weights drawn one expert at a time and kept (or
+    dropped) as drawn, so a sharded init never holds every expert."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
-    router = dense_init(gen, d, e, device)
-    w_in = torch.stack([dense_init(gen, d, f, device) for _ in range(e)])
-    w_gate = torch.stack([dense_init(gen, d, f, device) for _ in range(e)])
-    w_out = torch.stack([dense_init(gen, f, d, device, scale=f ** -0.5) for _ in range(e)])
-    shared = init_mlp(gen, d, cfg.n_shared_experts * f, device) if cfg.n_shared_experts else None
+
+    def experts(name, d_in, d_out, scale=None):
+        kept = (keep(name, dense_init(gen, d_in, d_out, device, scale=scale), j)
+                for j in range(e))
+        return torch.stack([t for t in kept if t is not None])
+
+    router = keep("router", dense_init(gen, d, e, device))
+    w_in = experts("w_in", d, f)
+    w_gate = experts("w_gate", d, f)
+    w_out = experts("w_out", f, d, scale=f ** -0.5)
+    shared = (init_mlp(gen, d, cfg.n_shared_experts * f, device, keep=scoped(keep, "shared."))
+              if cfg.n_shared_experts else None)
     return MoE(router, w_in, w_gate, w_out, shared)
 
 
@@ -76,9 +101,10 @@ def route(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype):
     return gates, top_w, top_i
 
 
-def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig,
-              dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply the MoE FFN.  x: (B, S, D) -> (out in ``dtype``, float32 aux loss)."""
+def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
+              axis: Optional[ModelAxis] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the MoE FFN.  x: (B, S, D) -> (out in ``dtype``, float32 aux loss).
+    With ``axis`` the weights are the rank's shard (module docstring)."""
     B, S0, D = x.shape
     cs = min(cfg.moe_chunk, S0)
     pad = (-S0) % cs
@@ -90,9 +116,14 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig,
     C = capacity(cs, cfg)
     act = act_fn(cfg.act)
 
+    local_experts = params.w_in.shape[0]
+    if local_experts < E and (axis is None or local_experts * axis.size != E):
+        raise ValueError(f"{local_experts} of {E} experts on this rank: not an even split "
+                         f"over the model axis")
     valid = (torch.arange(S, device=x.device) < S0).float()   # padded tokens: no capacity
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
+    partials = []   # float32 partials over the model axis
     for c in range(nc):
         x_c = x[:, c * cs:(c + 1) * cs]                            # (B, cs, D)
         v_c = valid[c * cs:(c + 1) * cs]                           # (cs,)
@@ -113,20 +144,46 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig,
         dis = torch.einsum("bske,bskc->bsec", oh * keep[..., None], slot_oh)
         com = torch.einsum("bske,bskc->bsec", oh * (keep * top_w)[..., None], slot_oh)
 
+        if local_experts < E:   # this rank's experts of the dispatch and combine
+            e0 = axis.rank * local_experts
+            dis, com = dis[:, :, e0:e0 + local_experts], com[:, :, e0:e0 + local_experts]
         xd = _einsum("bsec,bsd->becd", dis, x_c, dtype)            # (B, E, C, D)
         h = _einsum("becd,edf->becf", xd, params.w_in, dtype)
         g = _einsum("becd,edf->becf", xd, params.w_gate, dtype)
         h = act(g) * h
-        y = _einsum("becf,efd->becd", h, params.w_out, dtype)
-        outs.append(_einsum("bsec,becd->bsd", com, y, dtype))
+        if axis is None:
+            y = _einsum("becf,efd->becd", h, params.w_out, dtype)
+            outs.append(_einsum("bsec,becd->bsd", com, y, dtype))
+        elif local_experts < E:   # whole experts: the combine is a partial over E
+            y = _einsum("becf,efd->becd", h, params.w_out, dtype)
+            partials.append(mm_f32(com.reshape(B, cs, -1), y.reshape(B, -1, D), dtype))
+        else:                     # every expert on a slice of F: y is a partial over F,
+            El, Fl = h.shape[1], h.shape[-1]   # combined as it is (a partial over F too)
+            y = mm_f32(h.transpose(0, 1).reshape(El, -1, Fl), params.w_out, dtype)  # (E, B C, D)
+            y = y.reshape(El, B, -1, D).transpose(0, 1).reshape(B, -1, D)
+            partials.append(torch.bmm(com.to(dtype).float().reshape(B, cs, -1), y))
 
         # Switch-style load-balancing aux loss for this chunk.
         me = gates.mean(dim=(0, 1))                                # (E,)
         ce = oh[:, :, 0, :].mean(dim=(0, 1))                       # top-1 assignment
         aux = aux + E * (me * ce).sum()
 
-    out = torch.cat(outs, dim=1)[:, :S0]
     x = x[:, :S0]
+    if axis is None:
+        out = torch.cat(outs, dim=1)[:, :S0]
+        if params.shared is not None:
+            out = out + mlp_apply(params.shared, x, cfg.act, dtype)
+        return out, aux / nc
+    if params.shared is not None:   # the shared expert's partial over its slice of F
+        partials.append(mm_f32(mlp_hidden(params.shared, x, cfg.act, dtype),
+                               params.shared.w_out, dtype))
+    # every partial of the block (each chunk's experts and the shared
+    # expert's) in one reduction over the model axis; each sum is then
+    # rounded to the compute dtype and the two added, as unsharded
+    flat = axis.all_reduce(torch.cat([t.reshape(-1) for t in partials]))
+    sums = [t.view(shape).to(dtype) for t, shape in zip(
+        torch.split(flat, [t.numel() for t in partials]), [t.shape for t in partials])]
+    out = torch.cat(sums[:nc], dim=1)[:, :S0]
     if params.shared is not None:
-        out = out + mlp_apply(params.shared, x, cfg.act, dtype)
+        out = out + sums[nc]
     return out, aux / nc

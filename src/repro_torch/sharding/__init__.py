@@ -1,0 +1,380 @@
+"""Sharding rules, and the sharded parameters they describe.
+
+Port of ``repro.sharding``.  The reference's rules map each leaf of its
+parameter, optimizer-state, batch and cache pytrees to a GSPMD
+``PartitionSpec``; here each port parameter (a ``named_parameters()`` key)
+maps to a tuple with one entry per dimension: an axis name of the mesh
+(:mod:`repro_torch.launch.mesh`), a tuple of them (major first), or None.
+The rules and their order are the reference's:
+
+* ``fsdp_tp`` (default): weight matrices' feature-in dim over ``data``
+  (FSDP) and feature-out dim over ``model`` (tensor parallelism);
+  out-projections transpose the pattern;
+* expert weights: the expert dim over ``model`` when the experts divide by
+  16 (llama4: 16 experts), else each expert's ffn dim (qwen2: 60);
+* ``tp_only``: no FSDP, weights replicated over ``data``; ``ddp``: every
+  weight replicated.
+
+The port unstacks each stage into super-blocks (``stages.{si}.{r}``), so
+the reference's leading stacked ``None`` is not part of a port spec.
+
+Execution (serving): :func:`init_params_sharded` and :func:`shard_params`
+give one rank the contiguous slice of every sharded dimension that
+``torch.tensor_split`` gives it, and attach the mesh's model axis, over
+which :mod:`repro_torch.models` sums the row-parallel partials.  Only the
+attention + MLP / MoE families execute sharded, only with ``data`` at 1 for
+weights (``fsdp_tp`` with data > 1 is FSDP: training, not ported), and only
+in the ``tp_only`` layout; :func:`check_plan` refuses anything else, with
+the reason.  The batch splits over ``data`` (:func:`local_batch`).  The KV
+caches of a sharded model hold each rank's KV heads, which head-parallel
+attention needs; :func:`cache_specs` is the reference's cache plan
+(sequence over ``model`` from 8192 slots, replicated below), ported as a
+plan and not what the execution lays out.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.models.layers import ModelAxis
+
+SCHEMES = ("fsdp_tp", "tp_only", "ddp")
+Spec = tuple   # one entry a dimension: None, an axis name, or a tuple of names
+Plan = dict    # parameter name -> Spec
+
+
+def dp_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def _entry(axes: tuple[str, ...]):
+    """A spec entry over ``axes``: the name alone for one axis (as
+    ``PartitionSpec`` normalises it)."""
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _spec_for_leaf(name: str, ndim: int, cfg: ArchConfig, scheme: str) -> Spec:
+    """Classify one parameter by its last name component and its rank."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; have {SCHEMES}")
+    fsdp = "data" if scheme == "fsdp_tp" else None
+    tp = "model" if scheme in ("fsdp_tp", "tp_only") else None
+
+    if scheme == "ddp":
+        return (None,) * ndim
+    # embedding (V, D): vocab over model
+    if name == "embed":
+        return (tp, fsdp)
+    # lm head (D, V): vocab-parallel
+    if name == "lm_head":
+        return (fsdp, tp)
+    # attention projections
+    if name in ("q", "k", "v"):
+        return (fsdp, tp)
+    if name == "o":
+        return (tp, fsdp)
+    # mlp
+    if name in ("w_in", "w_gate"):
+        if ndim == 3:  # expert weights (E, D, F)
+            if cfg.n_experts and cfg.n_experts % 16 == 0:
+                return (tp, fsdp, None)
+            return (None, fsdp, tp)
+        return (fsdp, tp)
+    if name == "w_out":
+        if ndim == 3:  # (E, F, D)
+            if cfg.n_experts and cfg.n_experts % 16 == 0:
+                return (tp, None, fsdp)
+            return (None, tp, fsdp)
+        return (tp, fsdp)
+    if name == "router":
+        return (fsdp, None)
+    # mamba
+    if name == "in_proj":
+        return (fsdp, tp)
+    if name == "out_proj":
+        return (tp, fsdp)
+    if name == "conv_w":
+        return (None, tp)
+    # rwkv
+    if name in ("Wr", "Wk", "Wv", "Wg", "Wck", "Wcr"):
+        return (fsdp, tp)
+    if name in ("Wo", "Wcv"):
+        return (tp, fsdp)
+    if name == "w_A":
+        return (fsdp, None)
+    if name == "w_B":
+        return (None, fsdp)
+    if name == "u":
+        return (None, None)
+    # everything else (norms, biases, scalars, small vectors): replicate
+    return (None,) * ndim
+
+
+def param_specs(params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ArchConfig, *,
+                scheme: str = "fsdp_tp") -> Plan:
+    """The plan of every parameter of ``params`` (a model, or its
+    ``named_parameters()`` as a mapping; a ``device="meta"`` model costs
+    nothing)."""
+    named = dict(params.named_parameters()) if isinstance(params, nn.Module) else params
+    return {name: _spec_for_leaf(name.rsplit(".", 1)[-1], p.ndim, cfg, scheme)
+            for name, p in named.items()}
+
+
+def plan_for(cfg: ArchConfig, scheme: str = "fsdp_tp") -> Plan:
+    """:func:`param_specs` of ``cfg``'s model (built on ``meta``)."""
+    return param_specs(lm.init_params(cfg, device="meta"), cfg, scheme=scheme)
+
+
+def opt_state_specs(opt_state: Mapping[str, Any], plan: Plan) -> dict:
+    """An optimizer state's plan (:mod:`repro_torch.optim`): the moments
+    ``m``, ``v`` (AdamW) and ``mu`` (SGD momentum) mirror the parameters'
+    specs; the step and anything else is replicated."""
+    def replicated(t):
+        return (None,) * t.ndim
+
+    out = {}
+    for key, val in opt_state.items():
+        if key in ("m", "v", "mu") and isinstance(val, Mapping):
+            out[key] = {n: plan[n] if n in plan else replicated(t) for n, t in val.items()}
+        elif isinstance(val, Mapping):
+            out[key] = {n: replicated(t) for n, t in val.items()}
+        else:
+            out[key] = replicated(val)
+    return out
+
+
+def batch_specs(cfg: ArchConfig, batch: Mapping[str, torch.Tensor], *, multi_pod: bool,
+                global_batch: int) -> dict:
+    """The batch dim over (pod?, data); replicated when the batch is 1."""
+    first = _entry(dp_axes(multi_pod)) if global_batch > 1 else None
+    return {k: () if t.ndim == 0 else (first,) + (None,) * (t.ndim - 1)
+            for k, t in batch.items()}
+
+
+def cache_specs(cfg: ArchConfig, cache: Any, *, multi_pod: bool, global_batch: int) -> Any:
+    """The reference's cache plan over the port's cache tree
+    (:func:`repro_torch.models.lm.init_cache`; NamedTuples keep their
+    type).  KV caches (B, S, Hkv, hd): batch over dp when the batch is
+    above 1, sequence over ``model`` from 8192 slots (over ``data`` and
+    ``model`` at batch 1: context parallelism); smaller caches, such as the
+    sliding-window rings, replicate but for the batch.  SSM states: batch
+    over dp."""
+    bspec = _entry(dp_axes(multi_pod)) if global_batch > 1 else None
+
+    def leaf(keys: tuple, t: torch.Tensor) -> Spec:
+        nd = t.ndim
+        if ("kv" in keys or "cross" in keys) and nd == 4:
+            seq = t.shape[1]
+            if seq < 8192:
+                return (bspec, None, None, None)
+            if global_batch == 1:
+                seq_axes = tuple(a for a in ("data", "model") if seq % 512 == 0)
+                return (None, _entry(seq_axes) if seq_axes else None, None, None)
+            return (bspec, "model" if seq % 256 == 0 else None, None, None)
+        if nd >= 1:
+            return (bspec,) + (None,) * (nd - 1)
+        return ()
+
+    def walk(node, keys: tuple):   # keys: the dict keys on the way down
+        if isinstance(node, torch.Tensor):
+            return leaf(keys, node)
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v, keys) for v in node))
+        if isinstance(node, Mapping):
+            return {k: walk(v, keys + (k,)) for k, v in node.items()}
+        return type(node)(walk(v, keys) for v in node)
+
+    return walk(cache, ())
+
+
+# ---------------------------------------------------------------------------
+# Execution: one rank's slices
+# ---------------------------------------------------------------------------
+
+
+def _axes(entry) -> tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _piece(entry, coords: Mapping[str, tuple[int, int]]) -> tuple[int, int]:
+    """(this rank's piece, pieces) of a dim sharded over ``entry``; an axis
+    the mesh lacks counts as size 1."""
+    i, n = 0, 1
+    for a in _axes(entry):
+        ai, an = coords.get(a, (0, 1))
+        i, n = i * an + ai, n * an
+    return i, n
+
+
+def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int]]
+                ) -> torch.Tensor:
+    """This rank's contiguous piece of ``t`` (a view), as ``tensor_split``
+    along each sharded dim gives it."""
+    for dim, entry in enumerate(spec):
+        i, n = _piece(entry, coords)
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, i * size, size)
+    return t
+
+
+def _sharded_families_only(cfg: ArchConfig) -> None:
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: {cfg.block_kind} blocks have a plan but no "
+                                  "sharded execution yet")
+    for what, has in (("cross attention", cfg.is_enc_dec),
+                      ("sliding-window rings", cfg.swa_pattern is not None),
+                      ("a shared attention block", bool(cfg.attn_every))):
+        if has:
+            raise NotImplementedError(f"{cfg.name}: {what} has a plan but no sharded "
+                                      "execution yet")
+
+
+def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
+    """Refuse, with the reason, a plan the port cannot execute on a mesh of
+    ``sizes`` ({axis: ranks}); return whether it shards over ``model``.
+
+    Refused: names or ranks that are not ``cfg``'s parameters'; weights
+    over ``data`` with data > 1 (``fsdp_tp``'s FSDP: training, not ported);
+    over ``model``, a family without sharded execution, a layout other than
+    ``tp_only``'s, heads that do not divide over the axis, and any sharded
+    dimension the axes' size does not divide (experts or their F,
+    ``vocab_padded``, ...)."""
+    named = dict(lm.init_params(cfg, device="meta").named_parameters())
+    shapes = {n: tuple(p.shape) for n, p in named.items()}
+    if set(plan) != set(shapes):
+        raise ValueError(f"plan names vs {cfg.name}'s parameters differ: "
+                         f"{sorted(set(plan) ^ set(shapes))[:4]} ...")
+
+    def count(entry):
+        n = 1
+        for a in _axes(entry):
+            n *= sizes.get(a, 1)
+        return n
+
+    for name, spec in plan.items():
+        if len(spec) != len(shapes[name]):
+            raise ValueError(f"{name}: spec {spec} for a {len(shapes[name])}-dim parameter")
+        if sizes.get("data", 1) > 1 and any("data" in _axes(e) for e in spec):
+            raise ValueError(f"{name}: weights over data ({spec}) with data = "
+                             f"{sizes['data']} is FSDP, the training slice; serve with "
+                             "scheme tp_only or ddp")
+    m = sizes.get("model", 1)
+    over_model = m > 1 and any(count(e) > 1 for s in plan.values() for e in s)
+    if over_model:
+        _sharded_families_only(cfg)
+        want = param_specs(named, cfg, scheme="tp_only")
+        for name, spec in plan.items():
+            got = tuple(e if count(e) > 1 else None for e in spec)
+            if got != want[name]:
+                raise ValueError(f"{name}: {spec} is not the tp_only layout {want[name]} "
+                                 "that the sharded apply functions run")
+        for what, n in (("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)):
+            if n % m:
+                raise ValueError(f"{cfg.name}: {n} {what} do not divide over a model axis "
+                                 f"of {m}")
+    for name, spec in plan.items():
+        for dim, (d, entry) in enumerate(zip(shapes[name], spec)):
+            n = count(entry)
+            if d % n:
+                raise ValueError(f"{name}: dim {dim} ({d}) of {shapes[name]} does not divide "
+                                 f"over {entry} ({n} ranks)")
+    return over_model
+
+
+class ShardLayout:
+    """One rank's part of a checked plan: its coordinates on the mesh and
+    the model axis its slices are spread over (None when no weight is)."""
+
+    def __init__(self, cfg: ArchConfig, plan: Plan, coords: Mapping[str, tuple[int, int]],
+                 model_axis: Optional[ModelAxis]):
+        self.cfg, self.plan, self.coords, self.model_axis = cfg, plan, coords, model_axis
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole parameter ``name`` (a view)."""
+        return local_slice(t, self.plan[name], self.coords)
+
+    def keep(self, name: str, t: torch.Tensor, expert: Optional[int] = None
+             ) -> Optional[torch.Tensor]:
+        """:data:`repro_torch.models.layers.Keep`: the rank's slice of a
+        weight just drawn, a copy so the draw can be freed; an expert's
+        (``expert`` its index) only if the rank holds it."""
+        spec = self.plan[name]
+        if expert is not None:
+            i, n = _piece(spec[0], self.coords)
+            per = self.cfg.n_experts // n
+            if not i * per <= expert < (i + 1) * per:
+                return None
+            spec = spec[1:]
+        if all(_piece(e, self.coords)[1] == 1 for e in spec):
+            return t
+        return local_slice(t, spec, self.coords).clone()
+
+    def skeleton(self, dtype: torch.dtype, compute_dtype: Optional[torch.dtype] = None) -> lm.LM:
+        """The rank's model on ``meta``: the local shapes, nothing drawn."""
+        model = lm.init_params(self.cfg, dtype=dtype, device="meta", compute_dtype=compute_dtype,
+                               keep=self.keep)
+        model.model_axis = self.model_axis
+        return model
+
+
+def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
+    """This rank's :class:`ShardLayout` of ``plan`` on ``mesh`` (a
+    ``DeviceMesh`` of :func:`repro_torch.launch.mesh.make_mesh`), after
+    :func:`check_plan`."""
+    from repro_torch.launch.mesh import axis_coords
+
+    coords = axis_coords(mesh)
+    over_model = check_plan(cfg, plan, {a: n for a, (_, n) in coords.items()})
+    axis = None
+    if over_model:
+        i, n = coords["model"]
+        axis = ModelAxis(mesh.get_group("model"), n, i)
+    return ShardLayout(cfg, plan, coords, axis)
+
+
+def init_params_sharded(cfg: ArchConfig, plan: Plan, mesh, *, seed: int = 0,
+                        dtype: torch.dtype = torch.bfloat16, device=None,
+                        compute_dtype: Optional[torch.dtype] = None) -> lm.LM:
+    """:func:`repro_torch.models.lm.init_params` on one rank: every weight
+    drawn as the unsharded init draws it, from the same generator in the
+    same order, and only the rank's slice kept (an expert at a time, so no
+    rank holds more than one drawn weight beyond its shard); the model is
+    the unsharded model's slice, bit for bit."""
+    lay = layout(cfg, plan, mesh)
+    model = lm.init_params(cfg, seed=seed, dtype=dtype, device=device,
+                           compute_dtype=compute_dtype, keep=lay.keep)
+    model.model_axis = lay.model_axis
+    return model
+
+
+@torch.no_grad()
+def shard_params(model: lm.LM, plan: Plan, mesh) -> lm.LM:
+    """A new model holding this rank's slice of each of ``model``'s
+    parameters (copies, on ``model``'s device and in its dtypes)."""
+    lay = layout(model.cfg, plan, mesh)
+    out = lay.skeleton(model.embed.dtype, model.compute_dtype).to_empty(
+        device=model.embed.device)
+    src = dict(model.named_parameters())
+    for name, p in out.named_parameters():
+        p.copy_(lay.local(name, src[name]))
+    return out
+
+
+def local_batch(cfg: ArchConfig, batch: Mapping[str, torch.Tensor], mesh, *,
+                multi_pod: bool = False) -> dict:
+    """This rank's rows of a global batch (every leaf's first dim the
+    batch), by :func:`batch_specs`: its data group's contiguous rows."""
+    from repro_torch.launch.mesh import axis_coords
+
+    coords = axis_coords(mesh)
+    B = next(iter(batch.values())).shape[0]
+    specs = batch_specs(cfg, batch, multi_pod=multi_pod, global_batch=B)
+    for k, spec in specs.items():
+        if spec and B % _piece(spec[0], coords)[1]:
+            raise ValueError(f"{k}: batch {B} does not split over {spec[0]}")
+    return {k: local_slice(t, specs[k], coords) for k, t in batch.items()}

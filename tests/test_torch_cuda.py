@@ -1239,3 +1239,82 @@ def test_sharded_across_local_cards(cuda):
         A = angles.proximity_matrix(U, "eq3", backend="sharded")
         assert A.device == home
         assert torch.equal(A, angles.proximity_matrix(U, "eq3", backend="kernel"))
+
+
+# ---------------------------------------------------------------------------
+# Tensor- and expert-parallel serving (repro_torch.sharding)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,experts,mesh,dtype", [
+    ("tinyllama-1.1b", None, (1, 2), torch.float32),
+    ("qwen2-moe-a2.7b", None, (1, 4), torch.float32),
+    ("llama4-scout-17b-a16e", 16, (1, 4), torch.float32),
+    ("llama4-scout-17b-a16e", 16, (2, 2), torch.float32),
+    ("qwen2-moe-a2.7b", None, (1, 4), torch.bfloat16),
+    ("llama4-scout-17b-a16e", 16, (1, 4), torch.bfloat16),
+])
+def test_sharded_serving_ranks_share_the_card(cuda, arch, experts, mesh, dtype):
+    """Ranks sharing the card over gloo serve reduced models (16 experts
+    over the model axis for llama4) with the unsharded model's logits:
+    float32 within 1e-4 of their max and every greedy token equal; bfloat16
+    (the CUDA GEMMs writing float32 partials) within 2e-2 of their max at
+    prefill, each row's first token equal or a tie within the difference;
+    every rank launching the flash kernel once per attention call."""
+    import _torch_tp_ranks as ranks
+    from repro_torch._device import float32_math
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+
+    _build.build_all(["flash_attention"])   # built once here, loaded by the ranks
+    data, model = mesh
+    batch, prompt, n_decode = 4, 40, 6
+    out = run_ranks(ranks.card_case, data * model, arch, experts, data, model, batch, prompt,
+                    n_decode, dtype, backend="gloo", devices=["cuda:0"] * (data * model),
+                    timeout=300)
+    cfg = ranks.config(arch, experts)
+    full = lm.init_params(cfg, seed=3, dtype=dtype, device=cuda)
+    with float32_math():
+        want = ranks._greedy(full, {"tokens": serve.random_prompt(cfg, batch, prompt, seed=0,
+                                                                  device=cuda)}, n_decode)
+    calls = lm.attention_calls(cfg, True) + n_decode * lm.attention_calls(cfg, False)
+    rows = batch // data
+    for res in out:
+        d = res["coords"]["data"][0]
+        w = want["logits"][:, d * rows:(d + 1) * rows].float().cpu()
+        got = res["logits"].float()
+        assert res["launches"].get("flash_attention") == calls
+        if dtype == torch.float32:
+            assert (got - w).abs().max() <= 1e-4 * w.abs().max()
+            assert torch.equal(res["tokens"], want["tokens"][d * rows:(d + 1) * rows].cpu())
+            continue
+        err = (got[0] - w[0]).abs().max()
+        assert err <= 2e-2 * w[0].abs().max()
+        top2 = w[0].topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        assert bool(((got[0].argmax(-1) == w[0].argmax(-1)) | tie).all())
+
+
+def test_llama4_scout_over_four_cards(cuda):
+    """llama4-scout-17b-a16e at full width and depth (215 GB in bfloat16)
+    served by ``launch.serve --mesh 1x4`` over NCCL, a card a rank: every
+    rank the same tokens (batch 4, prompt 1024, 32 tokens)."""
+    import _torch_tp_ranks as ranks
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"llama4-scout at full depth needs four cards (54 GB of weights each); "
+                    f"this machine has {n}")
+    _build.build_all(["flash_attention"])
+    argv = ["--arch", "llama4-scout-17b-a16e", "--mesh", "1x4", "--batch", "4",
+            "--prompt-len", "1024", "--tokens", "32"]
+    out = run_ranks(ranks.cli, 4, argv, backend="nccl", devices=[f"cuda:{i}" for i in range(4)],
+                    timeout=900)
+    for res in out:
+        assert res["tokens"].shape == (4, 32)
+        assert torch.equal(res["tokens"], out[0]["tokens"])
+        assert 0 <= int(res["tokens"].min()) and int(res["tokens"].max()) < 202240
