@@ -120,7 +120,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    16 and 12 and the 1024 x 256 cross block at p = 3 x q = 12; WKV decode
    replayed from a CUDA graph, and prefill also with float32 r, k, v; the
    flash-attention backward at tinyllama's and gemma3's training shapes
-   beside SDPA's backward; the WKV backward at rwkv6's training shape
+   beside SDPA's backward; the flash forward and backward at a rank's
+   bfloat16 training shapes of granite-8b over four cards (8 / 2 heads at
+   1x4, 16 / 4 at 2x2, hd 128) beside SDPA's; the WKV backward at rwkv6's training shape
    beside its twin, its bound at the rates its kernels run on and the
    stepwise kernel's bound, and each of its four kernels' device time a
    call from torch.profiler, every launch recorded);
@@ -149,12 +151,23 @@ Phases, each printing its own lines; any failure exits nonzero:
    down >= 0.5 nat, exactly 48 WKV forward and 24 backward launches a step,
    no flash), then 5 launcher steps.  Each training run prints its warm
    step time, tok/s, model-FLOP utilisation (``launch.roofline``), device
-   idle share, largest kernels and peak memory.
+   idle share, largest kernels and peak memory; (d) sharded training (at
+   most 120 s): one ``run_ranks`` spawn of a 2x2 mesh over gloo, the four
+   ranks sharing the card, trains granite-8b under ``fsdp_tp`` and
+   qwen2-moe-a2.7b under ``tp_only`` at full width with 2 layers, float32,
+   batch 4 x 512, one ``make_train_step`` each, against the unsharded step
+   computed alone first: the loss, every gradient leaf put together from
+   the pieces, each parameter after the step and its v inside the window
+   that AdamW's first step allows the gradient's limit, every piece two
+   ranks hold bit-equal, each rank's flash launches ``lm.train_step_launches`` and
+   its flash forms checked in phase 3 (``sharded_train_flash_calls``);
+   then one line saying that granite-8b's four-card training did not run.
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, phase 4c's sharded calls, each federation and each server call of phase 5, each
 architecture of 6, each family call, federation and the move of 9, each
-training step of 10a and 10c) and read just after; launches that only check a result (phase 5's ``admit_oracle``
+training step of 10a and 10c, each rank's step of 10d) and read just
+after; launches that only check a result (phase 5's ``admit_oracle``
 and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
 fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
 windows and splits the proximity launches by route (eq3, eq2 and, above
@@ -189,8 +202,12 @@ session, e.g. on a parent unpacked with ``git archive`` into
 
     python3 chip_smoke.py --sharded-4card
 
-runs only phase 6b's four-card runs over NCCL (phase 2's flash build and
-phase 3's flash checks first) on a machine with four cards.
+runs only phase 6b's four-card runs over NCCL and granite-8b's training
+at full width and depth over 1x4 ``tp_only`` and 2x2 ``fsdp_tp`` (10
+steps on one batch: the loss down 0.5 nat, the ranks' losses equal, step
+time, tok/s, model-FLOP utilisation, each card's peak beside
+``launch/dryrun.py``'s forecast), with the flash builds and the phase-3
+checks they need, on a machine with four cards.
 
     python3 chip_smoke.py --sweep-wkv
     python3 chip_smoke.py --sweep-eq2
@@ -210,6 +227,7 @@ import copy
 import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -374,6 +392,60 @@ SHARDED_4CARD = (
 )
 SHARDED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max|logit|
 SHARDED_TIMEOUT_S = 600.0
+
+# Sharded training (phase 10d): the train step over a 2x2 mesh of ranks in
+# fresh processes (one ``run_ranks`` spawn, gloo, the four sharing the
+# card), each run at full width with its depth cut, in float32 under
+# float32_math, batch SHARDED_TRAIN_BATCH x SHARDED_TRAIN_SEQ, each against
+# the unsharded step on the card, run alone first: granite-8b under
+# fsdp_tp (FSDP over data, tensor parallel over model; 0.84 B parameters,
+# 13.4 GB of masters, gradients and AdamW moments unsharded) and
+# qwen2-moe-a2.7b under tp_only (experts split by F over model, rows and
+# the Switch loss's statistics over data; 1.76 B, 28 GB).  Memory: a
+# rank's AdamW step (lm.make_train_step, a group of leaves at a time) ends
+# holding its parameters and new moments, 3 P, beside the old moments;
+# tp_only leaves a qwen2 rank half the model, P = 3.5 GB, and four ranks
+# share the card, so they start from zero moments held as broadcast views
+# (the values opt.init gives, without their bytes) and peak near 4 x 3.5 P
+# = 49 GB of the card's 80 (with real zero moments and a step holding 5 P
+# at once, four qwen2 ranks do not fit).  Limits, as the CPU tests': loss
+# 1e-5 relative, each gradient leaf 1e-4 of its max |g|.  A MoE model's
+# top-k expert choices flip at near-ties between the sharded and unsharded
+# float32 runs (the row-parallel sums round in another order; 4 of 65536
+# for qwen2-moe on an H100), and one flipped choice moves every leaf's
+# gradient by more than 1e-4 of its max (by 1.381e-01 on an expert's w_in).
+# So each rank's MoE blocks take the unsharded run's choices for its rows
+# (``_RouteForce``): each rank's own choices are counted against them, and
+# every choice that differs must be a tie, its gates within ROUTE_TIE of
+# the chosen one's; with the choices aligned every leaf, the router's and
+# the Switch loss's path included, is held to 1e-4.  The step: one AdamW step from zero moments
+# moves each element by about lr sign(g) (first rate 5e-6), so a bound on
+# the parameters' difference alone cannot tell a step from none.  Each
+# parameter, and its v, is held inside the window that the step allows a
+# gradient within the leaf's limit of the unsharded one (the steps of the
+# window's ends, widened by two float32 ulps and 1e-11): about 2 lr wide
+# where |g| is within the limit (the sign is open; those elements are
+# counted), far below lr elsewhere.
+SHARDED_TRAIN = (
+    dict(label="granite-8b fsdp_tp, 2 layers", arch="granite-8b", cut={"n_layers": 2},
+         mesh=(2, 2), scheme="fsdp_tp"),
+    dict(label="qwen2-moe tp_only, 2 layers", arch="qwen2-moe-a2.7b", cut={"n_layers": 2},
+         mesh=(2, 2), scheme="tp_only"),
+)
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 512
+SHARDED_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4}
+ROUTE_TIE = 1e-4   # largest gate gap of a choice a rank makes otherwise than the unsharded run
+SHARDED_TRAIN_BUDGET_S = 120.0
+# --sharded-4card training: granite-8b at full width and depth over NCCL, a
+# card a rank, float32 masters and bfloat16 compute, TRAIN_BATCH x
+# TRAIN_SEQ, TRAIN_STEPS steps on one repeated batch at TRAIN_LR (loss down
+# TRAIN_MIN_DROP, as phase 10a), at 1x4 tp_only and 2x2 fsdp_tp.
+TRAIN_4CARD = (
+    dict(label="granite-8b tp_only 1x4", arch="granite-8b", cut={}, mesh=(1, 4),
+         scheme="tp_only"),
+    dict(label="granite-8b fsdp_tp 2x2", arch="granite-8b", cut={}, mesh=(2, 2),
+         scheme="fsdp_tp"),
+)
 
 # LM training (phase 10a): tinyllama-1.1b at full width and depth, float32
 # masters and bfloat16 compute, remat on, AdamW under a cosine schedule, on
@@ -1083,7 +1155,8 @@ def check_flash(torch, device, errs: dict) -> None:
         # at hd 256), and the FAMILY_FLASH calls; then forms off the main
         # path: gemma3's ring before it fills, ragged and windowed cases at
         # hd 112 and 256
-        for label, form in served_flash_calls():
+        # and a rank's training forward of phase 10d and the four-card runs
+        for label, form in served_flash_calls() + sharded_train_flash_calls():
             (B, Sq, Skv, Hq, Hkv, hd), causal, window, q_off, slots = form
             if (form, dtype) not in errs["by_case"]:
                 compare(label, B, Sq, Skv, dtype, causal=causal, window=window,
@@ -2487,6 +2560,45 @@ class _RouteLog:
         self.module.route = self.route
 
 
+class _RouteForce(_RouteLog):
+    """Makes each MoE ``route`` call take the experts the unsharded run
+    chose (``choices``, one per call in call order, rows ``rows`` of them:
+    this rank's), their weights the gates of those experts renormalised as
+    ``route`` does, instead of its own top-k; counts the calls, the
+    choices that differ from its own and the largest gate gap between a
+    choice of its own and the one it takes (phase 10d)."""
+
+    def __init__(self, moe_module, choices: list, rows: slice):
+        super().__init__(moe_module)
+        self.forced, self.rows = choices, rows
+        self.differ = self.total = 0
+        self.gap = 0.0
+
+    def __enter__(self):
+        import torch
+
+        def forced(params, x, cfg, dtype):
+            gates, _, own = self.route(params, x, cfg, dtype)
+            i = len(self.choices)
+            require(i < len(self.forced), f"route call {i + 1}: the unsharded run made "
+                    f"{len(self.forced)}")
+            want = self.forced[i][self.rows].to(own.device)
+            require(want.shape == own.shape, f"route call {i}: {tuple(own.shape)} choices, the "
+                    f"unsharded run's rows {tuple(want.shape)}")
+            self.choices.append(own.cpu())
+            differ = own != want
+            self.differ += int(differ.sum())
+            self.total += own.numel()
+            if differ.any():
+                gap = (gates.gather(-1, own) - gates.gather(-1, want)).abs().max().item()
+                self.gap = max(self.gap, gap)
+            top_w = gates.gather(-1, want)
+            return gates, top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), want
+
+        self.module.route = forced
+        return self
+
+
 def phase_lm_float32(torch, device) -> None:
     """Phase 7: the full-width model in float32 through the kernels on the
     card against the same model through the plain twins on the CPU (the
@@ -2581,6 +2693,27 @@ def trained_flash_calls() -> list:
             add(f"{kind} self-attention", seq, seq, True, cfg.window if kind == "local" else None)
     for label, dims, causal, window in TRAINED_FORMS:
         calls.setdefault(flash_form(dims, causal, window, 0, None), label)
+    for label, form in sharded_train_flash_calls():
+        calls.setdefault(form, label)
+    return [(label, form) for form, label in calls.items()]
+
+
+def sharded_train_flash_calls(runs=SHARDED_TRAIN + TRAIN_4CARD) -> list:
+    """(label, form) of the flash call a rank of ``runs`` (phase 10d's and
+    the four-card training) makes: its rows of the batch on its heads, 1 /
+    model of each (granite: 16 / 4 at 2x2, 8 / 2 at 1x4; qwen2-moe: 8 / 8;
+    hd 128)."""
+    from repro_torch.configs import get_config
+
+    calls = {}
+    for run in runs:
+        cfg = get_config(run["arch"])
+        data, model = run["mesh"]
+        batch, seq = ((SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ) if run in SHARDED_TRAIN
+                      else (TRAIN_BATCH, TRAIN_SEQ))
+        dims = (batch // data, seq, seq, cfg.n_heads // model, cfg.n_kv_heads // model,
+                cfg.resolved_head_dim)
+        calls.setdefault(flash_form(dims, True, None, 0, None), f"{run['label']}: a rank's")
     return [(label, form) for form, label in calls.items()]
 
 
@@ -2595,10 +2728,11 @@ def flash_bwd_operands(torch, gen, device, form, dtype):
     return (q, k, v, do), dict(causal=causal, window=window, q_offset=q_off)
 
 
-def check_flash_bwd(torch, device, errs: dict) -> None:
-    """Phase 3, the backward: at each of ``trained_flash_calls``, bfloat16
-    and float32, the forward kernel's lse against the twin's, then dq, dk,
-    dv of two launches (bitwise equal) against the plain twin's."""
+def check_flash_bwd(torch, device, errs: dict, calls=None) -> None:
+    """Phase 3, the backward: at each of ``calls`` (default
+    ``trained_flash_calls``), bfloat16 and float32, the forward kernel's
+    lse against the twin's, then dq, dk, dv of two launches (bitwise equal)
+    against the plain twin's."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
         flash_attention_plain)
@@ -2606,7 +2740,7 @@ def check_flash_bwd(torch, device, errs: dict) -> None:
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
-        for label, form in trained_flash_calls():
+        for label, form in calls or trained_flash_calls():
             (q, k, v, do), kw = flash_bwd_operands(torch, gen, device, form, dtype)
             o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
             _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
@@ -2868,6 +3002,463 @@ def phase_lm_training(torch, device, checked: set) -> dict:
     return out
 
 
+def _sharded_train_schedule():
+    from repro_torch.optim import cosine_schedule
+
+    return cosine_schedule(5e-5, warmup=10, total=100)
+
+
+def _sharded_train_opt():
+    """Phase 10d's optimizer: the LM tests' AdamW (cosine_schedule(5e-5,
+    warmup=10, total=100), weight decay 0.1; a first rate of 5e-6)."""
+    from repro_torch.optim import adamw
+
+    return adamw(_sharded_train_schedule(), b1=ADAM_B1, weight_decay=0.1)
+
+
+ADAM_B1 = 0.9   # from zero moments a step's m is (1 - b1) g: its gradient
+
+
+def _zero_moments(torch, params) -> dict:
+    """AdamW's initial state of ``params``: opt.init's values, the moments
+    zeros held as broadcast views of one element (no bytes a leaf)."""
+    named = dict(params.named_parameters())
+    device = next(iter(named.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "m": {n: zero.expand(p.shape) for n, p in named.items()},
+            "v": {n: zero.expand(p.shape) for n, p in named.items()}}
+
+
+def _sharded_train_batch(torch, cfg, device) -> dict:
+    from repro_torch.launch.train import synthetic_batch
+
+    return synthetic_batch(cfg, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
+                           torch.Generator(device=device).manual_seed(SEED))
+
+
+def _train_step_read(torch, params, batch, routes=None) -> tuple:
+    """One ``make_train_step`` of phase 10d's optimizer from zero moments,
+    under float32_math, with every MoE route recorded by ``routes`` (a
+    :class:`_RouteLog` by default): (loss, the step's gradients read back
+    from its first moment, its second moment, the route log)."""
+    from repro_torch._device import float32_math
+    from repro_torch.models import lm, moe
+
+    with float32_math(), routes or _RouteLog(moe) as routes:
+        params, state, metrics = lm.make_train_step(_sharded_train_opt())(
+            params, _zero_moments(torch, params), batch)
+        grads = {n: m.div_(1 - ADAM_B1) for n, m in state["m"].items()}
+    return metrics["loss"].item(), grads, state["v"], routes
+
+
+def _unsharded_step(torch, run: dict, device, path: str) -> dict:
+    """Phase 10d's yardstick: one ``make_train_step`` of the unsharded
+    model of ``run`` alone on the card (:func:`_train_step_read`); its
+    gradients saved to ``path`` on the host (the ranks map it), the model
+    freed before this returns.  Its MoE route choices (the ranks take
+    them), each leaf's max |g| and its gradient limit in absolute terms
+    (``delta``, for the ranks' windows)."""
+    import gc
+
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg = _sharded_config(run)
+    params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, device=device)
+    batch = _sharded_train_batch(torch, cfg, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    loss, grads, v, routes = _train_step_read(torch, params, batch)
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, v
+    host = {n: g.cpu() for n, g in grads.items()}
+    want = {"loss": loss, "path": path, "routes": routes.choices,
+            "gmax": {n: g.abs().max().item() for n, g in grads.items()}}
+    want["delta"] = {n: SHARDED_TRAIN_TOL["grad"] * g for n, g in want["gmax"].items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    need = sum(t.numel() * t.element_size() for t in host.values())
+    free = shutil.disk_usage(Path(path).parent).free
+    require(free > need, f"{run['label']}: {need / 2**30:.1f} GiB of reference to save, "
+            f"{free / 2**30:.1f} GiB free under {Path(path).parent}")
+    torch.save(host, path)
+    log("train-tp", f"{run['label']}: the unsharded step alone, {n_params / 1e9:.3f} B "
+        f"parameters, loss {loss:.6f}, {len(routes.choices)} MoE route calls, peak {peak:.1f} GiB allocated; "
+        f"{t1 - t0:.1f} s; {need / 2**30:.1f} GiB of gradients saved for the ranks "
+        f"({free / 2**30:.0f} GiB were free) in {time.perf_counter() - t1:.1f} s")
+    return want
+
+
+def _digest(torch, t) -> tuple:
+    """Three exact integer sums of ``t``'s bits (plain, squared, weighted by
+    position), a chunk at a time: equal tensors give equal digests, and two
+    that differ in any bit all but surely do not."""
+    flat = t.detach().contiguous().view(-1).view(torch.int32)
+    sums = [0, 0, 0]
+    for start in range(0, flat.numel(), 1 << 24):
+        b = flat[start:start + (1 << 24)].to(torch.int64)
+        pos = torch.arange(start, start + b.numel(), device=b.device)
+        sums = [sums[0] + int(b.sum()), sums[1] + int((b * b).sum()),
+                sums[2] + int((b * pos).sum())]
+    return tuple(sums)
+
+
+def _first_step_window(torch, opt, p, g, delta: float) -> dict:
+    """Where one step of AdamW ``opt`` from zero moments puts ``p``, and
+    its v, when the gradient lies within ``delta`` of ``g``: {"p": (lo,
+    hi), "v": (lo, hi), "mid": the step of ``g`` itself, "open": the
+    elements with |g| <= delta}.  From zero moments the update is monotone
+    in g and v grows with |g|, so the steps of the window's ends bound
+    both, each widened by two float32 ulps (and 1e-11, the update's own
+    rounding).  tests/_torch_tp_ranks.py's ``first_step_windows``, a leaf
+    at a time."""
+    from repro_torch.optim import apply_updates
+
+    zero = torch.zeros((), dtype=torch.float32, device=p.device).expand(p.shape)
+
+    def step(grad):
+        state = {"step": torch.zeros((), dtype=torch.int32, device=p.device),
+                 "m": {"w": zero}, "v": {"w": zero}}
+        updates, state = opt.update({"w": grad}, state, {"w": p})
+        return apply_updates({"w": p}, updates)["w"], state["v"]["w"]
+
+    def widen(a, b, floor):
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        pad = torch.maximum(lo.abs(), hi.abs()).mul_(2.0 ** -22).add_(floor)
+        return lo.sub_(pad), hi.add_(pad)
+
+    out = {"p": widen(step(g - delta)[0], step(g + delta)[0], 1e-11),
+           "v": widen(step((g.abs() - delta).clamp_(min=0.0))[1], step(g.abs() + delta)[1], 0.0),
+           "mid": step(g)[0], "open": int((g.abs() <= delta).sum())}
+    return out
+
+
+STEP_CHECK_CHUNK = 1 << 24   # elements of a leaf a window is formed over at once
+
+
+def _outside(x, window) -> float:
+    """How far the farthest element of ``x`` lies outside ``window``."""
+    lo, hi = window
+    return max((lo - x).clamp_(min=0.0).max().item(), (x - hi).clamp_(min=0.0).max().item())
+
+
+def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) -> list:
+    """One rank of phase 10d, in its own process (``run_ranks`` joined the
+    process group and set its card), each run freed before the next: the
+    rank's shard drawn by ``init_params_sharded`` (seed as the unsharded
+    model) takes one ``make_train_step`` on its rows
+    (:func:`_train_step_read`), its launch counts set to 0 just before and
+    read just after; its MoE blocks take the unsharded run's expert
+    choices for its rows (``choices``, :class:`_RouteForce`).  Held
+    against the unsharded step's gradients
+    (``paths``, mapped, each leaf's slice read alone): each leaf piece's
+    largest gradient difference; how far its parameters after the step,
+    and its v, lie outside the window that the step allows a gradient
+    within ``deltas`` of the unsharded one (:func:`_first_step_window`;
+    AdamW is elementwise), with the elements whose sign that leaves open
+    and the largest difference of the others from the step of the
+    unsharded gradient itself; and a digest of each piece, for the ranks
+    that hold the same one."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import axis_coords, make_mesh
+    from repro_torch.models import moe
+
+    for name in ("flash_attention", "flash_attention_bwd"):   # loaded as phase 2 built it
+        require(_build.library_path(name).exists(),
+                f"rank {dist.get_rank()}: {name} was not built by phase 2")
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(*runs[0]["mesh"], device_type="cuda")
+    coords = axis_coords(mesh)
+    out = []
+    for run, path, delta, chosen in zip(runs, paths, deltas, choices):
+        cfg = _sharded_config(run)
+        plan = sharding.plan_for(cfg, run["scheme"])
+        t0 = time.perf_counter()
+        params = sharding.init_params_sharded(cfg, plan, mesh, seed=SEED, dtype=torch.float32,
+                                              device=device)
+        start = {n: p.detach().clone() for n, p in params.named_parameters()}
+        batch = sharding.local_batch(cfg, _sharded_train_batch(torch, cfg, device), mesh)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t1 = time.perf_counter()
+        rows = SHARDED_TRAIN_BATCH // run["mesh"][0]
+        rows = slice(coords["data"][0] * rows, (coords["data"][0] + 1) * rows)
+        _build.reset_launches()
+        with _FlashLog() as flash_log:
+            loss, grads, v, routes = _train_step_read(torch, params, batch,
+                                                      _RouteForce(moe, chosen, rows))
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        launches = dict(_build.LAUNCHES)
+        ref = torch.load(path, mmap=True, weights_only=True)
+        opt = _sharded_train_opt()
+        named = dict(params.named_parameters())
+        grad_err, step_err = {}, {}
+        for n, g in grads.items():
+            want = sharding.local_slice(ref[n], plan[n], coords).to(device)
+            grad_err[n] = (g - want).abs().max().item()
+            err = {"p": 0.0, "v": 0.0, "open": 0, "settled": 0.0, "elements": want.numel()}
+            flat = [t.detach().reshape(-1) for t in (start[n], want, named[n], v[n])]
+            for at in range(0, want.numel(), STEP_CHECK_CHUNK):   # temporaries a chunk long
+                p0, g_ref, p1, v1 = (t[at:at + STEP_CHECK_CHUNK] for t in flat)
+                win = _first_step_window(torch, opt, p0, g_ref, delta[n])
+                settled = (p1 - win["mid"]).abs().mul_(g_ref.abs() > delta[n]).max().item()
+                err = {"p": max(err["p"], _outside(p1, win["p"])),
+                       "v": max(err["v"], _outside(v1, win["v"])),
+                       "open": err["open"] + win["open"],
+                       "settled": max(err["settled"], settled), "elements": err["elements"]}
+                del win
+            step_err[n] = err
+            del want, flat
+        out.append({
+            "rank": dist.get_rank(), "coords": coords, "loss": loss,
+            "grad_err": grad_err, "step_err": step_err,
+            "grad_digest": {n: _digest(torch, g) for n, g in grads.items()},
+            "param_digest": {n: _digest(torch, p) for n, p in named.items()},
+            "launches": launches, "forms": flash_log.forms,
+            "routes": {"calls": len(routes.choices), "differ": routes.differ,
+                       "total": routes.total, "gap": routes.gap},
+            "init_s": t1 - t0, "step_s": t2 - t1,
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "params": sum(p.numel() for p in named.values())})
+        del params, named, start, grads, v, batch, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set) -> None:
+    """Phase 10d's checks of one run against the unsharded step: the loss;
+    every gradient leaf within the limit of its max |g|; each parameter
+    after the step, and its v, inside the step's window; for a MoE model,
+    every rank's route calls as many as the unsharded run's and each
+    expert choice of its own that differs from the one it took a tie; every
+    piece two ranks hold bit for bit; the launches and flash forms of every
+    rank."""
+    from repro_torch import sharding
+    from repro_torch.models import lm
+
+    cfg = _sharded_config(run)
+    label, tol = run["label"], SHARDED_TRAIN_TOL
+    plan = sharding.plan_for(cfg, run["scheme"])
+    expected = lm.train_step_launches(cfg)
+    for r in ranks:
+        require(r["loss"] == ranks[0]["loss"],
+                f"{label}: rank {r['rank']}'s loss differs from rank 0's")
+        require(r["launches"] == expected,
+                f"{label}: rank {r['rank']} launched {r['launches']}, expected {expected}")
+        require_checked(label, r["forms"], checked)
+    loss_rel = abs(ranks[0]["loss"] - want["loss"]) / abs(want["loss"])
+    worst_g = max((max(r["grad_err"][n] for r in ranks) / (want["gmax"][n] or 1.0), n)
+                  for n in want["gmax"])
+    worst_p = max((max(r["step_err"][n]["p"] for r in ranks), n) for n in want["gmax"])
+    worst_v = max((max(r["step_err"][n]["v"] for r in ranks), n) for n in want["gmax"])
+    settled = max((max(r["step_err"][n]["settled"] for r in ranks), n) for n in want["gmax"])
+    n_open = sum(r["step_err"][n]["open"] for r in ranks for n in want["gmax"])
+    n_all = sum(r["step_err"][n]["elements"] for r in ranks for n in want["gmax"])
+    lr = float(_sharded_train_schedule()(torch.ones(())))
+    routing = ""
+    if want["routes"]:
+        for r in ranks:
+            require(r["routes"]["calls"] == len(want["routes"]),
+                    f"{label}: rank {r['rank']} routed {r['routes']['calls']} times, the "
+                    f"unsharded run {len(want['routes'])}")
+        differ = sum(r["routes"]["differ"] for r in ranks)
+        total = sum(r["routes"]["total"] for r in ranks)
+        gap = max(r["routes"]["gap"] for r in ranks)
+        routing = (f"; the ranks took the unsharded run's top-{cfg.top_k} expert choices: "
+                   f"{differ} of their own {total} differ, each a tie (largest gate gap "
+                   f"{gap:.3e}, limit {ROUTE_TIE})")
+        require(gap <= ROUTE_TIE, f"{label}: an expert choice differs from the unsharded "
+                f"run's by a gate gap of {gap}")
+    shared = 0
+    for what in ("grad_digest", "param_digest"):
+        seen = {}
+        for r in ranks:
+            for n, d in r[what].items():
+                at = (n, tuple(sharding._piece(e, r["coords"]) for e in plan[n]))
+                if at in seen:
+                    shared += 1
+                    require(seen[at] == d, f"{label}: rank {r['rank']}'s {what} of {n} differs "
+                            "from another rank's piece of the same slice")
+                seen.setdefault(at, d)
+    log("train-tp", f"{label}: 2x2 over gloo on one card ({run['scheme']}), "
+        f"{ranks[0]['params'] / 1e9:.3f} B parameters a rank; loss {ranks[0]['loss']:.6f} "
+        f"against {want['loss']:.6f} (relative {loss_rel:.2e}; limit {tol['loss']}); worst "
+        f"gradient leaf {worst_g[1]} {worst_g[0]:.3e} of its max |g| (limit "
+        f"{tol['grad']}){routing}; the step "
+        f"(first rate {lr:.3e}): parameters outside their window by at most {worst_p[0]:.3e} "
+        f"({worst_p[1]}), v by {worst_v[0]:.3e} ({worst_v[1]}); {n_open} of {n_all} elements "
+        f"with |g| within the limit (sign open, window ~2 lr), the others at most "
+        f"{settled[0]:.3e} from the unsharded gradient's step ({settled[1]}); "
+        f"{shared} pieces held by two ranks, each bit-equal; launches a rank "
+        f"{ranks[0]['launches']} (lm.train_step_launches {expected}); init "
+        f"{[round(r['init_s'], 2) for r in ranks]} s, step {[round(r['step_s'], 3) for r in ranks]}"
+        f" s (the ranks time-slice one card); peak {[round(r['peak_gib'], 1) for r in ranks]} GiB")
+    require(loss_rel <= tol["loss"], f"{label}: loss {loss_rel}")
+    require(worst_g[0] <= tol["grad"], f"{label}: gradient {worst_g}, limit {tol['grad']}")
+    require(worst_p[0] == 0.0, f"{label}: parameter {worst_p[1]} {worst_p[0]} outside its window")
+    require(worst_v[0] == 0.0, f"{label}: v of {worst_v[1]} {worst_v[0]} outside its window")
+
+
+def phase_sharded_training(torch, device, checked: set) -> dict:
+    """Phase 10d (at most SHARDED_TRAIN_BUDGET_S): SHARDED_TRAIN over one
+    2x2 spawn of ranks sharing the card through gloo, each run against the
+    unsharded step, computed first in this process, kept on the host and
+    freed from the card before the ranks start.  Returns each run's rank-0
+    launches of its train step."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    card = f"cuda:{torch.cuda.current_device()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"run{i}.pt") for i in range(len(SHARDED_TRAIN))]
+        wants = [_unsharded_step(torch, run, device, path)
+                 for run, path in zip(SHARDED_TRAIN, paths)]
+        torch.cuda.empty_cache()
+        log("train-tp", f"starting 4 ranks; {memory(torch)}")
+        t0 = time.perf_counter()
+        results = run_ranks(_sharded_train_rank, 4, list(SHARDED_TRAIN), paths,
+                            [w["delta"] for w in wants], [w["routes"] for w in wants],
+                            backend="gloo", devices=[card] * 4,
+                            timeout=SHARDED_TIMEOUT_S, store_dir=tmp)
+        log("train-tp", f"4 ranks on {card} trained {len(SHARDED_TRAIN)} runs in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, init, a step each)")
+    launches = {}
+    for i, run in enumerate(SHARDED_TRAIN):
+        _check_sharded_train(torch, run, [res[i] for res in results], wants[i], checked)
+        launches[run["label"]] = results[0][i]["launches"]
+    seconds = time.perf_counter() - t_phase
+    log("train-tp", f"phase 10d took {seconds:.1f} s (budget {SHARDED_TRAIN_BUDGET_S:.0f} s)")
+    require(seconds <= SHARDED_TRAIN_BUDGET_S, f"phase 10d took {seconds:.1f} s")
+    return launches
+
+
+def _train_4card_rank(runs: list) -> list:
+    """One rank of the four-card training (NCCL, a card a rank): each run's
+    TRAIN_STEPS steps of ``make_train_step`` on one repeated batch (the
+    rank's rows), the launch counts of each step set to 0 just before it
+    and read just after, each run freed before the next."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False       # phase_device's settings
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for run in runs:
+        cfg = get_config(run["arch"])
+        mesh = make_mesh(*run["mesh"], device_type="cuda")
+        t0 = time.perf_counter()
+        params = sharding.init_params_sharded(cfg, sharding.plan_for(cfg, run["scheme"]), mesh,
+                                              seed=SEED, dtype=torch.float32,
+                                              compute_dtype=torch.bfloat16, device=device)
+        opt = adamw(cosine_schedule(TRAIN_LR, warmup=2, total=TRAIN_STEPS))
+        state = opt.init(dict(params.named_parameters()))
+        step = lm.make_train_step(opt)
+        batch = sharding.local_batch(cfg, synthetic_batch(
+            cfg, TRAIN_BATCH, TRAIN_SEQ, torch.Generator(device=device).manual_seed(SEED)), mesh)
+        torch.cuda.synchronize(device)
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, seconds, counts = [], [], []
+        with _FlashLog() as flash_log:
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize(device)
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                losses.append(metrics["loss"].item())     # a sync
+                seconds.append(time.perf_counter() - t0)
+                counts.append(dict(_build.LAUNCHES))
+        out.append({"rank": dist.get_rank(), "losses": losses, "seconds": seconds,
+                    "launches": counts, "forms": flash_log.forms, "init_s": init_s,
+                    "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                    "params": sum(p.numel() for p in params.parameters())})
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_4card(torch, checked: set) -> dict:
+    """--sharded-4card's training: TRAIN_4CARD over NCCL, a card a rank;
+    each run's loss must fall TRAIN_MIN_DROP in TRAIN_STEPS steps, the
+    ranks' losses equal, every step's launches ``lm.train_step_launches``
+    and every flash form checked in phase 3.  Prints the warm step time,
+    tok/s, model-FLOP utilisation of the four cards, each card's peak and
+    launch/dryrun.py's forecast of the bytes a rank holds beside it."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16, model_flops
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    results = run_ranks(_train_4card_rank, 4, list(TRAIN_4CARD), backend="nccl",
+                        devices=[f"cuda:{i}" for i in range(4)], timeout=1800)
+    log("train-4", f"four cards over NCCL: {len(TRAIN_4CARD)} runs in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, init, {TRAIN_STEPS} steps each)")
+    out = {}
+    for i, run in enumerate(TRAIN_4CARD):
+        ranks = [res[i] for res in results]
+        cfg = get_config(run["arch"])
+        label = run["label"]
+        want = lm.train_step_launches(cfg)
+        losses = ranks[0]["losses"]
+        for r in ranks:
+            require(r["losses"] == losses, f"{label}: rank {r['rank']}'s losses {r['losses']} "
+                    f"differ from rank 0's {losses}")
+            require(all(c == want for c in r["launches"]),
+                    f"{label}: rank {r['rank']} launches {r['launches']}, expected {want} a step")
+            require_checked(label, r["forms"], checked)
+        require(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+        require(losses[-1] <= losses[0] - TRAIN_MIN_DROP,
+                f"{label}: loss fell {losses[0] - losses[-1]:.4f} nat in {TRAIN_STEPS} steps")
+        warm = statistics.median(max(r["seconds"][j] for r in ranks)
+                                 for j in range(1, TRAIN_STEPS))
+        shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        mfu = model_flops(cfg, shape) / warm / (4 * PEAK_FLOPS_BF16)
+        data, model = run["mesh"]
+        sizes = {"data": data, "model": model}
+        forecast = (4 * dryrun.param_bytes(cfg, sizes, run["scheme"])
+                    + dryrun.batch_bytes(cfg, shape, sizes)) / 2**30
+        log("train-4", f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{ranks[0]['params'] / 1e9:.3f} B parameters a rank (drawn in "
+            f"{[round(r['init_s'], 1) for r in ranks]} s); loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} in {TRAIN_STEPS} steps (limit: down {TRAIN_MIN_DROP}), the same "
+            f"on every rank; warm step median {warm:.4f} s ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} "
+            f"tok/s, model-FLOP utilisation {mfu:.1%} of 4 x 989 TFLOP/s); peak "
+            f"{[round(r['peak_gib'], 1) for r in ranks]} GiB allocated a card, dryrun's forecast "
+            f"{forecast:.1f} GiB a rank (parameters, gradients, AdamW m and v, batch; no "
+            f"activations); launches a step {ranks[0]['launches'][-1]}")
+        out[label] = {"losses": losses, "step_s": warm, "mfu": mfu,
+                      "peak_gib": [r["peak_gib"] for r in ranks], "forecast_gib": forecast,
+                      "launches": ranks[0]["launches"][-1]}
+    return out
+
+
 # The backward's timed shapes (phase 8 and --time-kernels): tinyllama's
 # training call and gemma3's local and global layers.
 FLASH_BWD_TIMED = (TRAINED_FORMS[0], *TRAINED_FORMS[2:4])
@@ -2883,13 +3474,16 @@ def flash_bwd_bound(dims, causal: bool, window) -> tuple[float, str]:
                  10.0 * B * Hq * hd * pairs, PEAK_BF16_FLOPS)
 
 
-def flash_bwd_rows(torch, device, train, errs) -> list:
+def flash_bwd_rows(torch, device, train, errs, cases=FLASH_BWD_TIMED, launches=None,
+                   first: bool = True) -> list:
     """Phase 8's rows for the backward kernel at tinyllama's and gemma3's
-    training shapes (bfloat16): kernel, plain twin and SDPA's backward
-    (``torch.autograd`` through ``scaled_dot_product_attention``, timed as
-    the yardstick only) beside the bound: 10 hd flops per valid (query
-    head, key) pair at the bfloat16 peak, or q, k, v, o, dO, lse read and
-    dq, dk, dv written once."""
+    training shapes (bfloat16; or ``cases``, in TRAINED_FORMS' layout, with
+    ``launches`` their path's backward launches): kernel, plain twin and
+    SDPA's backward (``torch.autograd`` through
+    ``scaled_dot_product_attention``, timed as the yardstick only) beside
+    the bound: 10 hd flops per valid (query head, key) pair at the bfloat16
+    peak, or q, k, v, o, dO, lse read and dq, dk, dv written once.  The
+    first row (with ``first``) is the kernel's own, ``flash_attention_bwd``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -2897,7 +3491,7 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     rows = []
-    for label, dims, causal, window in FLASH_BWD_TIMED:
+    for label, dims, causal, window in cases:
         form = flash_form(dims, causal, window, 0, None)
         B, Sq, Skv, Hq, Hkv, hd = dims
         (q, k, v, do), kw = flash_bwd_operands(torch, gen, device, form, torch.bfloat16)
@@ -2921,14 +3515,18 @@ def flash_bwd_rows(torch, device, train, errs) -> list:
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of the bound")
         rows.append({
-            "name": "flash_attention_bwd" if not rows else f"flash_attention_bwd[{label}]",
+            "name": ("flash_attention_bwd" if first and not rows
+                     else f"flash_attention_bwd[{label}]"),
             "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:98",
             "note": "the reference's custom VJP (_flash_bwd) is plain JAX; the TPU kernel "
                     "src/repro/kernels/flash_attention/flash_attention.py:100 is forward only",
-            "launches": train["run_launches"]["flash_attention_bwd"],
-            "max_abs_err": max(errs[torch.bfloat16]),
-            "max_abs_err_f32": max(errs[torch.float32]),
+            "launches": (train["run_launches"]["flash_attention_bwd"] if launches is None
+                         else launches),
+            "max_abs_err": (max(errs[torch.bfloat16]) if launches is None
+                            else errs["by_case"][(form, torch.bfloat16)]),
+            "max_abs_err_f32": (max(errs[torch.float32]) if launches is None
+                                else errs["by_case"][(form, torch.float32)]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "ported": 20,
             "redesigned": REDESIGNED_IN["flash_attention_bwd"],
@@ -3326,6 +3924,21 @@ def family_flash_case(torch, gen, device, case):
     return (q, k, v), kw, sdpa, b
 
 
+def sharded_train_rows(torch, device, tp_train: dict, errs: dict) -> list:
+    """Phase 8's rows for the flash forward and backward at a rank's
+    bfloat16 training shapes of the four-card runs (granite-8b: 8 / 2 heads
+    at 1x4, 16 / 4 at 2x2; hd 128), beside SDPA, each with phase 10d's
+    per-rank launches of granite-8b's sharded step (the same kernels)."""
+    run = SHARDED_TRAIN[0]["label"]
+    fwd = [(run, f"{label} training", *form) for label, form in
+           sharded_train_flash_calls(TRAIN_4CARD)]
+    bwd = [(f"{label} training", form[0], form[1], form[2]) for label, form in
+           sharded_train_flash_calls(TRAIN_4CARD)]
+    return (family_flash_rows(torch, device, tp_train, errs, cases=fwd, key="sharded_train_run")
+            + flash_bwd_rows(torch, device, None, errs["flash_attention_bwd"], cases=bwd,
+                             launches=tp_train[run]["flash_attention_bwd"], first=False))
+
+
 def family_flash_rows(torch, device, launches, errs, cases=FAMILY_FLASH, key="family") -> list:
     """Phase 8's rows for the newer families' flash calls (FAMILY_FLASH;
     with ``cases``, another list in its layout, such as phase 6b's per-rank
@@ -3649,8 +4262,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-any-rank", action="store_true",
                     help="only time eq2 at p = 16 by Gram piece, reduce jobs and workspace cap")
     ap.add_argument("--sharded-4card", action="store_true",
-                    help="only phase 6b's four-card runs over NCCL (with phase 3's flash "
-                         "checks they need); needs four cards")
+                    help="only phase 6b's four-card runs over NCCL and granite-8b's "
+                         "four-card training (with phase 3's flash checks they need); needs "
+                         "four cards")
     args = ap.parse_args(argv)
     tree = args.time_kernels or args.time_fl
     src = Path(tree).resolve() if tree else ROOT / "src"
@@ -3684,13 +4298,18 @@ def main(argv=None) -> int:
     if args.sharded_4card:
         require(device["count"] >= 4, f"--sharded-4card needs four cards, not {device['count']}")
         from repro_torch.kernels import _build
-        _build.build_all(["flash_attention"])
+        cuda = torch.device("cuda")
+        _build.build_all(["flash_attention", "flash_attention_bwd"])
+        bwd = {torch.float32: [], torch.bfloat16: [], "by_case": {}}
+        check_flash_bwd(torch, cuda, bwd, calls=sharded_train_flash_calls(TRAIN_4CARD))
+        trained = {form for form, _ in bwd["by_case"]}
         errs = {torch.float32: [], torch.bfloat16: [], "by_case": {}}
-        check_flash(torch, torch.device("cuda"), errs)
+        check_flash(torch, cuda, errs)
         checked = {"bfloat16": {f for f, d in errs["by_case"] if d == torch.bfloat16},
                    "float32": {f for f, d in errs["by_case"] if d == torch.float32}}
-        print(json.dumps({"device": device["smi"], "sharded_4card": phase_sharded_serving(
-            torch, torch.device("cuda"), {}, checked, one_card=False)}))
+        serving = phase_sharded_serving(torch, cuda, {}, checked, one_card=False)
+        print(json.dumps({"device": device["smi"], "sharded_4card": serving,
+                          "train_4card": phase_train_4card(torch, trained)}))
         return 0
     t_start = time.perf_counter()
 
@@ -3740,12 +4359,18 @@ def main(argv=None) -> int:
     trained = {form for form, dtype in errs["flash_attention_bwd"]["by_case"]}
     training = phase_lm_training(torch, fed.device, trained)
     done("phase 10 (LM training)")
+    tp_train = phase_sharded_training(torch, fed.device, trained)
+    log("train-4", f"{', '.join(r['label'] for r in TRAIN_4CARD)}: not run here: granite-8b at "
+        f"full depth trains over four cards under python3 chip_smoke.py --sharded-4card "
+        f"(this machine has {device['count']})")
+    done("phase 10d (sharded training)")
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, tp_launches, errs,
                               cases=sharded_flash_timed(), key="sharded_run")
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
+    rows += sharded_train_rows(torch, fed.device, tp_train, errs)
     rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
     # phase 4c's window and times beside the proximity row's own counts
     next(r for r in rows if r["name"] == "proximity")["sharded"] = {

@@ -168,7 +168,28 @@ def lm_shard_from_numpy(
 
     lay = sharding.layout(cfg, plan, mesh)
     model = lay.skeleton(dtype).to_empty(device=resolve_device(device))
-    return _fill_from_numpy(model, ref, lambda name, t: lay.local(name, t).contiguous())
+    return lay.attach(_fill_from_numpy(model, ref,
+                                       lambda name, t: lay.local(name, t).contiguous()))
+
+
+def opt_state_shard_from_numpy(
+    cfg: ArchConfig, ref_state: Mapping, plan: dict, mesh, *, device: DeviceLike = None,
+) -> dict:
+    """The reference's optimizer state (AdamW's ``{"step", "m", "v"}``,
+    SGD's ``{"step", "mu"}``; leaves as NumPy arrays) on one rank of
+    ``mesh``, as :mod:`repro_torch.optim` keeps it: each moment tree, laid
+    out like the parameters, becomes ``{name: the rank's float32 piece}``
+    by :func:`repro_torch.sharding.opt_state_specs` (the moments mirror
+    ``plan``), and the step (replicated) an int32 scalar."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in ref_state.items():
+        if isinstance(val, Mapping):
+            model = lm_shard_from_numpy(cfg, val, plan, mesh, device=dev)
+            out[key] = {n: p.detach() for n, p in model.named_parameters()}
+        else:
+            out[key] = torch.as_tensor(np.asarray(val), device=dev)
+    return out
 
 
 def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]] = None

@@ -1,0 +1,207 @@
+"""Each rank's bytes of every step on a mesh, without running it.
+
+    python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh 2x2
+    python -m repro_torch.launch.dryrun --all [--mesh single|multi|both|DATAxMODEL]
+
+Counterpart of ``repro.launch.dryrun``, which lowers and compiles every
+(architecture x input shape x mesh) step on a 512-device fake mesh to read
+XLA's memory analysis.  The port runs eagerly and compiles nothing, so this
+counts instead, from the ported plan (:mod:`repro_torch.sharding`) over the
+model built on ``meta`` tensors (no ranks, no allocation), each rank's
+bytes of:
+
+* train: the float32 parameters, their gradients and AdamW's ``m`` and
+  ``v`` (both float32, laid out as the parameters: ``opt_state_specs``);
+* prefill and decode: the parameters in the serving dtype, bfloat16 (the
+  vectors float32, as ``lm.init_params`` stores them), and the caches in
+  the port's own layout (``lm.init_cache``: KV heads over ``model`` where
+  they divide, ring caches of the window's slots; batch over the data
+  axes);
+* every step: the batch (int64 token ids, bfloat16 vision embeddings or
+  encoder frames), its rows over the data axes as ``local_batch`` cuts
+  them.
+
+A dimension its axes do not divide rounds up, as GSPMD pads it.  No
+activation is estimated: activation memory is what ``chip_smoke.py``
+measures as each run's peak.  ``fits`` holds the sum against the card's
+memory (``torch.cuda.get_device_properties`` where a card is present, else
+an H100's 80 GB, labelled as such); ``port_executes`` says whether the
+port's sharded execution takes the plan on that mesh
+(``sharding.check_plan``), with the reason where not.  Meshes: the
+reference's production meshes, ``single`` 16x16 and ``multi`` 2x16x16
+(pod, data, model), or any ``DATAxMODEL``; one JSON record a combination
+under ``--out`` (default ``build/dryrun/``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Optional
+
+import torch
+
+from repro_torch import sharding
+from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, ArchConfig, get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch.mesh import parse_mesh
+from repro_torch.models import lm
+from repro_torch.models.layers import MeshAxis
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+H100_BYTES = 80e9   # H100 SXM, 80 GB (data sheet): the figure used without a card
+PRODUCTION = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
+ACTIVATIONS = "not estimated: chip_smoke.py measures each run's peak"
+
+
+def mesh_sizes(mesh: str) -> dict[str, int]:
+    """{axis: ranks} of ``single``, ``multi`` or ``DATAxMODEL``."""
+    if mesh in PRODUCTION:
+        return dict(PRODUCTION[mesh])
+    data, model = parse_mesh(mesh)
+    return {"data": data, "model": model}
+
+
+def mesh_name(sizes: dict[str, int]) -> str:
+    return "x".join(str(sizes[a]) for a in ("pod", "data", "model") if a in sizes)
+
+
+def _numel(shape) -> int:
+    return math.prod(int(d) for d in shape)
+
+
+def param_bytes(cfg: ArchConfig, sizes: dict[str, int], scheme: str,
+                dtype: torch.dtype = torch.float32) -> int:
+    """One rank's parameter bytes under ``scheme`` on a mesh of ``sizes``:
+    weights of two or more dimensions in ``dtype``, vectors in float32."""
+    named = sharding.meta_params(cfg)
+    plan = sharding.param_specs(named, cfg, scheme=scheme)
+    size = torch.empty((), dtype=dtype).element_size()
+    return sum(_numel(sharding.local_shape(tuple(p.shape), plan[n], sizes))
+               * (size if p.ndim >= 2 else 4) for n, p in named.items())
+
+
+def _rows(batch: int, sizes: dict[str, int]) -> int:
+    """A rank's rows of a batch (split over pod and data when above 1)."""
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    return -(-batch // dp) if batch > 1 else batch
+
+
+def batch_bytes(cfg: ArchConfig, shape: InputShape, sizes: dict[str, int]) -> int:
+    """One rank's bytes of the step's inputs."""
+    rows = _rows(shape.global_batch, sizes)
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    total = rows * seq * 8                       # int64 token ids
+    if shape.kind != "decode":
+        total += rows * cfg.vision_tokens * cfg.d_model * 2
+        if cfg.is_enc_dec:
+            total += rows * cfg.encoder_seq * cfg.d_model * 2
+    return total
+
+
+def cache_bytes(cfg: ArchConfig, shape: InputShape, sizes: dict[str, int],
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """One rank's bytes of the caches a prefill of ``shape`` fills (and a
+    decode reads): ``lm.init_cache``'s tree at the rank's rows, KV heads
+    over ``model`` where they divide."""
+    m = sizes.get("model", 1)
+    # what init_cache reads of a model: its configuration, device, compute
+    # dtype and model axis
+    model = SimpleNamespace(cfg=cfg, embed=torch.empty(0, device="meta"), compute_dtype=dtype,
+                            model_axis=MeshAxis(None, m if cfg.n_kv_heads % m == 0 else 1, 0))
+    cache = lm.init_cache(model, _rows(shape.global_batch, sizes), shape.seq_len)
+
+    def walk(node) -> int:
+        if isinstance(node, torch.Tensor):
+            return node.numel() * node.element_size()
+        values = node.values() if isinstance(node, dict) else node
+        return sum(walk(v) for v in values)
+
+    return walk(cache)
+
+
+def card_bytes() -> tuple[int, str]:
+    """(bytes, what they are) of the card's memory."""
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        return props.total_memory, f"{props.name} (torch.cuda.get_device_properties)"
+    return int(H100_BYTES), "H100 80 GB (data sheet figure; no card present)"
+
+
+def skip_reason(cfg: ArchConfig, shape: InputShape) -> Optional[str]:
+    """The reference's skip: long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return ("full-attention architecture: long_500k requires sub-quadratic attention "
+                "or O(1) state")
+    return None
+
+
+def dryrun_one(arch: str, shape_name: str, mesh: str, *, scheme: str = "fsdp_tp") -> dict:
+    """The record of one (architecture, input shape, mesh) under ``scheme``."""
+    cfg = get_config(arch)
+    shape = INPUT_SHAPES[shape_name]
+    sizes = mesh_sizes(mesh)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(sizes), "scheme": scheme,
+           "ranks": _numel(sizes.values())}
+    reason = skip_reason(cfg, shape)
+    if reason:
+        return {**rec, "status": "skip", "note": reason}
+    if shape.kind == "train":
+        params = param_bytes(cfg, sizes, scheme)
+        parts = {"params": params, "grads": params, "adamw_m_v": 2 * params}
+    else:
+        parts = {"params": param_bytes(cfg, sizes, scheme, torch.bfloat16),
+                 "cache": cache_bytes(cfg, shape, sizes)}
+    parts["batch"] = batch_bytes(cfg, shape, sizes)
+    total = sum(parts.values())
+    card, card_what = card_bytes()
+    try:
+        sharding.check_plan(cfg, sharding.plan_for(cfg, scheme), sizes)
+        refusal = None
+    except (ValueError, NotImplementedError) as exc:
+        refusal = str(exc)
+    return {**rec, "status": "ok", "bytes_per_rank": parts, "total_bytes_per_rank": total,
+            "card_bytes": card, "card": card_what, "fits": total <= card,
+            "activations": ACTIVATIONS, "port_executes": refusal is None, "refusal": refusal}
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--shape", choices=tuple(INPUT_SHAPES))
+    ap.add_argument("--mesh", default="single",
+                    help="single (16x16), multi (2x16x16), both, or DATAxMODEL")
+    ap.add_argument("--scheme", default="fsdp_tp", choices=sharding.SCHEMES)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None, help=f"default {OUT_DIR}")
+    args = ap.parse_args(argv)
+
+    archs = ARCH_NAMES if (args.all or not args.arch) else (args.arch,)
+    shapes = tuple(INPUT_SHAPES) if (args.all or not args.shape) else (args.shape,)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    out_dir = Path(args.out) if args.out else OUT_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for a in archs:
+        for s in shapes:
+            for m in meshes:
+                rec = dryrun_one(a, s, m, scheme=args.scheme)
+                name = f"{a.replace('.', '_')}__{s}__{rec['mesh']}__{args.scheme}.json"
+                (out_dir / name).write_text(json.dumps(rec, indent=2))
+                if rec["status"] == "skip":
+                    print(f"[{a} x {s} x {rec['mesh']}] skip: {rec['note']}")
+                    continue
+                parts = ", ".join(f"{k} {v / 2**30:.2f}" for k, v in
+                                  rec["bytes_per_rank"].items())
+                print(f"[{a} x {s} x {rec['mesh']} {args.scheme}] GiB a rank: {parts}; total "
+                      f"{rec['total_bytes_per_rank'] / 2**30:.2f} of {rec['card']} "
+                      f"{rec['card_bytes'] / 2**30:.2f}: fits {rec['fits']}; port executes "
+                      f"{rec['port_executes']}")
+    print(f"done: {len(archs) * len(shapes) * len(meshes)} combinations in {out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,7 +33,9 @@ Sharded over a model axis (``axis``, :mod:`repro_torch.sharding`), q, k and
 v hold the rank's contiguous heads (``n_heads`` and ``n_kv`` are the
 rank's counts; GQA groups stay whole because the KV heads divide by the
 axis), the KV cache the rank's KV heads, and ``o`` its rows: its float32
-partial is summed over the axis.
+partial is summed over the axis (``MeshAxis.reduce``).  The input enters
+the rank's heads through ``MeshAxis.copy``, so in training its gradient's
+partials are summed over the axis.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (
-    Keep, ModelAxis, dense_init, keep_all, mm, mm_f32, param, reduce_sum)
+    Keep, MeshAxis, dense_init, keep_all, mm, mm_f32, param, reduce_sum)
 
 NEG_INF = -1e30
 
@@ -196,7 +198,7 @@ def init_attn(gen, d: int, n_heads: int, n_kv: int, hd: int, device,
 
 
 def out_proj(out: torch.Tensor, o: torch.Tensor, dtype: torch.dtype,
-             axis: Optional[ModelAxis] = None) -> torch.Tensor:
+             axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """The o projection of the heads' outputs (B, Sq, H, hd)."""
     B, Sq, H, hd = out.shape
     out = out.reshape(B, Sq, H * hd)
@@ -244,7 +246,7 @@ def cross_prefill(
     chunk: int = 1024,
     cache: Optional[AttnCache] = None,
     dtype: torch.dtype = torch.float32,
-    axis: Optional[ModelAxis] = None,
+    axis: Optional[MeshAxis] = None,
 ) -> torch.Tensor:
     """Cross-attention over the encoder output at prefill: no RoPE, not
     causal.  Fills ``cache`` (padded past ``S_enc`` slots) in place with the
@@ -252,6 +254,8 @@ def cross_prefill(
     (:func:`attend` with ``cross_len``)."""
     B, Sq, _ = x.shape
     n_enc = enc_out.shape[1]
+    if axis is not None:
+        x, enc_out = axis.copy(x), axis.copy(enc_out)
     k = mm(enc_out, params.k, dtype).reshape(B, n_enc, n_kv, hd)
     v = mm(enc_out, params.v, dtype).reshape(B, n_enc, n_kv, hd)
     q = mm(x, params.q, dtype).reshape(B, Sq, n_heads, hd)
@@ -311,7 +315,7 @@ def attend(
     decode_pos: Optional[int] = None,  # position of the one new token when decoding
     cross_len: Optional[int] = None,   # cross-attention: valid slots of ``cache``
     dtype: torch.dtype = torch.float32,
-    axis: Optional[ModelAxis] = None,
+    axis: Optional[MeshAxis] = None,
 ) -> tuple[torch.Tensor, Optional[AttnCache]]:
     """Self-attention for prefill (``decode_pos`` None; fills ``cache`` in
     place when given, a ring shorter than the prompt with its tail at slot
@@ -321,6 +325,8 @@ def attend(
     whose first ``cross_len`` slots are valid).  Prefill queries sit at
     ``arange(Sq)``; ``causal=False`` is the encoder's self-attention."""
     B, Sq, _ = x.shape
+    if axis is not None:   # the rank's heads of q, k, v (column-parallel)
+        x = axis.copy(x)
     q = mm(x, params.q, dtype).reshape(B, Sq, n_heads, hd)
 
     if cross_len is not None:

@@ -38,14 +38,23 @@ The embedding is vocab-parallel (ids outside the rank's rows give zero
 rows, summed over the axis: exact), attention head-parallel, the MLP and
 MoE as :mod:`repro_torch.models.layers` and :mod:`repro_torch.models.moe`
 say, and the head's vocab-parallel logits are gathered by summing disjoint
-slices into a zeroed buffer (exact).  Only the attention + MLP / MoE
-families run sharded.
+slices into a zeroed buffer (exact).  Every collective is an autograd
+Function (:class:`repro_torch.models.layers.MeshAxis`), so a sharded model
+trains: each replicated leaf's gradient comes out whole on every model
+rank, each sharded leaf's as the rank's slice.  Weights held as the rank's
+piece over the data axis (``fsdp``, FSDP) are gathered inside each
+super-block, under its checkpoint, so only one super-block's whole weights
+live at a time and the recomputation gathers them again.  The batch's rows
+split over ``row_axes``: :func:`value_and_grad` averages the loss and the
+gradients over them, and the MoE blocks' Switch loss reads the whole
+batch.  Only the attention + MLP / MoE families run sharded.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Mapping, Optional
 
 import torch
 from torch import nn
@@ -63,8 +72,9 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     MLP,
+    Fsdp,
     Keep,
-    ModelAxis,
+    MeshAxis,
     dense_init,
     embed_init,
     init_mlp,
@@ -203,8 +213,10 @@ class LM(nn.Module):
     of sub-layers ``sub0, sub1, ...``, each the reference's stacked
     parameters at index ``r``.  ``shared_attn`` is zamba2's one shared
     attention block, ``encoder`` whisper's encoder.  ``model_axis`` is
-    None, or the mesh axis a sharded model's slices are spread over
-    (:mod:`repro_torch.sharding` sets it).
+    None, or the mesh axis a sharded model's slices are spread over;
+    ``row_axes`` the mesh axes the batch's rows split over; ``fsdp`` None,
+    or the weights held as the rank's piece over the data axis
+    (:mod:`repro_torch.sharding` sets all three).
     """
 
     def __init__(self, cfg: ArchConfig, compute_dtype: torch.dtype, embed: torch.Tensor,
@@ -220,7 +232,9 @@ class LM(nn.Module):
         self.stages = _stage_list(stages)
         self.shared_attn = shared_attn
         self.encoder = encoder
-        self.model_axis: Optional[ModelAxis] = None
+        self.model_axis: Optional[MeshAxis] = None
+        self.row_axes: tuple[MeshAxis, ...] = ()
+        self.fsdp: Optional[Fsdp] = None
 
 
 def _init_attn_block(gen, cfg: ArchConfig, cross: bool, device, moe: bool,
@@ -374,7 +388,7 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
                       q_pos: torch.Tensor, cache: Optional[dict],
                       decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
                       dtype: torch.dtype, causal: bool = True,
-                      axis: Optional[ModelAxis] = None):
+                      axis: Optional[MeshAxis] = None, rows: tuple = ()):
     window = cfg.window if kind == "local" else None
     n = 1 if axis is None else axis.size   # the rank's heads: a contiguous 1/n of each
     heads = dict(n_heads=cfg.n_heads // n, n_kv=cfg.n_kv_heads // n, hd=cfg.resolved_head_dim,
@@ -406,7 +420,7 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
 
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps, dtype)
     if p.moe is not None:
-        y, aux = moe_apply(p.moe, h2, cfg, dtype, axis)
+        y, aux = moe_apply(p.moe, h2, cfg, dtype, axis, rows)
     else:
         y, aux = mlp_apply(p.mlp, h2, cfg.act, dtype, axis), None
     return x + y, cache, aux
@@ -438,7 +452,7 @@ def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
                 x: torch.Tensor, *, entry_cache: Optional[dict], q_pos: torch.Tensor,
                 decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
                 shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool,
-                axis: Optional[ModelAxis] = None):
+                axis: Optional[MeshAxis] = None, rows: tuple = ()):
     """One super-block: its sub-layers, then the shared attention block
     where the stage has one.  Returns (x, cache entry, Switch loss summed
     over its MoE blocks, float32, or None without one)."""
@@ -450,7 +464,7 @@ def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
         if stage.kind == "attn":
             x, entry[f"sub{i}"], a = _apply_attn_block(
                 p, cfg, x, kind=kind, q_pos=q_pos, cache=c, decode_pos=decode_pos,
-                enc_out=enc_out, dtype=dtype, causal=causal, axis=axis,
+                enc_out=enc_out, dtype=dtype, causal=causal, axis=axis, rows=rows,
             )
             aux = _add(aux, a)
         elif stage.kind == "mamba":
@@ -479,24 +493,32 @@ def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
                  x: torch.Tensor, *, cache: Optional[list], q_pos: torch.Tensor,
                  decode_pos: Optional[int], enc_out: Optional[torch.Tensor],
                  shared_attn: Optional[AttnBlock], dtype: torch.dtype, causal: bool = True,
-                 remat: bool = False, axis: Optional[ModelAxis] = None):
+                 remat: bool = False, axis: Optional[MeshAxis] = None, rows: tuple = (),
+                 fsdp: Optional[Fsdp] = None):
     """The stage's super-blocks in order -> (x, new cache, Switch loss or
     None).  With ``remat`` each super-block runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward, only its input kept."""
+    backward, only its input kept.  With ``fsdp`` each super-block's
+    weights are gathered inside it (inside its checkpoint)."""
     new_cache: Optional[list] = None if cache is None else []
     aux = None
+
+    def gathered(superblock):
+        return contextlib.nullcontext() if fsdp is None else fsdp.gathered(superblock)
+
     for r, superblock in enumerate(stage_params):
         kw = dict(entry_cache=None if cache is None else cache[r], q_pos=q_pos,
                   decode_pos=decode_pos, shared_attn=shared_attn, dtype=dtype, causal=causal,
-                  axis=axis)
+                  axis=axis, rows=rows)
         if remat:
             def body(x, enc_out, superblock=superblock, kw=kw):
-                x, _, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
+                with gathered(superblock):
+                    x, _, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
                 return x, a
             x, a = checkpoint(body, x, enc_out, use_reentrant=False)
         else:
-            x, entry, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
+            with gathered(superblock):
+                x, entry, a = _superblock(superblock, stage, cfg, x, enc_out=enc_out, **kw)
             if new_cache is not None:
                 new_cache.append(entry)
         aux = _add(aux, a)
@@ -542,58 +564,63 @@ def forward(
     dtype = params.compute_dtype
     remat = mode == "train" and cfg.remat
     axis = params.model_axis
-    if axis is not None and mode == "train":
-        raise NotImplementedError("a sharded model serves; sharded training is not ported")
-    B, S = tokens.shape
-    x = params.embed[tokens].to(dtype) if axis is None else _embed_sharded(params, tokens, dtype)
-    if mode == "decode":
-        q_pos = torch.full((1,), decode_pos, dtype=torch.int64, device=tokens.device)
-    else:
-        q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
-        decode_pos = None
-        if vision_embeds is not None:
-            nv = vision_embeds.shape[1]
-            if nv > S:
-                raise ValueError(f"{nv} vision embeddings do not fit a prompt of {S} tokens")
-            x = torch.cat([vision_embeds.to(dtype), x[:, nv:]], dim=1)
+    rows = params.row_axes if mode == "train" else ()   # the Switch loss over the batch
+    top = contextlib.nullcontext() if params.fsdp is None else params.fsdp.gathered(params, False)
+    with top:   # the embedding and the head whole over the data axis
+        B, S = tokens.shape
+        x = (params.embed[tokens].to(dtype) if axis is None
+             else _embed_sharded(params, tokens, dtype))
+        if mode == "decode":
+            q_pos = torch.full((1,), decode_pos, dtype=torch.int64, device=tokens.device)
+        else:
+            q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
+            decode_pos = None
+            if vision_embeds is not None:
+                nv = vision_embeds.shape[1]
+                if nv > S:
+                    raise ValueError(f"{nv} vision embeddings do not fit a prompt of {S} tokens")
+                x = torch.cat([vision_embeds.to(dtype), x[:, nv:]], dim=1)
 
-    enc_out = None
-    if cfg.is_enc_dec and mode != "decode":
-        e = encoder_frames.to(dtype)
-        e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
-        for si, stage in enumerate(encoder_stages(cfg)):
-            e, _, _ = _apply_stage(
-                params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
-                decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
-                remat=remat,
+        enc_out = None
+        if cfg.is_enc_dec and mode != "decode":
+            e = encoder_frames.to(dtype)
+            e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
+            for si, stage in enumerate(encoder_stages(cfg)):
+                e, _, _ = _apply_stage(
+                    params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
+                    decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
+                    remat=remat,
+                )
+            enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
+
+        aux_total = None
+        new_caches: Optional[list] = None if cache is None else []
+        for si, stage in enumerate(stages_for(cfg)):
+            x, nc, aux = _apply_stage(
+                params.stages[si], stage, cfg, x,
+                cache=None if cache is None else cache[si],
+                q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
+                shared_attn=params.shared_attn, dtype=dtype, remat=remat, axis=axis, rows=rows,
+                fsdp=params.fsdp,
             )
-        enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
+            aux_total = _add(aux_total, aux)
+            if new_caches is not None:
+                new_caches.append(nc)
 
-    aux_total = None
-    new_caches: Optional[list] = None if cache is None else []
-    for si, stage in enumerate(stages_for(cfg)):
-        x, nc, aux = _apply_stage(
-            params.stages[si], stage, cfg, x,
-            cache=None if cache is None else cache[si],
-            q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
-            shared_attn=params.shared_attn, dtype=dtype, remat=remat, axis=axis,
-        )
-        aux_total = _add(aux_total, aux)
-        if new_caches is not None:
-            new_caches.append(nc)
-
-    if last_only:
-        x = x[:, -1:]
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = mm(x, head, dtype)
-    if axis is not None:
-        logits = _gather_vocab(logits, axis, dtype)
-    if not return_aux:
-        return logits, new_caches
-    if aux_total is None:
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, new_caches, aux_total
+        if last_only:
+            x = x[:, -1:]
+        x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
+        head = params.embed.T if cfg.tie_embeddings else params.lm_head
+        if axis is not None:   # the rank's vocabulary columns of the head
+            x = axis.copy(x)
+        logits = mm(x, head, dtype)
+        if axis is not None:
+            logits = _gather_vocab(logits, axis, dtype)
+        if not return_aux:
+            return logits, new_caches
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, new_caches, aux_total
 
 
 def _embed_sharded(params: LM, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -606,17 +633,17 @@ def _embed_sharded(params: LM, tokens: torch.Tensor, dtype: torch.dtype) -> torc
     rows = table[local.clamp(0, V_l - 1)].float()
     rows = torch.where(inside[..., None], rows, 0.0)
     # reduction over the model axis: one rank's row and zeros, exact
-    return axis.all_reduce(rows).to(dtype)
+    return axis.reduce(rows).to(dtype)
 
 
-def _gather_vocab(logits: torch.Tensor, axis: ModelAxis, dtype: torch.dtype) -> torch.Tensor:
+def _gather_vocab(logits: torch.Tensor, axis: MeshAxis, dtype: torch.dtype) -> torch.Tensor:
     """The rank's vocab-parallel logits (..., V_l) placed into a zeroed
     (..., V_l * size) buffer at its columns and summed over the model
     axis: a gather written as an exact all-reduce of disjoint slices."""
     V_l = logits.shape[-1]
     full = logits.new_zeros((*logits.shape[:-1], V_l * axis.size), dtype=torch.float32)
     full[..., axis.rank * V_l:(axis.rank + 1) * V_l] = logits
-    return axis.all_reduce(full).to(dtype)
+    return axis.reduce(full).to(dtype)
 
 
 def lm_loss(params: LM, batch: dict) -> torch.Tensor:
@@ -650,10 +677,9 @@ def _recording(params: LM) -> Iterator[dict]:
             p.requires_grad_(saved[n])
 
 
-def value_and_grad(params: LM, batch: dict) -> tuple[torch.Tensor, dict]:
-    """(:func:`lm_loss`, its gradient by parameter name): the reference's
-    ``jax.value_and_grad(lm_loss)``.  A parameter the loss does not reach
-    gets zeros, as JAX gives them."""
+def _value_and_grad(params: LM, batch: dict) -> tuple[torch.Tensor, dict]:
+    """(:func:`lm_loss`, its gradient by parameter name) of this rank's
+    rows; zeros where the loss does not reach a parameter."""
     with torch.enable_grad(), _recording(params) as named:
         loss = lm_loss(params, batch)
         grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
@@ -661,49 +687,126 @@ def value_and_grad(params: LM, batch: dict) -> tuple[torch.Tensor, dict]:
                            for (n, p), g in zip(named.items(), grads)}
 
 
+def value_and_grad(params: LM, batch: dict, *, microbatches: int = 1
+                   ) -> tuple[torch.Tensor, dict]:
+    """(:func:`lm_loss`, its gradient by parameter name): the reference's
+    ``jax.value_and_grad(lm_loss)``.  A parameter the loss does not reach
+    gets zeros, as JAX gives them.
+
+    ``microbatches > 1`` splits the batch along its first dim and
+    accumulates float32 gradients (and the loss) over the pieces, divided by
+    their count, as the reference's scan does: activation memory bounded at
+    the cost of one forward and backward per piece.
+
+    On a mesh (``params.row_axes``) ``batch`` is this rank's rows
+    (:func:`repro_torch.sharding.local_batch`, with the same
+    ``microbatches``): the loss comes back averaged over the ranks the rows
+    split over (every rank holds the same), each gradient as the rank's
+    piece of the whole batch's gradient: summed over those axes (a weight's
+    piece over the data axis already by its gather's reduce-scatter) and
+    divided by their ranks.  With equal rows on each rank that is the
+    reference's mean over the global batch."""
+    if microbatches == 1:
+        loss, grads = _value_and_grad(params, batch)
+    else:
+        B = batch["tokens"].shape[0]
+        if B % microbatches:
+            raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
+        n = B // microbatches
+        loss, grads = torch.zeros((), dtype=torch.float32, device=params.embed.device), None
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            l, g = _value_and_grad(params, mb)
+            loss = loss + l
+            if grads is None:
+                grads = {k: t.float() for k, t in g.items()}
+            else:
+                for k, t in g.items():
+                    grads[k] += t
+            del g
+        loss = loss / microbatches
+        grads = {k: t / microbatches for k, t in grads.items()}
+    if params.row_axes:
+        loss, grads = _mean_over_rows(params, loss, grads)
+    return loss, grads
+
+
+def _mean_over_rows(params: LM, loss: torch.Tensor, grads: dict) -> tuple[torch.Tensor, dict]:
+    """The loss and the gradients summed over the axes the batch's rows
+    split over, divided by their ranks (in place).  A piece over the data
+    axis (FSDP) came out of its gather's backward summed over data
+    already."""
+    axes = params.row_axes
+    n = math.prod(a.size for a in axes)
+    gathered = params.fsdp.dims if params.fsdp is not None else {}
+    loss = loss.clone()
+    for a in axes:
+        a.all_reduce_(loss)
+    for name, g in grads.items():
+        for a in axes:
+            if not (name in gathered and a is params.fsdp.axis):
+                a.all_reduce_(g)
+        g.div_(n)
+    return loss / n, grads
+
+
+# The optimizer steps the parameters in about this many groups of equal
+# bytes, each group's gradients freed as it is stepped, so a step holds the
+# new moments and one group's updates beside the gradients not yet used
+# (about 3 P beside the old state, P the parameters' bytes) instead of
+# every gradient, moment and update at once (5 P).
+UPDATE_GROUPS = 8
+
+
+def _groups(named: dict, n: int) -> list[list[str]]:
+    """``named``'s names in order, cut into groups of about 1 / n of the
+    elements each (a leaf larger than that is a group alone)."""
+    total = sum(p.numel() for p in named.values())
+    groups, cur, size = [], [], 0
+    for name, p in named.items():
+        cur.append(name)
+        size += p.numel()
+        if size * n >= total:
+            groups.append(cur)
+            cur, size = [], 0
+    return groups + [cur] if cur else groups
+
+
 def make_train_step(optimizer, *, microbatches: int = 1):
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss"}).
 
     ``optimizer`` is a :class:`repro_torch.optim.Optimizer` whose state was
     made by ``optimizer.init(dict(params.named_parameters()))``.  The step
-    updates the model's parameters in place and returns the model.
-    ``microbatches > 1`` splits the batch along its first dim and
-    accumulates float32 gradients (and the loss) over the pieces, divided by
-    their count, as the reference's scan does: activation memory bounded at
-    the cost of one forward and backward per piece.
+    updates the model's parameters in place and returns the model; the
+    gradients are :func:`value_and_grad`'s with ``microbatches``.  The
+    optimizer runs on ``UPDATE_GROUPS`` groups of the parameters in turn
+    (it is elementwise and its state keyed by name, so the result is the
+    same as one call's).  On a mesh each rank updates its own pieces (its
+    state the rank's pieces) and the loss is the global batch's.
     """
     from repro_torch.optim import apply_updates
 
     def train_step(params: LM, opt_state: dict, batch: dict):
-        if microbatches == 1:
-            loss, grads = value_and_grad(params, batch)
-        else:
-            B = batch["tokens"].shape[0]
-            if B % microbatches:
-                raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
-            n = B // microbatches
-            loss, grads = torch.zeros((), dtype=torch.float32, device=params.embed.device), None
-            for i in range(microbatches):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, g = value_and_grad(params, mb)
-                loss = loss + l
-                if grads is None:
-                    grads = {k: t.float() for k, t in g.items()}
-                else:
-                    for k, t in g.items():
-                        grads[k] += t
-                del g
-            loss = loss / microbatches
-            grads = {k: t / microbatches for k, t in grads.items()}
+        loss, grads = value_and_grad(params, batch, microbatches=microbatches)
         named = {n: p.detach() for n, p in params.named_parameters()}
-        updates, opt_state = optimizer.update(grads, opt_state, named)
-        del grads
-        new = apply_updates(named, updates)
-        del updates
-        with torch.no_grad():
-            for n, p in named.items():
-                p.copy_(new[n])
-        return params, opt_state, {"loss": loss}
+        new_state: dict = {}
+        for group in _groups(named, UPDATE_GROUPS):
+            g = {n: grads.pop(n) for n in group}
+            state = {k: {n: v[n] for n in group} if isinstance(v, Mapping) else v
+                     for k, v in opt_state.items()}
+            part = {n: named[n] for n in group}
+            updates, state = optimizer.update(g, state, part)
+            del g
+            with torch.no_grad():
+                for n, p in apply_updates(part, updates).items():
+                    named[n].copy_(p)
+            del updates
+            for k, v in state.items():
+                if isinstance(v, Mapping):
+                    new_state.setdefault(k, {}).update(v)
+                else:
+                    new_state[k] = v
+        return params, new_state, {"loss": loss}
 
     return train_step
 

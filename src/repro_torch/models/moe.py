@@ -28,6 +28,16 @@ a block, every chunk's and the shared expert's, are summed over the axis
 in one all-reduce; the experts' sum and the shared expert's are each
 rounded to the compute dtype and then added, as the unsharded block
 rounds and adds them.
+
+In training the tokens enter the rank's experts (the dispatch and the
+shared expert) and the top-k weights enter the combine through
+``MeshAxis.copy``, so their gradients' partials are summed over the model
+axis; the router, whose logits every rank forms alike, gets the whole
+gradient on every rank.  Rows split over data axes (``rows``) form the
+Switch loss's ``me`` and ``ce`` over the whole batch, as the reference's
+GSPMD step does: each is summed over those axes (``MeshAxis.sum``) and
+divided by their ranks.  Routing itself is per batch row (capacity and
+queue positions count along the row), so splitting rows moves no choice.
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
-    MLP, Keep, ModelAxis, act_fn, dense_init, init_mlp, keep_all, mlp_apply, mlp_hidden, mm,
+    MLP, Keep, MeshAxis, act_fn, dense_init, init_mlp, keep_all, mlp_apply, mlp_hidden, mm,
     mm_f32, param, scoped)
 
 
@@ -102,9 +112,12 @@ def route(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype):
 
 
 def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
-              axis: Optional[ModelAxis] = None) -> tuple[torch.Tensor, torch.Tensor]:
+              axis: Optional[MeshAxis] = None, rows: tuple = ()
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE FFN.  x: (B, S, D) -> (out in ``dtype``, float32 aux loss).
-    With ``axis`` the weights are the rank's shard (module docstring)."""
+    With ``axis`` the weights are the rank's shard; with ``rows`` (the
+    :class:`MeshAxis` es the batch's rows split over) the aux loss is the
+    whole batch's (module docstring)."""
     B, S0, D = x.shape
     cs = min(cfg.moe_chunk, S0)
     pad = (-S0) % cs
@@ -121,6 +134,8 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
         raise ValueError(f"{local_experts} of {E} experts on this rank: not an even split "
                          f"over the model axis")
     valid = (torch.arange(S, device=x.device) < S0).float()   # padded tokens: no capacity
+    x_tp = x if axis is None else axis.copy(x)   # the tokens the rank's experts see
+    n_rows = math.prod(a.size for a in rows)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
     partials = []   # float32 partials over the model axis
@@ -142,12 +157,14 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
         # jax.nn.one_hot gives for an index past the classes
         slot_oh = (pos_in_e[..., None] == torch.arange(C, device=x.device)).float()
         dis = torch.einsum("bske,bskc->bsec", oh * keep[..., None], slot_oh)
+        if axis is not None:
+            top_w = axis.copy(top_w)
         com = torch.einsum("bske,bskc->bsec", oh * (keep * top_w)[..., None], slot_oh)
 
         if local_experts < E:   # this rank's experts of the dispatch and combine
             e0 = axis.rank * local_experts
             dis, com = dis[:, :, e0:e0 + local_experts], com[:, :, e0:e0 + local_experts]
-        xd = _einsum("bsec,bsd->becd", dis, x_c, dtype)            # (B, E, C, D)
+        xd = _einsum("bsec,bsd->becd", dis, x_tp[:, c * cs:(c + 1) * cs], dtype)   # (B, E, C, D)
         h = _einsum("becd,edf->becf", xd, params.w_in, dtype)
         g = _einsum("becd,edf->becf", xd, params.w_gate, dtype)
         h = act(g) * h
@@ -166,6 +183,11 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
         # Switch-style load-balancing aux loss for this chunk.
         me = gates.mean(dim=(0, 1))                                # (E,)
         ce = oh[:, :, 0, :].mean(dim=(0, 1))                       # top-1 assignment
+        if rows:   # the means over every row of the batch
+            stats = torch.stack([me, ce])
+            for a in rows:
+                stats = a.sum(stats)
+            me, ce = stats / n_rows
         aux = aux + E * (me * ce).sum()
 
     x = x[:, :S0]
@@ -175,12 +197,12 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype,
             out = out + mlp_apply(params.shared, x, cfg.act, dtype)
         return out, aux / nc
     if params.shared is not None:   # the shared expert's partial over its slice of F
-        partials.append(mm_f32(mlp_hidden(params.shared, x, cfg.act, dtype),
+        partials.append(mm_f32(mlp_hidden(params.shared, x_tp[:, :S0], cfg.act, dtype),
                                params.shared.w_out, dtype))
     # every partial of the block (each chunk's experts and the shared
     # expert's) in one reduction over the model axis; each sum is then
     # rounded to the compute dtype and the two added, as unsharded
-    flat = axis.all_reduce(torch.cat([t.reshape(-1) for t in partials]))
+    flat = axis.reduce(torch.cat([t.reshape(-1) for t in partials]))
     sums = [t.view(shape).to(dtype) for t, shape in zip(
         torch.split(flat, [t.numel() for t in partials]), [t.shape for t in partials])]
     out = torch.cat(sums[:nc], dim=1)[:, :S0]

@@ -18,29 +18,41 @@ The rules and their order are the reference's:
 The port unstacks each stage into super-blocks (``stages.{si}.{r}``), so
 the reference's leading stacked ``None`` is not part of a port spec.
 
-Execution (serving): :func:`init_params_sharded` and :func:`shard_params`
-give one rank the contiguous slice of every sharded dimension that
-``torch.tensor_split`` gives it, and attach the mesh's model axis, over
-which :mod:`repro_torch.models` sums the row-parallel partials.  Only the
-attention + MLP / MoE families execute sharded, only with ``data`` at 1 for
-weights (``fsdp_tp`` with data > 1 is FSDP: training, not ported), and only
-in the ``tp_only`` layout; :func:`check_plan` refuses anything else, with
-the reason.  The batch splits over ``data`` (:func:`local_batch`).  The KV
-caches of a sharded model hold each rank's KV heads, which head-parallel
-attention needs; :func:`cache_specs` is the reference's cache plan
-(sequence over ``model`` from 8192 slots, replicated below), ported as a
-plan and not what the execution lays out.
+Execution, serving and training alike: :func:`init_params_sharded` and
+:func:`shard_params` give one rank the contiguous slice of every sharded
+dimension that ``torch.tensor_split`` gives it, and attach the mesh's axes
+(:class:`ShardLayout`): the model axis, over which
+:mod:`repro_torch.models` sums the row-parallel partials; with ``fsdp_tp``
+on a data axis above 1, the weights held as the rank's piece over
+``data`` (FSDP), gathered just before use and their gradients
+reduce-scattered; and the axes the batch's rows split over, over which
+:func:`repro_torch.models.lm.value_and_grad` averages the loss and the
+gradients.  :func:`repro_torch.models.lm.make_train_step` then steps each
+rank's pieces with the elementwise optimizer, its state the rank's pieces
+(:func:`opt_state_specs`).  The collectives are written out, driven by the
+plan (no ``DistributedDataParallel`` or FSDP wrapper, which read no mixed
+``("data", "model")`` plan).  Only the attention + MLP / MoE families
+execute sharded, with the ``model`` entries in the ``tp_only`` layout;
+:func:`check_plan` refuses anything else, with the reason.  The batch
+splits over ``data`` (:func:`local_batch`).  The KV caches of a sharded
+model hold each rank's KV heads, which head-parallel attention needs;
+:func:`cache_specs` is the reference's cache plan (sequence over ``model``
+from 8192 slots, replicated below), ported as a plan and not what the
+execution lays out.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional, Union
+
+import functools
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.models.layers import ModelAxis
+from repro_torch.models.layers import Fsdp, MeshAxis
 
 SCHEMES = ("fsdp_tp", "tp_only", "ddp")
 Spec = tuple   # one entry a dimension: None, an axis name, or a tuple of names
@@ -124,9 +136,17 @@ def param_specs(params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ArchC
             for name, p in named.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def meta_params(cfg: ArchConfig) -> dict[str, torch.Tensor]:
+    """``cfg``'s parameters by name on ``meta`` (shapes, nothing
+    allocated), built once a configuration (a MoE model's experts are
+    drawn one at a time, seconds at full depth even on ``meta``)."""
+    return dict(lm.init_params(cfg, device="meta").named_parameters())
+
+
 def plan_for(cfg: ArchConfig, scheme: str = "fsdp_tp") -> Plan:
     """:func:`param_specs` of ``cfg``'s model (built on ``meta``)."""
-    return param_specs(lm.init_params(cfg, device="meta"), cfg, scheme=scheme)
+    return param_specs(meta_params(cfg), cfg, scheme=scheme)
 
 
 def opt_state_specs(opt_state: Mapping[str, Any], plan: Plan) -> dict:
@@ -210,6 +230,14 @@ def _piece(entry, coords: Mapping[str, tuple[int, int]]) -> tuple[int, int]:
     return i, n
 
 
+def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int]) -> tuple:
+    """The shape of one rank's piece of a ``shape`` leaf on a mesh of
+    ``sizes`` ({axis: ranks}); a dim its axes do not divide rounds up, as
+    GSPMD pads it."""
+    return tuple(-(-d // math.prod(sizes.get(a, 1) for a in _axes(e)))
+                 for d, e in zip(shape, spec))
+
+
 def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int]]
                 ) -> torch.Tensor:
     """This rank's contiguous piece of ``t`` (a view), as ``tensor_split``
@@ -223,6 +251,7 @@ def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int
 
 
 def _sharded_families_only(cfg: ArchConfig) -> None:
+    """Refuse, with the reason, a family whose blocks do not run sharded."""
     if cfg.block_kind != "attn":
         raise NotImplementedError(f"{cfg.name}: {cfg.block_kind} blocks have a plan but no "
                                   "sharded execution yet")
@@ -238,41 +267,42 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
     """Refuse, with the reason, a plan the port cannot execute on a mesh of
     ``sizes`` ({axis: ranks}); return whether it shards over ``model``.
 
-    Refused: names or ranks that are not ``cfg``'s parameters'; weights
-    over ``data`` with data > 1 (``fsdp_tp``'s FSDP: training, not ported);
-    over ``model``, a family without sharded execution, a layout other than
-    ``tp_only``'s, heads that do not divide over the axis, and any sharded
+    Refused: names or ranks that are not ``cfg``'s parameters'; any weight
+    sharded (over ``model`` or, FSDP, over ``data``) in a family without
+    sharded execution; ``model`` entries other than ``tp_only``'s layout;
+    a weight dimension over several axes, or over ``pod``, or two over
+    ``data``; heads that do not divide over the model axis; and any sharded
     dimension the axes' size does not divide (experts or their F,
-    ``vocab_padded``, ...)."""
-    named = dict(lm.init_params(cfg, device="meta").named_parameters())
+    ``vocab_padded``, an FSDP dimension, ...)."""
+    named = meta_params(cfg)
     shapes = {n: tuple(p.shape) for n, p in named.items()}
     if set(plan) != set(shapes):
         raise ValueError(f"plan names vs {cfg.name}'s parameters differ: "
                          f"{sorted(set(plan) ^ set(shapes))[:4]} ...")
 
     def count(entry):
-        n = 1
-        for a in _axes(entry):
-            n *= sizes.get(a, 1)
-        return n
+        return math.prod(sizes.get(a, 1) for a in _axes(entry))
 
     for name, spec in plan.items():
         if len(spec) != len(shapes[name]):
             raise ValueError(f"{name}: spec {spec} for a {len(shapes[name])}-dim parameter")
-        if sizes.get("data", 1) > 1 and any("data" in _axes(e) for e in spec):
-            raise ValueError(f"{name}: weights over data ({spec}) with data = "
-                             f"{sizes['data']} is FSDP, the training slice; serve with "
-                             "scheme tp_only or ddp")
+        split = [e for e in spec if count(e) > 1]
+        if any(len(_axes(e)) > 1 or "pod" in _axes(e) for e in split):
+            raise ValueError(f"{name}: {spec} splits a dimension over several axes or over "
+                             "pod; a weight's dimension goes over model or data alone")
+        if sum("data" in _axes(e) for e in split) > 1:
+            raise ValueError(f"{name}: {spec} splits two dimensions over data")
     m = sizes.get("model", 1)
-    over_model = m > 1 and any(count(e) > 1 for s in plan.values() for e in s)
-    if over_model:
+    over_model = m > 1 and any(count(e) > 1 for s in plan.values() for e in s if e == "model")
+    if any(count(e) > 1 for s in plan.values() for e in s):
         _sharded_families_only(cfg)
+    if over_model:
         want = param_specs(named, cfg, scheme="tp_only")
         for name, spec in plan.items():
-            got = tuple(e if count(e) > 1 else None for e in spec)
+            got = tuple(e if e == "model" else None for e in spec)
             if got != want[name]:
                 raise ValueError(f"{name}: {spec} is not the tp_only layout {want[name]} "
-                                 "that the sharded apply functions run")
+                                 "over model that the sharded apply functions run")
         for what, n in (("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)):
             if n % m:
                 raise ValueError(f"{cfg.name}: {n} {what} do not divide over a model axis "
@@ -287,12 +317,19 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
 
 
 class ShardLayout:
-    """One rank's part of a checked plan: its coordinates on the mesh and
-    the model axis its slices are spread over (None when no weight is)."""
+    """One rank's part of a checked plan: its coordinates on the mesh, the
+    model axis its slices are spread over (None when no weight is), the
+    axes the batch's rows split over, and the data axis its FSDP pieces are
+    gathered over (None without FSDP)."""
 
     def __init__(self, cfg: ArchConfig, plan: Plan, coords: Mapping[str, tuple[int, int]],
-                 model_axis: Optional[ModelAxis]):
+                 model_axis: Optional[MeshAxis], row_axes: tuple = (),
+                 data_axis: Optional[MeshAxis] = None):
         self.cfg, self.plan, self.coords, self.model_axis = cfg, plan, coords, model_axis
+        self.row_axes, self.data_axis = tuple(row_axes), data_axis
+        # parameter name -> the dimension held as the rank's piece over data
+        self.fsdp_dims = {} if data_axis is None else {
+            name: spec.index("data") for name, spec in plan.items() if "data" in spec}
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole parameter ``name`` (a view)."""
@@ -314,12 +351,18 @@ class ShardLayout:
             return t
         return local_slice(t, spec, self.coords).clone()
 
-    def skeleton(self, dtype: torch.dtype, compute_dtype: Optional[torch.dtype] = None) -> lm.LM:
-        """The rank's model on ``meta``: the local shapes, nothing drawn."""
-        model = lm.init_params(self.cfg, dtype=dtype, device="meta", compute_dtype=compute_dtype,
-                               keep=self.keep)
-        model.model_axis = self.model_axis
+    def attach(self, model: lm.LM) -> lm.LM:
+        """``model`` (the rank's pieces) with the layout's axes set."""
+        model.model_axis, model.row_axes = self.model_axis, self.row_axes
+        model.fsdp = (None if not self.fsdp_dims
+                      else Fsdp(self.data_axis, self.fsdp_dims, model))
         return model
+
+    def skeleton(self, dtype: torch.dtype, compute_dtype: Optional[torch.dtype] = None) -> lm.LM:
+        """The rank's model on ``meta``: the local shapes, nothing drawn
+        (:meth:`attach` it once its tensors are made)."""
+        return lm.init_params(self.cfg, dtype=dtype, device="meta", compute_dtype=compute_dtype,
+                              keep=self.keep)
 
 
 def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
@@ -330,11 +373,15 @@ def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
 
     coords = axis_coords(mesh)
     over_model = check_plan(cfg, plan, {a: n for a, (_, n) in coords.items()})
-    axis = None
-    if over_model:
-        i, n = coords["model"]
-        axis = ModelAxis(mesh.get_group("model"), n, i)
-    return ShardLayout(cfg, plan, coords, axis)
+
+    def axis(name):
+        i, n = coords.get(name, (0, 1))
+        return MeshAxis(mesh.get_group(name), n, i) if n > 1 else None
+
+    pod, data = axis("pod"), axis("data")
+    fsdp = data is not None and any("data" in s for s in plan.values())
+    return ShardLayout(cfg, plan, coords, axis("model") if over_model else None,
+                       tuple(a for a in (pod, data) if a is not None), data if fsdp else None)
 
 
 def init_params_sharded(cfg: ArchConfig, plan: Plan, mesh, *, seed: int = 0,
@@ -346,10 +393,8 @@ def init_params_sharded(cfg: ArchConfig, plan: Plan, mesh, *, seed: int = 0,
     rank holds more than one drawn weight beyond its shard); the model is
     the unsharded model's slice, bit for bit."""
     lay = layout(cfg, plan, mesh)
-    model = lm.init_params(cfg, seed=seed, dtype=dtype, device=device,
-                           compute_dtype=compute_dtype, keep=lay.keep)
-    model.model_axis = lay.model_axis
-    return model
+    return lay.attach(lm.init_params(cfg, seed=seed, dtype=dtype, device=device,
+                                     compute_dtype=compute_dtype, keep=lay.keep))
 
 
 @torch.no_grad()
@@ -362,19 +407,35 @@ def shard_params(model: lm.LM, plan: Plan, mesh) -> lm.LM:
     src = dict(model.named_parameters())
     for name, p in out.named_parameters():
         p.copy_(lay.local(name, src[name]))
-    return out
+    return lay.attach(out)
 
 
 def local_batch(cfg: ArchConfig, batch: Mapping[str, torch.Tensor], mesh, *,
-                multi_pod: bool = False) -> dict:
+                multi_pod: Optional[bool] = None, microbatches: int = 1) -> dict:
     """This rank's rows of a global batch (every leaf's first dim the
-    batch), by :func:`batch_specs`: its data group's contiguous rows."""
+    batch), by :func:`batch_specs` (over ``pod`` too where the mesh has
+    it): its data group's contiguous rows.  With ``microbatches`` k the
+    batch is k microbatches of consecutive rows, as the reference's
+    ``make_train_step`` cuts it, and the rank takes its piece of each, in
+    order: microbatch i of its rows is its piece of the reference's
+    microbatch i (the MoE blocks' Switch loss is a microbatch's)."""
     from repro_torch.launch.mesh import axis_coords
 
     coords = axis_coords(mesh)
+    if multi_pod is None:
+        multi_pod = "pod" in coords
     B = next(iter(batch.values())).shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
     specs = batch_specs(cfg, batch, multi_pod=multi_pod, global_batch=B)
     for k, spec in specs.items():
-        if spec and B % _piece(spec[0], coords)[1]:
-            raise ValueError(f"{k}: batch {B} does not split over {spec[0]}")
-    return {k: local_slice(t, specs[k], coords) for k, t in batch.items()}
+        if spec and (B // microbatches) % _piece(spec[0], coords)[1]:
+            raise ValueError(f"{k}: batch {B} in {microbatches} microbatches does not split "
+                             f"over {spec[0]}")
+
+    def rows(k, t):
+        t = t.reshape(microbatches, B // microbatches, *t.shape[1:])
+        t = local_slice(t, (None, *specs[k]), coords)
+        return t.reshape(-1, *t.shape[2:])
+
+    return {k: rows(k, t) for k, t in batch.items()}

@@ -1318,3 +1318,101 @@ def test_llama4_scout_over_four_cards(cuda):
         assert res["tokens"].shape == (4, 32)
         assert torch.equal(res["tokens"], out[0]["tokens"])
         assert 0 <= int(res["tokens"].min()) and int(res["tokens"].max()) < 202240
+
+
+def test_mesh_axis_collectives_over_gloo_on_the_card(cuda):
+    """``MeshAxis``' gather and reduce-scatter (``all_gather_into_tensor``,
+    ``reduce_scatter_tensor``) and its all-reduces on CUDA tensors of two
+    ranks sharing the card over gloo, the calls NCCL takes a card a rank:
+    pieces put together in rank order, gradients summed (both gather dims)."""
+    import _torch_tp_ranks as ranks
+    from repro_torch.launch.mesh import run_ranks
+
+    out = run_ranks(ranks.collectives_case, 2, "cuda", backend="gloo",
+                    devices=["cuda:0"] * 2, timeout=300)
+    for dim in (0, 1):
+        ranks.check_collectives(out, dim)
+
+
+@pytest.mark.parametrize("arch,experts,mesh,scheme,dtype", [
+    ("tinyllama-1.1b", None, (1, 2), "tp_only", torch.float32),
+    ("tinyllama-1.1b", None, (2, 1), "fsdp_tp", torch.float32),
+    ("qwen2-moe-a2.7b", None, (1, 2), "tp_only", torch.float32),
+    ("llama4-scout-17b-a16e", 16, (2, 1), "fsdp_tp", torch.float32),
+    ("tinyllama-1.1b", None, (1, 2), "tp_only", torch.bfloat16),
+    ("qwen2-moe-a2.7b", None, (1, 2), "tp_only", torch.bfloat16),
+])
+def test_sharded_train_step_ranks_share_the_card(cuda, arch, experts, mesh, scheme, dtype):
+    """Two ranks sharing the card over gloo train a reduced model (16
+    experts over the model axis for llama4) one step, float32 under
+    float32_math, against the unsharded step on the card: the loss within
+    1e-5, every gradient leaf put together from the pieces within 1e-4 of
+    its max |g|, the parameters after one AdamW step within 1e-5 and inside
+    the window that step allows a gradient within 1e-4 of the unsharded
+    one (``first_step_windows``), every piece two ranks hold bit for bit,
+    and each rank launching the flash forward and backward kernels
+    ``lm.train_step_launches`` times.  In bfloat16 (float32 masters; the
+    row-parallel GEMMs writing float32 partials, their backward through
+    bfloat16 GEMMs) the loss within 1e-2 and each gradient leaf within 1e-1
+    of its max |g|: rounding order, against a wrong sum's whole-leaf error."""
+    _check_sharded_train_step(cuda, arch, experts, mesh, scheme, dtype, "gloo",
+                              ["cuda:0"] * (mesh[0] * mesh[1]))
+
+
+@pytest.mark.parametrize("arch,scheme", [("tinyllama-1.1b", "fsdp_tp"),
+                                         ("qwen2-moe-a2.7b", "tp_only")])
+def test_sharded_train_step_over_nccl(cuda, arch, scheme):
+    """The same step over NCCL on a 2x2 mesh, a card a rank (FSDP's
+    gathers and reduce-scatters and the model axis's all-reduces through
+    NCCL), against the unsharded step on card 0 at the float32 limits."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"a 2x2 mesh over NCCL needs four cards (NCCL takes one rank a card); "
+                    f"this machine has {n}")
+    _check_sharded_train_step(cuda, arch, None, (2, 2), scheme, torch.float32, "nccl",
+                              [f"cuda:{i}" for i in range(4)])
+
+
+def _check_sharded_train_step(cuda, arch, experts, mesh, scheme, dtype, backend, devices):
+    import _torch_tp_ranks as ranks
+    from repro_torch import sharding
+    from repro_torch._device import float32_math
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+
+    _build.build_all(["flash_attention", "flash_attention_bwd"])   # loaded by the ranks
+    data, model = mesh
+    batch, seq = 4, 64
+    out = run_ranks(ranks.card_train_case, data * model, arch, experts, data, model, scheme,
+                    batch, seq, dtype, backend=backend, devices=devices, timeout=300)
+    cfg = ranks.config(arch, experts)
+    full = lm.init_params(cfg, seed=3, dtype=torch.float32, compute_dtype=dtype, device=cuda)
+    start = {n: p.detach().clone() for n, p in full.named_parameters()}
+    tokens = synthetic_batch(cfg, batch, seq, torch.Generator(device=cuda).manual_seed(3), dtype)
+    opt = adamw(cosine_schedule(5e-5, warmup=10, total=100), weight_decay=0.1)
+    with float32_math():
+        loss, grads = lm.value_and_grad(full, tokens)
+        full, _, _ = lm.make_train_step(opt)(full, opt.init(dict(full.named_parameters())),
+                                             tokens)
+    plan = sharding.plan_for(cfg, scheme)
+    got_g, same_g = ranks.assemble(cfg, plan, out, "case", "grads")
+    got_p, same_p = ranks.assemble(cfg, plan, out, "case", "params")
+    assert same_g and same_p
+    f32 = dtype == torch.float32
+    for res in out:
+        assert res["launches"] == lm.train_step_launches(cfg)
+        loss_tol = 1e-5 if f32 else 1e-2
+        assert abs(float(res["case"]["loss"]) - float(loss)) <= loss_tol * abs(float(loss))
+        assert torch.equal(res["case"]["loss"], out[0]["case"]["loss"])
+    for name, p in full.named_parameters():
+        g = grads[name].float().cpu()
+        assert torch.isfinite(got_g[name]).all(), name
+        assert (got_g[name] - g).abs().max() <= (1e-4 if f32 else 1e-1) * g.abs().max(), name
+        if f32:
+            assert (got_p[name] - p.detach().cpu()).abs().max() <= 1e-5, name
+            window = ranks.first_step_windows(opt, {name: start[name].cpu()}, {name: g},
+                                              {name: 1e-4 * float(g.abs().max())})[name]
+            assert ranks.outside(got_p[name], window["p"]) == 0.0, name

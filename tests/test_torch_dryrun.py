@@ -1,0 +1,91 @@
+"""Port parity: ``launch/dryrun.py``'s per-rank bytes against the reference's plan.
+
+For every architecture under ``fsdp_tp``, ``tp_only`` and ``ddp`` on the
+reference's production meshes, 16x16 and 2x16x16: each rank's float32
+parameter bytes equal what the reference's ``param_specs`` over
+``ref_lm.abstract_params`` gives, each leaf's dimensions divided (rounded
+up) by its axes' sizes, with no device.  A train step's AdamW state is
+twice its float32 parameters.  granite-8b's train step does not fit 80 GB
+a card over 4x1 ``ddp`` and does over 1x4 ``tp_only`` and 2x2 ``fsdp_tp``.
+The launcher writes one JSON record a combination.
+"""
+import functools
+import json
+import math
+
+import jax
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro import sharding as ref_sharding
+from repro.configs import ARCH_NAMES
+from repro.configs import get_config as ref_get_config
+from repro.models import lm as ref_lm
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+
+MESHES = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
+
+
+@functools.lru_cache(maxsize=None)
+def _abstract(arch):
+    cfg = ref_get_config(arch)
+    return cfg, ref_lm.abstract_params(cfg)
+
+
+def _ref_bytes(arch, scheme, sizes):
+    cfg, aparams = _abstract(arch)
+    specs = ref_sharding.param_specs(aparams, cfg, scheme=scheme)
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(aparams),
+                          jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))):
+        shape = list(leaf.shape)
+        for dim, entry in enumerate(tuple(spec)):
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            shape[dim] = -(-shape[dim] // math.prod(sizes[a] for a in axes))
+        total += math.prod(shape) * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("scheme", ["fsdp_tp", "tp_only", "ddp"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_param_bytes_match_reference_plan(arch, scheme, mesh):
+    sizes = MESHES[mesh]
+    got = dryrun.param_bytes(get_config(arch), sizes, scheme)
+    assert got == _ref_bytes(arch, scheme, sizes)
+
+
+def test_train_record_counts_adamw_and_fits():
+    for mesh, scheme, fits in (("4x1", "ddp", False), ("1x4", "tp_only", True),
+                               ("2x2", "fsdp_tp", True)):
+        rec = dryrun.dryrun_one("granite-8b", "train_4k", mesh, scheme=scheme)
+        parts = rec["bytes_per_rank"]
+        assert parts["adamw_m_v"] == 2 * parts["params"] == 2 * parts["grads"]
+        assert rec["card_bytes"] == 80e9 and "80 GB" in rec["card"]
+        assert rec["fits"] is fits, (mesh, scheme, rec["total_bytes_per_rank"])
+        assert rec["port_executes"] and "not estimated" in rec["activations"]
+    # 8.25 B float32 parameters, replicated over four data ranks
+    ddp = dryrun.dryrun_one("granite-8b", "train_4k", "4x1", scheme="ddp")
+    assert abs(ddp["bytes_per_rank"]["params"] / 4 / 8.25e9 - 1) < 0.01
+
+
+def test_serving_records_and_refusals():
+    rec = dryrun.dryrun_one("llama3.2-3b", "decode_32k", "single", scheme="tp_only")
+    # 128 rows over 16 data ranks; 8 KV heads over 16 do not divide: whole
+    # (and 24 query heads: the port refuses the plan, with the reason)
+    cfg = get_config("llama3.2-3b")
+    kv = 2 * cfg.n_layers * (128 // 16) * 32768 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    assert rec["bytes_per_rank"]["cache"] == kv
+    assert not rec["port_executes"] and "24 query heads" in rec["refusal"]
+    skip = dryrun.dryrun_one("granite-8b", "long_500k", "multi")
+    assert skip["status"] == "skip" and skip["mesh"] == "2x16x16"
+
+
+def test_cli_writes_json(tmp_path):
+    assert dryrun.main(["--arch", "granite-8b", "--shape", "train_4k", "--mesh", "2x2",
+                        "--out", str(tmp_path)]) == 0
+    (path,) = tmp_path.glob("*.json")
+    rec = json.loads(path.read_text())
+    assert path.name == "granite-8b__train_4k__2x2__fsdp_tp.json"
+    assert rec["status"] == "ok" and rec["fits"] and rec["ranks"] == 4

@@ -286,7 +286,8 @@ def test_new_modules_import_without_jax():
         "        'repro_torch.models.attention', 'repro_torch.models.ssm',\n"
         "        'repro_torch.models.moe', 'repro_torch.models.lm', 'repro_torch.launch.serve',\n"
         "        'repro_torch.kernels.flash_attention', 'repro_torch.kernels.wkv',\n"
-        "        'repro_torch.convert', 'repro_torch.sharding', 'repro_torch.launch.mesh']\n"
+        "        'repro_torch.convert', 'repro_torch.sharding', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.train', 'repro_torch.launch.dryrun']\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'repro' or k.startswith(('repro.', 'jax.')))\n"

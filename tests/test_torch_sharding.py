@@ -167,6 +167,10 @@ def test_plan_check_accepts_what_it_executes():
     for scheme in ("fsdp_tp", "tp_only"):
         assert sharding.check_plan(cfg, sharding.plan_for(cfg, scheme), {"data": 1, "model": 4})
     assert sharding.check_plan(cfg, sharding.plan_for(cfg, "tp_only"), {"data": 2, "model": 2})
+    # FSDP and tensor parallelism together (training and serving alike)
+    assert sharding.check_plan(cfg, sharding.plan_for(cfg, "fsdp_tp"), {"data": 2, "model": 2})
+    assert not sharding.check_plan(cfg, sharding.plan_for(cfg, "fsdp_tp"),
+                                   {"data": 2, "model": 1})
     # ddp shards no weight: every family, any mesh
     for arch in ("rwkv6-1.6b", "whisper-medium", "zamba2-7b"):
         c = _reduced(arch)
@@ -175,7 +179,8 @@ def test_plan_check_accepts_what_it_executes():
 
 
 @pytest.mark.parametrize("case", [
-    ("fsdp_tp over data 2", "tinyllama-1.1b", {}, "fsdp_tp", {"data": 2, "model": 2}, "FSDP"),
+    ("fsdp_tp over data 2", "tinyllama-1.1b", {"d_model": 255}, "fsdp_tp",
+     {"data": 2, "model": 2}, r"embed: dim 1 \(255\)"),
     ("query heads 8 over 3", "tinyllama-1.1b", {}, "tp_only", {"model": 3}, "query heads"),
     ("KV heads 4 over 8", "tinyllama-1.1b", {}, "tp_only", {"model": 8}, "KV heads"),
     ("expert F 126 over 4", "qwen2-moe-a2.7b", {"expert_d_ff": 126}, "tp_only", {"model": 4},
@@ -201,6 +206,9 @@ def test_plan_check_refuses_families_without_sharded_execution(arch, what):
     cfg = _reduced(arch)
     with pytest.raises(NotImplementedError, match=what):
         sharding.check_plan(cfg, sharding.plan_for(cfg, "tp_only"), {"model": 2})
+    # training's FSDP layout, with no weight over model, as well
+    with pytest.raises(NotImplementedError, match=what):
+        sharding.check_plan(cfg, sharding.plan_for(cfg, "fsdp_tp"), {"data": 2, "model": 1})
 
 
 def test_plan_check_refuses_other_layouts_and_names():
@@ -214,6 +222,11 @@ def test_plan_check_refuses_other_layouts_and_names():
         sharding.check_plan(cfg, {**plan, "final_norm": (None, None)}, {"model": 2})
     with pytest.raises(ValueError, match="unknown scheme"):
         sharding.plan_for(cfg, "zero3")
+    q = "stages.0.0.sub0.attn.q"
+    with pytest.raises(ValueError, match="several axes"):
+        sharding.check_plan(cfg, {**plan, q: (("data", "model"), None)}, {"data": 2, "model": 2})
+    with pytest.raises(ValueError, match="two dimensions over data"):
+        sharding.check_plan(cfg, {**plan, q: ("data", "data")}, {"data": 2})
 
 
 def test_sharded_init_refuses_recurrent_blocks():

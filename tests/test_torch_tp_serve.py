@@ -10,8 +10,10 @@ parallelism meets the reference on the CPU).  The reference's
 ``repro_torch.convert.lm_shard_from_numpy`` and served by ranks in fresh
 processes (``repro_torch.launch.mesh.run_ranks``, gloo, a ``file://``
 store under the test's temporary directory) on meshes 1x2 (``tp_only``),
-1x4 (``fsdp_tp``, data 1) and 2x2 (``tp_only`` and ``ddp``: each data group
-its own row).  Prefill and 8 greedy decode steps: every step's logits
+1x4 (``fsdp_tp``, data 1) and 2x2 (``tp_only``, ``ddp`` and ``fsdp_tp``,
+whose weights are gathered over data before use: each data group its own
+row).  A sharded model's train mode gives finite logits through a graph
+autograd recorded.  Prefill and 8 greedy decode steps: every step's logits
 within the LM tests' ``LOGIT_ATOL`` of the reference's ``make_prefill_step``
 / ``make_serve_step`` (float32 both sides; sharding changes only summation
 order), the greedy tokens equal, and every rank of a model group holding
@@ -52,7 +54,7 @@ MESHES = {
     "1x4": (1, 4, [(label, "fsdp_tp") for label, _, _ in CONFIGS]),
     "2x2": (2, 2, [("tinyllama-1.1b", "tp_only"), ("qwen2-moe-a2.7b", "tp_only"),
                    ("llama4-scout, 16 experts", "tp_only"), ("internvl2-26b", "ddp"),
-                   ("llama4-scout, 16 experts", "ddp")]),
+                   ("llama4-scout, 16 experts", "ddp"), ("qwen2-moe-a2.7b", "fsdp_tp")]),
 }
 SERVE_CASES = [(mesh, label, scheme) for mesh, (_, _, cases) in MESHES.items()
                for label, scheme in cases]
@@ -139,7 +141,7 @@ def test_sharded_serving_matches_reference(served, mesh, label, scheme):
         err = np.abs(got["logits"].numpy() - want_logits[:, lo:lo + rows]).max()
         assert err <= LOGIT_ATOL, (mesh, label, err)
         if scheme != "ddp":
-            assert got["train_refused"]
+            assert got["train_graph"]
         first = by_group.setdefault(d, got["logits"])   # replicated over the model axis
         assert torch.equal(first, got["logits"])
     assert sorted(by_group) == list(range(data))
