@@ -39,8 +39,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    required bitwise equal; the WKV backward (dr, dk, dv, dw, du, dstate0
    from the forward's chunk-start states) at rwkv6's training shape with
    slow and fast decays, with and without state0 and dstateT, float32 and
-   bfloat16 r, k, v, S = 1, 47 and 1111, hd 16, 32 and 128, each launched
-   twice and required bitwise equal (``WKV_BWD_FORMS``);
+   bfloat16 r, k, v, S = 1, 47 and 1111, hd 16, 32 and 128, and on a
+   rank's 16 and 8 of rwkv6's 32 heads, each launched twice and required
+   bitwise equal (``WKV_BWD_FORMS``); the WKV forward on a rank's heads too;
 4. PACFL main path: one-shot clustering of K = 1024 synthetic clients at
    CIFAR-10 geometry (n = 3072 features, p = 3, 300-700 samples each, 16
    planted subspace clusters), PME admission of 64 newcomers, and 256
@@ -106,9 +107,13 @@ Phases, each printing its own lines; any failure exits nonzero:
    every token equal; bfloat16 logits within 2e-2 of max|logit| or the
    unsharded model's one-ulp weight floor, each row's first token equal or
    a tie within the measured difference, the first divergence printed;
-   every rank's launches the unsharded count and its flash forms checked in
-   phase 3; with four cards the float32 llama4 run over NCCL, a card a
-   rank, and llama4-scout at full depth; else one line saying so;
+   zamba2 (one super-block and the shared block), rwkv6 (2 layers), gemma3
+   (6 layers, a prompt past its window: the rings roll and wrap) and
+   whisper (2 + 2 layers, 1500 frames) over 1x2 in float32 at full width,
+   as the float32 runs above; every rank's flash and WKV launches the
+   unsharded count and its flash forms checked in phase 3; with four cards
+   the float32 llama4 run over NCCL, a card a rank, and llama4-scout at
+   full depth; else one line saying so;
 7. whole model in float32 at full width: last-position logits of a prefill
    and 8 teacher-forced decode steps through the kernels on the card against
    the plain twins (the same model on the CPU);
@@ -122,7 +127,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    flash-attention backward at tinyllama's and gemma3's training shapes
    beside SDPA's backward; the flash forward and backward at a rank's
    bfloat16 training shapes of granite-8b over four cards (8 / 2 heads at
-   1x4, 16 / 4 at 2x2, hd 128) beside SDPA's; the WKV backward at rwkv6's training shape
+   1x4, 16 / 4 at 2x2, hd 128), of zamba2-7b's shared block (8 / 8 at 1x4,
+   hd 112) and of gemma3-4b's local and global layers (2 / 1 at 1x4, hd
+   256) beside SDPA's; WKV prefill, decode and backward on a rank's 8 of
+   rwkv6's 32 heads; the WKV backward at rwkv6's training shape
    beside its twin, its bound at the rates its kernels run on and the
    stepwise kernel's bound, and each of its four kernels' device time a
    call from torch.profiler, every launch recorded);
@@ -152,16 +160,21 @@ Phases, each printing its own lines; any failure exits nonzero:
    no flash), then 5 launcher steps.  Each training run prints its warm
    step time, tok/s, model-FLOP utilisation (``launch.roofline``), device
    idle share, largest kernels and peak memory; (d) sharded training (at
-   most 120 s): one ``run_ranks`` spawn of a 2x2 mesh over gloo, the four
+   most 180 s): one ``run_ranks`` spawn of a 2x2 mesh over gloo, the four
    ranks sharing the card, trains granite-8b under ``fsdp_tp`` and
    qwen2-moe-a2.7b under ``tp_only`` at full width with 2 layers, float32,
-   batch 4 x 512, one ``make_train_step`` each, against the unsharded step
+   batch 4 x 512, and zamba2-7b under ``fsdp_tp`` (one super-block and the
+   shared block) at batch 2 x 256, then on two of the ranks over 1x2
+   ``tp_only`` rwkv6 (2 layers), gemma3 (2 local layers) and whisper (2 + 2
+   layers) at batch 2 x 256, one ``make_train_step`` each, against the
+   unsharded step
    computed alone first: the loss, every gradient leaf put together from
    the pieces, each parameter after the step and its v inside the window
    that AdamW's first step allows the gradient's limit, every piece two
    ranks hold bit-equal, each rank's flash launches ``lm.train_step_launches`` and
    its flash forms checked in phase 3 (``sharded_train_flash_calls``);
-   then one line saying that granite-8b's four-card training did not run.
+   then one line saying that the four-card trainings (granite-8b,
+   zamba2-7b, gemma3-4b) did not run.
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, phase 4c's sharded calls, each federation and each server call of phase 5, each
@@ -202,12 +215,14 @@ session, e.g. on a parent unpacked with ``git archive`` into
 
     python3 chip_smoke.py --sharded-4card
 
-runs only phase 6b's four-card runs over NCCL and granite-8b's training
-at full width and depth over 1x4 ``tp_only`` and 2x2 ``fsdp_tp`` (10
-steps on one batch: the loss down 0.5 nat, the ranks' losses equal, step
-time, tok/s, model-FLOP utilisation, each card's peak beside
-``launch/dryrun.py``'s forecast), with the flash builds and the phase-3
-checks they need, on a machine with four cards.
+runs only phase 6b's four-card runs over NCCL and the training of
+granite-8b and zamba2-7b at full width and depth over 1x4 ``tp_only`` and
+2x2 ``fsdp_tp`` and of gemma3-4b over 1x4 ``tp_only`` (10 steps on one
+batch: the loss down 0.5 nat, the ranks' losses equal, step time, tok/s,
+model-FLOP utilisation beside the parameters ``param_count`` gives and the
+model holds, each card's peak beside ``launch/dryrun.py``'s forecast), with
+the kernel builds and the phase-3 checks they need, on a machine with four
+cards.
 
     python3 chip_smoke.py --sweep-wkv
     python3 chip_smoke.py --sweep-eq2
@@ -227,6 +242,7 @@ import copy
 import functools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -366,7 +382,15 @@ FAMILY_FLASH = (
 # measured difference; the first divergence of the generated tokens
 # printed.  Where there are four cards, the float32 llama4 run again over
 # NCCL, a card a rank, against the same unsharded model, then llama4-scout
-# at full depth (SHARDED_4CARD).
+# at full depth (SHARDED_4CARD).  The recurrent and encoder families in
+# float32 over 1x2 at full width, their depth cut: zamba2 one super-block
+# of 6 Mamba2 layers and the shared attention block (56 Mamba heads and
+# 16 / 16 attention heads a rank), rwkv6 2 layers (16 WKV heads a rank), gemma3
+# one 5 local + 1 global super-block with a prompt past its window (the
+# local layers' rings roll at prefill and wrap at every decode step; 4 / 2
+# heads a rank at hd 256) and whisper 2 + 2 layers with its 1500 encoder
+# frames (8 / 8 heads a rank, the cross cache a view); held as the float32
+# runs above, and each rank's flash or WKV launches the unsharded count.
 SHARDED_RUNS = (
     dict(label="llama4-scout float32, 2 layers", arch="llama4-scout-17b-a16e",
          cut={"n_layers": 2}, dtype="float32", mesh=(1, 4), scheme="tp_only",
@@ -383,6 +407,18 @@ SHARDED_RUNS = (
          mesh=(1, 2), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT, tokens=F32_DECODE),
     dict(label="tinyllama bfloat16", arch="tinyllama-1.1b", cut={}, dtype="bfloat16",
          mesh=(1, 2), scheme="tp_only", batch=LM_BATCH, prompt=LM_PROMPT, tokens=LM_TOKENS),
+    dict(label="zamba2 float32, 6 layers", arch="zamba2-7b", cut={"n_layers": 6},
+         dtype="float32", mesh=(1, 2), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT,
+         tokens=F32_DECODE),
+    dict(label="rwkv6 float32, 2 layers", arch="rwkv6-1.6b", cut={"n_layers": 2},
+         dtype="float32", mesh=(1, 2), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT,
+         tokens=F32_DECODE),
+    dict(label="gemma3 float32, 6 layers", arch="gemma3-4b", cut={"n_layers": 6},
+         dtype="float32", mesh=(1, 2), scheme="tp_only", batch=F32_BATCH, prompt=1040,
+         tokens=F32_DECODE),
+    dict(label="whisper float32, 2 + 2 layers", arch="whisper-medium",
+         cut={"n_layers": 2, "encoder_layers": 2}, dtype="float32", mesh=(1, 2),
+         scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT, tokens=F32_DECODE),
 )
 SHARDED_4CARD = (
     SHARDED_RUNS[0],
@@ -396,7 +432,7 @@ SHARDED_TIMEOUT_S = 600.0
 # Sharded training (phase 10d): the train step over a 2x2 mesh of ranks in
 # fresh processes (one ``run_ranks`` spawn, gloo, the four sharing the
 # card), each run at full width with its depth cut, in float32 under
-# float32_math, batch SHARDED_TRAIN_BATCH x SHARDED_TRAIN_SEQ, each against
+# float32_math, each run's batch x seq, each against
 # the unsharded step on the card, run alone first: granite-8b under
 # fsdp_tp (FSDP over data, tensor parallel over model; 0.84 B parameters,
 # 13.4 GB of masters, gradients and AdamW moments unsharded) and
@@ -426,32 +462,68 @@ SHARDED_TIMEOUT_S = 600.0
 # window's ends, widened by two float32 ulps and 1e-11): about 2 lr wide
 # where |g| is within the limit (the sign is open; those elements are
 # counted), far below lr elsewhere.
+#
+# Then, in the same spawn, the recurrent and encoder families at full width
+# and batch 2 x 256: zamba2 under fsdp_tp over the 2x2 mesh (one
+# super-block of 6 Mamba2 layers and the shared block; 0.90 B parameters),
+# and over 1x2 tp_only, on ranks 0 and 1 in a process group of their own,
+# rwkv6 (2 layers; 0.38 B), gemma3 (2 local layers; 1.53 B, most of it its
+# 262,144-word embedding and head) and whisper (2 + 2 layers, its 1500
+# encoder frames; 0.18 B).  Their Mamba2 and RWKV6 blocks read replicated
+# weights for the rank's heads only, whose gradients a rank forms in part
+# and sums over the model axis: the bit-equal check of every piece two
+# ranks hold is what catches a miss.  rwkv6 at its random init (decay ~
+# 0.9975: the WKV state sums nearly all past k v^T before the per-head group
+# norm) amplifies float32 rounding in its gradients as in its logits (phase
+# 7's 1e-2): the unsharded step moves a leaf by 2.327e-04 of its max when
+# every weight moves by one float32 ulp (H100, torch 2.11), more than 1e-4.
+# Its gradients (and so its windows) are held to 1e-4 or that floor,
+# measured in the same run, whichever is larger, as phase 6b holds
+# bfloat16 logits (run["floor"]).
 SHARDED_TRAIN = (
     dict(label="granite-8b fsdp_tp, 2 layers", arch="granite-8b", cut={"n_layers": 2},
-         mesh=(2, 2), scheme="fsdp_tp"),
+         mesh=(2, 2), scheme="fsdp_tp", batch=4, seq=512),
     dict(label="qwen2-moe tp_only, 2 layers", arch="qwen2-moe-a2.7b", cut={"n_layers": 2},
-         mesh=(2, 2), scheme="tp_only"),
+         mesh=(2, 2), scheme="tp_only", batch=4, seq=512),
+    dict(label="zamba2 fsdp_tp, 6 layers", arch="zamba2-7b", cut={"n_layers": 6},
+         mesh=(2, 2), scheme="fsdp_tp", batch=2, seq=256),
+    dict(label="rwkv6 tp_only, 2 layers", arch="rwkv6-1.6b", cut={"n_layers": 2},
+         mesh=(1, 2), scheme="tp_only", batch=2, seq=256, floor=True),
+    dict(label="gemma3 tp_only, 2 layers", arch="gemma3-4b", cut={"n_layers": 2},
+         mesh=(1, 2), scheme="tp_only", batch=2, seq=256),
+    dict(label="whisper tp_only, 2 + 2 layers", arch="whisper-medium",
+         cut={"n_layers": 2, "encoder_layers": 2}, mesh=(1, 2), scheme="tp_only", batch=2,
+         seq=256),
 )
-SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 512
 SHARDED_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4}
 ROUTE_TIE = 1e-4   # largest gate gap of a choice a rank makes otherwise than the unsharded run
-SHARDED_TRAIN_BUDGET_S = 120.0
+SHARDED_TRAIN_BUDGET_S = 180.0
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048   # phase 10a
 # --sharded-4card training: granite-8b at full width and depth over NCCL, a
 # card a rank, float32 masters and bfloat16 compute, TRAIN_BATCH x
 # TRAIN_SEQ, TRAIN_STEPS steps on one repeated batch at TRAIN_LR (loss down
 # TRAIN_MIN_DROP, as phase 10a), at 1x4 tp_only and 2x2 fsdp_tp.
+# Then zamba2-7b (6.75 B parameters: 108 GB of float32 masters, gradients
+# and AdamW moments; no one card trains it) at 1x4 tp_only and 2x2
+# fsdp_tp, and gemma3-4b (4.55 B; 73 GB of masters, gradients and moments, 8.6 GB of
+# float32 logits over its 262,144 words at 4 x 2048) at 1x4 tp_only.
 TRAIN_4CARD = (
     dict(label="granite-8b tp_only 1x4", arch="granite-8b", cut={}, mesh=(1, 4),
-         scheme="tp_only"),
+         scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
     dict(label="granite-8b fsdp_tp 2x2", arch="granite-8b", cut={}, mesh=(2, 2),
-         scheme="fsdp_tp"),
+         scheme="fsdp_tp", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+    dict(label="zamba2-7b tp_only 1x4", arch="zamba2-7b", cut={}, mesh=(1, 4),
+         scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+    dict(label="zamba2-7b fsdp_tp 2x2", arch="zamba2-7b", cut={}, mesh=(2, 2),
+         scheme="fsdp_tp", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+    dict(label="gemma3-4b tp_only 1x4", arch="gemma3-4b", cut={}, mesh=(1, 4),
+         scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
 )
 
 # LM training (phase 10a): tinyllama-1.1b at full width and depth, float32
 # masters and bfloat16 compute, remat on, AdamW under a cosine schedule, on
 # one repeated batch; the loss must fall by TRAIN_MIN_DROP nat from the
 # first step to the last.  Then TRAIN_LAUNCHER_STEPS steps of the launcher.
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048
 TRAIN_STEPS, TRAIN_LAUNCHER_STEPS, TRAIN_LR, TRAIN_MIN_DROP = 10, 5, 1e-3, 0.5
 # Whole-model float32 gradients (phase 10b), card against CPU: (arch, config
 # changes, batch, seq).  gemma3 keeps one 5 local + 1 global super-block,
@@ -500,6 +572,10 @@ WKV_BWD_FORMS = (
     ("hd 16", (2, 300, 8, 16), True, "bfloat16", True, True),
     ("hd 32", (2, 300, 8, 32), False, "float32", False, False),
     ("hd 128", (2, 300, 8, 128), True, "float32", True, True),
+    ("a rank's 16 of 32 heads (phase 10d's rwkv6 over 1x2)", (2, 256, 16, 64), False,
+     "float32", False, False),
+    ("a rank's 8 of 32 heads (1x4), rwkv6's training shape", (4, 2048, 8, 64), False,
+     "bfloat16", False, False),
 )
 # The zoo's training forms besides phase 10's calls, checked in phase 3:
 # label, (B, Sq, Skv, Hq, Hkv, hd), causal, window.
@@ -1008,43 +1084,64 @@ def flash_form(dims, causal: bool, window, q_offset: int, slots) -> tuple:
     return tuple(int(x) for x in dims), bool(causal), window, int(q_offset), slots
 
 
-def served_flash_calls() -> list:
-    """(label, form) of every distinct flash call of phase 6's runs: each
-    attention form at prefill, each decode form at the first and the last
-    decode step (the steps between differ only in q_offset), then the
-    FAMILY_FLASH calls.  Phase 6 checks that its runs made no other."""
-    from repro_torch.configs import get_config
+def model_flash_calls(cfg, batch: int, model: int, seq: int, tokens=None) -> dict:
+    """{form: label} of every distinct flash call a forward of ``cfg`` makes
+    on ``batch`` rows and 1 / ``model`` of each kind of head (a rank's over a
+    model axis of ``model``): with ``tokens`` None a train-mode forward of
+    ``seq`` tokens (the backward takes each forward's form), else a prefill
+    of ``seq`` then decode steps up to ``seq + tokens - 1``, each decode form
+    at the first and the last step (the steps between differ only in
+    q_offset).  Encoder self-attention, cross attention (at decode over the
+    cache padded to a multiple of 128), and each self-attention kind, the
+    shared attention block's global."""
     from repro_torch.models import attention, lm
+
+    heads = (cfg.n_heads // model, cfg.n_kv_heads // model, cfg.resolved_head_dim)
+    calls = {}
+
+    def add(label, Sq, Skv, causal, window, q_off, slots=None):
+        calls.setdefault(flash_form((batch, Sq, Skv, *heads), causal, window, q_off, slots),
+                         label)
+
+    if cfg.is_enc_dec:
+        n_enc = cfg.encoder_seq
+        add("encoder self-attention", n_enc, n_enc, False, None, 0)
+        add("cross-attention" if tokens is None else "cross-attention prefill", seq, n_enc,
+            False, None, 0)
+        if tokens is not None:
+            add("cross-attention decode", 1, n_enc, False, None, 0, n_enc + (-n_enc) % 128)
+    stages = lm.stages_for(cfg)
+    kinds = {kind for st in stages if st.kind == "attn" and st.repeats for kind in st.sub}
+    if any(st.shared_attn for st in stages):
+        kinds.add("global")
+    for kind in sorted(kinds):
+        window = cfg.window if kind == "local" else None
+        if tokens is None:
+            add(f"{kind} self-attention", seq, seq, True, window, 0)
+            continue
+        add(f"{kind} prefill", seq, seq, True, window, 0)
+        s_cache = lm._cache_len(cfg, kind, seq + tokens)
+        for pos in (seq, seq + tokens - 2):
+            form = attention.decode_form(s_cache, pos, window)
+            add(f"{kind} decode at {pos}", 1, s_cache, form.causal, form.window,
+                form.q_offset)
+    return calls
+
+
+def served_flash_calls() -> list:
+    """(label, form) of every distinct flash call of phase 6's runs
+    (``model_flash_calls``), then the FAMILY_FLASH calls and phase 6b's
+    (``sharded_flash_calls``).  Phase 6 checks that its runs made no
+    other."""
+    from repro_torch.configs import get_config
 
     calls = {}
     for arch, prompt, kernel in LM_SERVED:
         if kernel != "flash_attention":
             continue
-        cfg = get_config(arch)
-        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
-        max_len = prompt + LM_TOKENS
-
-        def add(label, Sq, Skv, causal, window, q_off, slots=None):
-            form = flash_form((LM_BATCH, Sq, Skv, *heads), causal, window, q_off, slots)
+        for form, label in model_flash_calls(get_config(arch), LM_BATCH, 1, prompt,
+                                             LM_TOKENS).items():
             calls.setdefault(form, f"{arch} {label}")
-
-        if cfg.is_enc_dec:
-            n_enc = cfg.encoder_seq
-            add("encoder self-attention", n_enc, n_enc, False, None, 0)
-            add("cross-attention prefill", prompt, n_enc, False, None, 0)
-            add("cross-attention decode", 1, n_enc, False, None, 0, n_enc + (-n_enc) % 128)
-        stages = lm.stages_for(cfg)
-        kinds = {kind for st in stages if st.kind == "attn" for kind in st.sub}
-        if any(st.shared_attn for st in stages):
-            kinds.add("global")
-        for kind in sorted(kinds):
-            window = cfg.window if kind == "local" else None
-            add(f"{kind} prefill", prompt, prompt, True, window, 0)
-            s_cache = lm._cache_len(cfg, kind, max_len)
-            for pos in (prompt, max_len - 2):
-                form = attention.decode_form(s_cache, pos, window)
-                add(f"{kind} decode at {pos}", 1, s_cache, form.causal, form.window,
-                    form.q_offset)
     for _, label, dims, causal, window, q_off, slots in FAMILY_FLASH:
         calls.setdefault(flash_form(dims, causal, window, q_off, slots), label)
     for label, form in sharded_flash_calls():
@@ -1056,22 +1153,12 @@ def sharded_flash_calls() -> list:
     """(label, form) of every distinct flash call a rank of phase 6b makes
     (and of the four-card run): on the rank's heads, 1 / model of each,
     at prefill and at the first and the last decode step."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import attention
-
     calls = {}
     for run in SHARDED_RUNS + SHARDED_4CARD:
-        cfg = get_config(run["arch"])
         data, model = run["mesh"]
-        heads = (cfg.n_heads // model, cfg.n_kv_heads // model, cfg.resolved_head_dim)
-        B, S, T = run["batch"] // data, run["prompt"], run["tokens"]
-        calls.setdefault(flash_form((B, S, S, *heads), True, None, 0, None),
-                         f"{run['label']}: a rank's prefill")
-        for pos in (S, S + T - 2):
-            form = attention.decode_form(S + T, pos, None)
-            calls.setdefault(flash_form((B, 1, S + T, *heads), form.causal, form.window,
-                                        form.q_offset, None),
-                             f"{run['label']}: a rank's decode at {pos}")
+        for form, label in model_flash_calls(_sharded_config(run), run["batch"] // data, model,
+                                             run["prompt"], run["tokens"]).items():
+            calls.setdefault(form, f"{run['label']}: a rank's {label}")
     return [(label, form) for form, label in calls.items()]
 
 
@@ -1186,13 +1273,16 @@ def wkv_inputs(torch, gen, B, S, H, hd, device, fast=False):
     return r, k, v, w, u
 
 
-def check_wkv(torch, device, errs: list) -> None:
+def check_wkv(torch, device, errs: list, rank_errs: list) -> None:
+    """Phase 3, WKV: prefill and decode at rwkv6's serving shape and off it
+    (``errs``), then at a rank's heads (``rank_errs``): phase 6b's 16 of 32
+    over 1x2 in float32, and 8 of 32 (1x4) at the serving shape."""
     from repro_torch.kernels.wkv import wkv_cuda, wkv_plain, wkv_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     H, hd = 32, 64   # rwkv6-1.6b
 
-    def compare(label, ops, state0):
+    def compare(label, ops, state0, errs=errs):
         plan = wkv_plan(ops[0].shape[1])
         out, st = wkv_cuda(*ops, state0)
         want_out, want_st = wkv_plain(*(a.float() for a in ops), state0)
@@ -1227,6 +1317,15 @@ def check_wkv(torch, device, errs: list) -> None:
     compare("prefill with state0, fast decay, bfloat16 r k v", bf16(fast), state0)
     compare("ragged: S=1000 with state0, fast decay",
             tuple(a[:, :1000] if i < 4 else a for i, a in enumerate(fast)), state0)
+    for B, S, heads, rkv in ((F32_BATCH, F32_PROMPT, H // 2, torch.float32),
+                             (LM_BATCH, LM_PROMPT, H // 4, torch.bfloat16)):
+        def cast(ops):
+            return tuple(a.to(rkv) if i < 3 else a for i, a in enumerate(ops))
+
+        st = compare(f"a rank's {heads} of {H} heads: prefill",
+                     cast(wkv_inputs(torch, gen, B, S, heads, hd, device)), None, rank_errs)
+        compare(f"a rank's {heads} of {H} heads: decode S=1, carried state",
+                cast(wkv_inputs(torch, gen, B, 1, heads, hd, device)), st, rank_errs)
 
 
 def wkv_bwd_operands(torch, gen, dims, fast, dtype, with_state, with_dT, device):
@@ -1241,10 +1340,11 @@ def wkv_bwd_operands(torch, gen, dims, fast, dtype, with_state, with_dT, device)
     return (r.to(dtype), k.to(dtype), v.to(dtype), w, u), dout, s0, dT
 
 
-def check_wkv_bwd(torch, device, errs: list) -> None:
+def check_wkv_bwd(torch, device, errs: list, by_label: dict) -> None:
     """Phase 3, the WKV backward: at each of WKV_BWD_FORMS, the forward's
     chunk-start states, then dr, dk, dv, dw, du, dstate0 of two launches
-    (bitwise equal) against the plain twin's (WKV_BWD_TOL)."""
+    (bitwise equal) against the plain twin's (WKV_BWD_TOL); each form's
+    largest difference in ``errs`` and by its label in ``by_label``."""
     from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda
 
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
@@ -1275,6 +1375,7 @@ def check_wkv_bwd(torch, device, errs: list) -> None:
                 and max(handed) <= WKV_BWD_TOL[dtype_name],
                 f"wkv backward {label}: {rel}, {handed}, bitwise {same}")
         errs.append(max((a - b).abs().max().item() for a, b in zip(got, want)))
+        by_label[label] = errs[-1]
         del r, k, v, w, u, dout, s0, dT, starts, got, again, want
     torch.cuda.empty_cache()
 
@@ -2302,9 +2403,10 @@ def _sharded_rank(runs: list) -> list:
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
 
-    # the kernel the path launches, loaded as phase 2 built it (never nvcc)
-    require(_build.library_path("flash_attention").exists(),
-            f"rank {dist.get_rank()}: the flash-attention kernel was not built by phase 2")
+    # the kernels the path launches, loaded as phase 2 built them (never nvcc)
+    for name in ("flash_attention", "wkv"):
+        require(_build.library_path(name).exists(),
+                f"rank {dist.get_rank()}: {name} was not built by phase 2")
     torch.backends.cuda.matmul.allow_tf32 = False       # phase_device's settings
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", torch.cuda.current_device())
@@ -2381,11 +2483,15 @@ def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> 
     for r in ranks[1:]:   # activations replicated over the model axis
         require(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"]),
                 f"{label}: rank {r['rank']}'s logits or tokens differ from rank 0's")
-    expected = lm.attention_calls(cfg, True) + (run["tokens"] - 1) * lm.attention_calls(cfg, False)
+    # each rank launches the unsharded model's kernels, on its heads
+    expected = {k: n for k in ("flash_attention", "wkv") if (n := kernel_calls(cfg, k, True)
+                                                             + (run["tokens"] - 1)
+                                                             * kernel_calls(cfg, k, False))}
     for r in ranks:
-        require(r["launches"].get("flash_attention", 0) == expected,
-                f"{label}: rank {r['rank']} launched {r['launches']}, expected {expected} flash")
-        require(len(r["forms"]) == expected, f"{label}: {len(r['forms'])} flash calls recorded")
+        require(r["launches"] == expected,
+                f"{label}: rank {r['rank']} launched {r['launches']}, expected {expected}")
+        require(len(r["forms"]) == expected.get("flash_attention", 0),
+                f"{label}: {len(r['forms'])} flash calls recorded")
         require_checked(label, r["forms"], checked[dtype])
     require(bool(torch.isfinite(r0["logits"]).all()), f"{label}: non-finite logits")
     require(int(r0["tokens"].min()) >= 0 and int(r0["tokens"].max()) < cfg.vocab_padded,
@@ -2397,8 +2503,8 @@ def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> 
         f"{[round(r['context_s'], 2) for r in ranks]} s); prefill "
         f"{[round(r['prefill_s'], 4) for r in ranks]} s, {run['tokens'] - 1} decode steps "
         f"{[round(r['decode_s'], 4) for r in ranks]} s{shared}; peak "
-        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; {expected} flash launches a rank in "
-        f"{len(set(r0['forms']))} forms, each checked in phase 3; sample "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches a rank {expected}, "
+        f"{len(set(r0['forms']))} flash forms, each checked in phase 3; sample "
         f"{r0['tokens'][0, :8].tolist()}")
     if want is None:
         return
@@ -2670,27 +2776,13 @@ def trained_flash_calls() -> list:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
 
     calls = {}
     runs = [(TRAIN_ARCH, {}, TRAIN_BATCH, TRAIN_SEQ)] + list(TRAIN_F32)
     for arch, cut, batch, seq in runs:
         cfg = dataclasses.replace(get_config(arch), **cut)
-        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
-
-        def add(label, Sq, Skv, causal, window):
-            form = flash_form((batch, Sq, Skv, *heads), causal, window, 0, None)
+        for form, label in model_flash_calls(cfg, batch, 1, seq).items():
             calls.setdefault(form, f"{arch} {label}")
-
-        if cfg.is_enc_dec:
-            add("encoder self-attention", cfg.encoder_seq, cfg.encoder_seq, False, None)
-            add("cross-attention", seq, cfg.encoder_seq, False, None)
-        stages = lm.stages_for(cfg)
-        kinds = {kind for st in stages if st.kind == "attn" for kind in st.sub}
-        if any(st.shared_attn for st in stages):
-            kinds.add("global")
-        for kind in sorted(kinds):
-            add(f"{kind} self-attention", seq, seq, True, cfg.window if kind == "local" else None)
     for label, dims, causal, window in TRAINED_FORMS:
         calls.setdefault(flash_form(dims, causal, window, 0, None), label)
     for label, form in sharded_train_flash_calls():
@@ -2699,21 +2791,18 @@ def trained_flash_calls() -> list:
 
 
 def sharded_train_flash_calls(runs=SHARDED_TRAIN + TRAIN_4CARD) -> list:
-    """(label, form) of the flash call a rank of ``runs`` (phase 10d's and
+    """(label, form) of the flash calls a rank of ``runs`` (phase 10d's and
     the four-card training) makes: its rows of the batch on its heads, 1 /
     model of each (granite: 16 / 4 at 2x2, 8 / 2 at 1x4; qwen2-moe: 8 / 8;
-    hd 128)."""
-    from repro_torch.configs import get_config
-
+    hd 128; zamba2's shared block 8 / 8 at 1x4, 16 / 16 at 2x2, hd 112;
+    gemma3 2 / 1 at 1x4, hd 256)."""
     calls = {}
     for run in runs:
-        cfg = get_config(run["arch"])
         data, model = run["mesh"]
-        batch, seq = ((SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ) if run in SHARDED_TRAIN
-                      else (TRAIN_BATCH, TRAIN_SEQ))
-        dims = (batch // data, seq, seq, cfg.n_heads // model, cfg.n_kv_heads // model,
-                cfg.resolved_head_dim)
-        calls.setdefault(flash_form(dims, True, None, 0, None), f"{run['label']}: a rank's")
+        batch, seq = run["batch"], run["seq"]
+        for form, label in model_flash_calls(_sharded_config(run), batch // data, model,
+                                             seq).items():
+            calls.setdefault(form, f"{run['label']}: a rank's {label}")
     return [(label, form) for form, label in calls.items()]
 
 
@@ -3030,10 +3119,10 @@ def _zero_moments(torch, params) -> dict:
             "v": {n: zero.expand(p.shape) for n, p in named.items()}}
 
 
-def _sharded_train_batch(torch, cfg, device) -> dict:
+def _sharded_train_batch(torch, run: dict, cfg, device) -> dict:
     from repro_torch.launch.train import synthetic_batch
 
-    return synthetic_batch(cfg, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
+    return synthetic_batch(cfg, run["batch"], run["seq"],
                            torch.Generator(device=device).manual_seed(SEED))
 
 
@@ -3058,23 +3147,36 @@ def _unsharded_step(torch, run: dict, device, path: str) -> dict:
     gradients saved to ``path`` on the host (the ranks map it), the model
     freed before this returns.  Its MoE route choices (the ranks take
     them), each leaf's max |g| and its gradient limit in absolute terms
-    (``delta``, for the ranks' windows)."""
+    (``delta``, for the ranks' windows).  With the run's ``floor``, also the
+    gradients of the model again after every weight moves by one float32
+    ulp (:func:`_ulp_perturbed`): the largest leaf's move, relative to its
+    max |g|, and the gradient limit is it where it exceeds
+    SHARDED_TRAIN_TOL's."""
     import gc
 
+    from repro_torch._device import float32_math
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
     cfg = _sharded_config(run)
     params = lm.init_params(cfg, seed=SEED, dtype=torch.float32, device=device)
-    batch = _sharded_train_batch(torch, cfg, device)
+    batch = _sharded_train_batch(torch, run, cfg, device)
+    floor = None
+    if run.get("floor"):
+        with float32_math():
+            _, g0 = lm.value_and_grad(params, batch)
+            _, g1 = lm.value_and_grad(_ulp_perturbed(torch, params), batch)
+        floor = max(((g1[n] - g).abs().max() / g.abs().max()).item() for n, g in g0.items())
+        del g0, g1
     torch.cuda.reset_peak_memory_stats(device)
     loss, grads, v, routes = _train_step_read(torch, params, batch)
     n_params = sum(p.numel() for p in params.parameters())
     del params, v
     host = {n: g.cpu() for n, g in grads.items()}
-    want = {"loss": loss, "path": path, "routes": routes.choices,
+    want = {"loss": loss, "path": path, "routes": routes.choices, "floor": floor,
             "gmax": {n: g.abs().max().item() for n, g in grads.items()}}
-    want["delta"] = {n: SHARDED_TRAIN_TOL["grad"] * g for n, g in want["gmax"].items()}
+    limit = max(SHARDED_TRAIN_TOL["grad"], floor or 0.0)
+    want["delta"] = {n: limit * g for n, g in want["gmax"].items()}
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     del grads, batch
     gc.collect()
@@ -3086,7 +3188,9 @@ def _unsharded_step(torch, run: dict, device, path: str) -> dict:
             f"{free / 2**30:.1f} GiB free under {Path(path).parent}")
     torch.save(host, path)
     log("train-tp", f"{run['label']}: the unsharded step alone, {n_params / 1e9:.3f} B "
-        f"parameters, loss {loss:.6f}, {len(routes.choices)} MoE route calls, peak {peak:.1f} GiB allocated; "
+        f"parameters, loss {loss:.6f}, {len(routes.choices)} MoE route calls, "
+        + ("" if floor is None else f"one-ulp weight floor {floor:.3e} of a leaf's max |g|, ")
+        + f"peak {peak:.1f} GiB allocated; "
         f"{t1 - t0:.1f} s; {need / 2**30:.1f} GiB of gradients saved for the ranks "
         f"({free / 2**30:.0f} GiB were free) in {time.perf_counter() - t1:.1f} s")
     return want
@@ -3147,7 +3251,11 @@ def _outside(x, window) -> float:
 
 def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) -> list:
     """One rank of phase 10d, in its own process (``run_ranks`` joined the
-    process group and set its card), each run freed before the next: the
+    process group and set its card), each run freed before the next, on
+    its mesh: the runs of the spawn's mesh first; for a run on a smaller
+    mesh every rank leaves the process group and the first ones join a new
+    one of that size (over a file store beside ``paths``), the others
+    taking no further part (None for each of their runs).  The
     rank's shard drawn by ``init_params_sharded`` (seed as the unsharded
     model) takes one ``make_train_step`` on its rows
     (:func:`_train_step_read`), its launch counts set to 0 just before and
@@ -3172,25 +3280,40 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
     from repro_torch.launch.mesh import axis_coords, make_mesh
     from repro_torch.models import moe
 
-    for name in ("flash_attention", "flash_attention_bwd"):   # loaded as phase 2 built it
+    for name in ("flash_attention", "flash_attention_bwd", "wkv", "wkv_bwd"):   # phase 2's
         require(_build.library_path(name).exists(),
                 f"rank {dist.get_rank()}: {name} was not built by phase 2")
     device = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh(*runs[0]["mesh"], device_type="cuda")
-    coords = axis_coords(mesh)
+    rank, shape, mesh = dist.get_rank(), None, None
     out = []
     for run, path, delta, chosen in zip(runs, paths, deltas, choices):
+        if run["mesh"] != shape:
+            shape, size = run["mesh"], run["mesh"][0] * run["mesh"][1]
+            if size != dist.get_world_size():   # a smaller mesh: a process group of its own
+                dist.destroy_process_group()
+                if rank >= size:
+                    out += [None] * (len(runs) - len(out))
+                    return out
+                store = Path(path).parent / f"store_{shape[0]}x{shape[1]}"
+                dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                        world_size=size)
+            mesh = make_mesh(*shape, device_type="cuda")
+            coords = axis_coords(mesh)
         cfg = _sharded_config(run)
         plan = sharding.plan_for(cfg, run["scheme"])
         t0 = time.perf_counter()
         params = sharding.init_params_sharded(cfg, plan, mesh, seed=SEED, dtype=torch.float32,
                                               device=device)
-        start = {n: p.detach().clone() for n, p in params.named_parameters()}
-        batch = sharding.local_batch(cfg, _sharded_train_batch(torch, cfg, device), mesh)
+        # the step's start kept on the host: four ranks of qwen2-moe 2x2
+        # share the card, and with a second copy of each rank's 3.3 GiB of
+        # parameters on it a rank's check once found 0.37 GiB of its 79 GiB
+        # free for a 0.58 GiB leaf (H100 80GB HBM3)
+        start = {n: p.detach().to("cpu", copy=True) for n, p in params.named_parameters()}
+        batch = sharding.local_batch(cfg, _sharded_train_batch(torch, run, cfg, device), mesh)
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         t1 = time.perf_counter()
-        rows = SHARDED_TRAIN_BATCH // run["mesh"][0]
+        rows = run["batch"] // run["mesh"][0]
         rows = slice(coords["data"][0] * rows, (coords["data"][0] + 1) * rows)
         _build.reset_launches()
         with _FlashLog() as flash_log:
@@ -3204,12 +3327,15 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
         named = dict(params.named_parameters())
         grad_err, step_err = {}, {}
         for n, g in grads.items():
-            want = sharding.local_slice(ref[n], plan[n], coords).to(device)
-            grad_err[n] = (g - want).abs().max().item()
+            want = sharding.local_slice(ref[n], plan[n], coords,
+                                        sharding.mamba_parts(cfg, n)).to(device)
             err = {"p": 0.0, "v": 0.0, "open": 0, "settled": 0.0, "elements": want.numel()}
-            flat = [t.detach().reshape(-1) for t in (start[n], want, named[n], v[n])]
+            flat = [t.detach().reshape(-1) for t in (start[n], g, want, named[n], v[n])]
+            grad_err[n] = 0.0
             for at in range(0, want.numel(), STEP_CHECK_CHUNK):   # temporaries a chunk long
-                p0, g_ref, p1, v1 = (t[at:at + STEP_CHECK_CHUNK] for t in flat)
+                p0, g1, g_ref, p1, v1 = (t[at:at + STEP_CHECK_CHUNK] for t in flat)
+                p0 = p0.to(device)
+                grad_err[n] = max(grad_err[n], (g1 - g_ref).abs().max().item())
                 win = _first_step_window(torch, opt, p0, g_ref, delta[n])
                 settled = (p1 - win["mid"]).abs().mul_(g_ref.abs() > delta[n]).max().item()
                 err = {"p": max(err["p"], _outside(p1, win["p"])),
@@ -3229,6 +3355,7 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
                        "total": routes.total, "gap": routes.gap},
             "init_s": t1 - t0, "step_s": t2 - t1,
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved(device) / 2**30,
             "params": sum(p.numel() for p in named.values())})
         del params, named, start, grads, v, batch, ref
         gc.collect()
@@ -3248,7 +3375,9 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
     from repro_torch.models import lm
 
     cfg = _sharded_config(run)
-    label, tol = run["label"], SHARDED_TRAIN_TOL
+    label, tol = run["label"], dict(SHARDED_TRAIN_TOL)
+    if want["floor"] is not None:   # the gradient limit or the floor, whichever is larger
+        tol["grad"] = max(tol["grad"], want["floor"])
     plan = sharding.plan_for(cfg, run["scheme"])
     expected = lm.train_step_launches(cfg)
     for r in ranks:
@@ -3291,19 +3420,25 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
                     require(seen[at] == d, f"{label}: rank {r['rank']}'s {what} of {n} differs "
                             "from another rank's piece of the same slice")
                 seen.setdefault(at, d)
-    log("train-tp", f"{label}: 2x2 over gloo on one card ({run['scheme']}), "
+    log("train-tp", f"{label}: {run['mesh'][0]}x{run['mesh'][1]} over gloo on one card "
+        f"({run['scheme']}, batch {run['batch']} x {run['seq']}), "
         f"{ranks[0]['params'] / 1e9:.3f} B parameters a rank; loss {ranks[0]['loss']:.6f} "
         f"against {want['loss']:.6f} (relative {loss_rel:.2e}; limit {tol['loss']}); worst "
         f"gradient leaf {worst_g[1]} {worst_g[0]:.3e} of its max |g| (limit "
-        f"{tol['grad']}){routing}; the step "
+        f"{tol['grad']:.3e}"
+        + ("" if want["floor"] is None else
+           f": {SHARDED_TRAIN_TOL['grad']} or the one-ulp floor {want['floor']:.3e}")
+        + f"){routing}; the step "
         f"(first rate {lr:.3e}): parameters outside their window by at most {worst_p[0]:.3e} "
         f"({worst_p[1]}), v by {worst_v[0]:.3e} ({worst_v[1]}); {n_open} of {n_all} elements "
         f"with |g| within the limit (sign open, window ~2 lr), the others at most "
         f"{settled[0]:.3e} from the unsharded gradient's step ({settled[1]}); "
         f"{shared} pieces held by two ranks, each bit-equal; launches a rank "
-        f"{ranks[0]['launches']} (lm.train_step_launches {expected}); init "
+        f"{ranks[0]['launches']} (lm.train_step_launches {expected}, each on the rank's "
+        f"heads); init "
         f"{[round(r['init_s'], 2) for r in ranks]} s, step {[round(r['step_s'], 3) for r in ranks]}"
-        f" s (the ranks time-slice one card); peak {[round(r['peak_gib'], 1) for r in ranks]} GiB")
+        f" s (the ranks time-slice one card); peak {[round(r['peak_gib'], 1) for r in ranks]} "
+        f"GiB allocated, {[round(r['reserved_gib'], 1) for r in ranks]} GiB reserved")
     require(loss_rel <= tol["loss"], f"{label}: loss {loss_rel}")
     require(worst_g[0] <= tol["grad"], f"{label}: gradient {worst_g}, limit {tol['grad']}")
     require(worst_p[0] == 0.0, f"{label}: parameter {worst_p[1]} {worst_p[0]} outside its window")
@@ -3312,7 +3447,8 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
 
 def phase_sharded_training(torch, device, checked: set) -> dict:
     """Phase 10d (at most SHARDED_TRAIN_BUDGET_S): SHARDED_TRAIN over one
-    2x2 spawn of ranks sharing the card through gloo, each run against the
+    2x2 spawn of ranks sharing the card through gloo (a 1x2 run on the
+    first two, :func:`_sharded_train_rank`), each run against the
     unsharded step, computed first in this process, kept on the host and
     freed from the card before the ranks start.  Returns each run's rank-0
     launches of its train step."""
@@ -3329,16 +3465,30 @@ def phase_sharded_training(torch, device, checked: set) -> dict:
         torch.cuda.empty_cache()
         log("train-tp", f"starting 4 ranks; {memory(torch)}")
         t0 = time.perf_counter()
-        results = run_ranks(_sharded_train_rank, 4, list(SHARDED_TRAIN), paths,
-                            [w["delta"] for w in wants], [w["routes"] for w in wants],
-                            backend="gloo", devices=[card] * 4,
-                            timeout=SHARDED_TIMEOUT_S, store_dir=tmp)
+        # the ranks' allocators grow their segments in place (the spawned
+        # processes read the setting; this one's allocator is set already):
+        # otherwise each leaves ~2 GiB of the shared card reserved in pieces
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            results = run_ranks(_sharded_train_rank, 4, list(SHARDED_TRAIN), paths,
+                                [w["delta"] for w in wants], [w["routes"] for w in wants],
+                                backend="gloo", devices=[card] * 4,
+                                timeout=SHARDED_TIMEOUT_S, store_dir=tmp)
+        finally:
+            if alloc_conf is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
         log("train-tp", f"4 ranks on {card} trained {len(SHARDED_TRAIN)} runs in "
             f"{time.perf_counter() - t0:.1f} s (spawn, init, a step each)")
     launches = {}
     for i, run in enumerate(SHARDED_TRAIN):
-        _check_sharded_train(torch, run, [res[i] for res in results], wants[i], checked)
-        launches[run["label"]] = results[0][i]["launches"]
+        ranks = [res[i] for res in results if res[i] is not None]
+        require(len(ranks) == run["mesh"][0] * run["mesh"][1],
+                f"{run['label']}: {len(ranks)} ranks took part")
+        _check_sharded_train(torch, run, ranks, wants[i], checked)
+        launches[run["label"]] = ranks[0]["launches"]
     seconds = time.perf_counter() - t_phase
     log("train-tp", f"phase 10d took {seconds:.1f} s (budget {SHARDED_TRAIN_BUDGET_S:.0f} s)")
     require(seconds <= SHARDED_TRAIN_BUDGET_S, f"phase 10d took {seconds:.1f} s")
@@ -3378,7 +3528,7 @@ def _train_4card_rank(runs: list) -> list:
         state = opt.init(dict(params.named_parameters()))
         step = lm.make_train_step(opt)
         batch = sharding.local_batch(cfg, synthetic_batch(
-            cfg, TRAIN_BATCH, TRAIN_SEQ, torch.Generator(device=device).manual_seed(SEED)), mesh)
+            cfg, run["batch"], run["seq"], torch.Generator(device=device).manual_seed(SEED)), mesh)
         torch.cuda.synchronize(device)
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(device)
@@ -3415,6 +3565,11 @@ def phase_train_4card(torch, checked: set) -> dict:
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16, model_flops
     from repro_torch.models import lm
 
+    # the ranks' allocator grows its segments in place: gemma3-4b's float32
+    # logits over 262,144 words (8.6 GB, and as many for their loss and
+    # gradient) otherwise leave ~20 GiB of a card reserved in pieces too
+    # small to reuse (one card, 6 layers: out of memory at 55 GiB allocated)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t0 = time.perf_counter()
     results = run_ranks(_train_4card_rank, 4, list(TRAIN_4CARD), backend="nccl",
                         devices=[f"cuda:{i}" for i in range(4)], timeout=1800)
@@ -3438,8 +3593,9 @@ def phase_train_4card(torch, checked: set) -> dict:
                 f"{label}: loss fell {losses[0] - losses[-1]:.4f} nat in {TRAIN_STEPS} steps")
         warm = statistics.median(max(r["seconds"][j] for r in ranks)
                                  for j in range(1, TRAIN_STEPS))
-        shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        shape = InputShape("train", run["seq"], run["batch"], "train")
         mfu = model_flops(cfg, shape) / warm / (4 * PEAK_FLOPS_BF16)
+        held = sum(p.numel() for p in lm.init_params(cfg, device="meta").parameters())
         data, model = run["mesh"]
         sizes = {"data": data, "model": model}
         forecast = (4 * dryrun.param_bytes(cfg, sizes, run["scheme"])
@@ -3448,12 +3604,14 @@ def phase_train_4card(torch, checked: set) -> dict:
             f"{ranks[0]['params'] / 1e9:.3f} B parameters a rank (drawn in "
             f"{[round(r['init_s'], 1) for r in ranks]} s); loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f} in {TRAIN_STEPS} steps (limit: down {TRAIN_MIN_DROP}), the same "
-            f"on every rank; warm step median {warm:.4f} s ({TRAIN_BATCH * TRAIN_SEQ / warm:.0f} "
-            f"tok/s, model-FLOP utilisation {mfu:.1%} of 4 x 989 TFLOP/s); peak "
+            f"on every rank; warm step median {warm:.4f} s ({run['batch'] * run['seq'] / warm:.0f} "
+            f"tok/s, model-FLOP utilisation {mfu:.1%} of 4 x 989 TFLOP/s, from "
+            f"ArchConfig.param_count's {cfg.param_count() / 1e9:.2f} B parameters, the model "
+            f"holds {held / 1e9:.3f} B); peak "
             f"{[round(r['peak_gib'], 1) for r in ranks]} GiB allocated a card, dryrun's forecast "
             f"{forecast:.1f} GiB a rank (parameters, gradients, AdamW m and v, batch; no "
             f"activations); launches a step {ranks[0]['launches'][-1]}")
-        out[label] = {"losses": losses, "step_s": warm, "mfu": mfu,
+        out[label] = {"losses": losses, "step_s": warm, "mfu": mfu, "held_params": held,
                       "peak_gib": [r["peak_gib"] for r in ranks], "forecast_gib": forecast,
                       "launches": ranks[0]["launches"][-1]}
     return out
@@ -3924,19 +4082,102 @@ def family_flash_case(torch, gen, device, case):
     return (q, k, v), kw, sdpa, b
 
 
+# The four-card runs whose per-rank training shapes phase 8 times (their
+# forms: granite-8b 8 / 2 heads at 1x4 and 16 / 4 at 2x2, hd 128; zamba2-7b's
+# shared block 8 / 8 at 1x4, hd 112; gemma3-4b's local and global layers 2
+# / 1 at 1x4, hd 256).
+TRAIN_4CARD_TIMED = ("granite-8b tp_only 1x4", "granite-8b fsdp_tp 2x2",
+                     "zamba2-7b tp_only 1x4", "gemma3-4b tp_only 1x4")
+
+
 def sharded_train_rows(torch, device, tp_train: dict, errs: dict) -> list:
     """Phase 8's rows for the flash forward and backward at a rank's
-    bfloat16 training shapes of the four-card runs (granite-8b: 8 / 2 heads
-    at 1x4, 16 / 4 at 2x2; hd 128), beside SDPA, each with phase 10d's
-    per-rank launches of granite-8b's sharded step (the same kernels)."""
-    run = SHARDED_TRAIN[0]["label"]
-    fwd = [(run, f"{label} training", *form) for label, form in
-           sharded_train_flash_calls(TRAIN_4CARD)]
-    bwd = [(f"{label} training", form[0], form[1], form[2]) for label, form in
-           sharded_train_flash_calls(TRAIN_4CARD)]
-    return (family_flash_rows(torch, device, tp_train, errs, cases=fwd, key="sharded_train_run")
-            + flash_bwd_rows(torch, device, None, errs["flash_attention_bwd"], cases=bwd,
-                             launches=tp_train[run]["flash_attention_bwd"], first=False))
+    bfloat16 training shapes of the four-card runs (TRAIN_4CARD_TIMED),
+    beside SDPA, each with phase 10d's per-rank launches of the same
+    architecture's sharded step (the same kernels)."""
+    step_of = {run["arch"]: run["label"] for run in SHARDED_TRAIN}
+    rows = []
+    for run in TRAIN_4CARD:
+        if run["label"] not in TRAIN_4CARD_TIMED:
+            continue
+        step = step_of[run["arch"]]
+        calls = sharded_train_flash_calls((run,))
+        fwd = [(step, f"{label} training", *form) for label, form in calls]
+        bwd = [(f"{label} training", *form[:3]) for label, form in calls]
+        rows += family_flash_rows(torch, device, tp_train, errs, cases=fwd,
+                                  key="sharded_train_run")
+        rows += flash_bwd_rows(torch, device, None, errs["flash_attention_bwd"], cases=bwd,
+                               launches=tp_train[step]["flash_attention_bwd"], first=False)
+    return rows
+
+
+WKV_RANK_HEADS = 8   # a rank's WKV heads of rwkv6-1.6b's 32 over a model axis of 4
+
+
+def wkv_rank_rows(torch, device, tp_serve: dict, tp_train: dict, errs: dict) -> list:
+    """Phase 8's rows for the WKV kernels on a rank's heads, WKV_RANK_HEADS
+    of rwkv6's 32 (bfloat16 r, k, v): the prefill at the serving shape and
+    one decode step from a carried state (replayed from a CUDA graph), and
+    the backward at the training shape, each beside its plain twin and its
+    bound (no library call computes either); the launches are a rank's in
+    phase 6b's and 10d's rwkv6 runs (16 heads a rank over 1x2: the same
+    kernels)."""
+    from repro_torch.kernels.wkv import (wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda, wkv_plain,
+                                         wkv_plan)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    H, hd = WKV_RANK_HEADS, 64
+    B, S = LM_BATCH, LM_PROMPT
+    ops = wkv_inputs(torch, gen, B, S, H, hd, device)
+    bf = tuple(a.to(torch.bfloat16) if i < 3 else a for i, a in enumerate(ops))
+    ms = time_ms(torch, lambda: wkv_cuda(*bf))
+    plain_ms = time_ms(torch, lambda: wkv_plain(*bf), warmup=1, iters=3)
+    n = B * S * H * hd
+    b_ms, b_by = bound(2.0 * 3 * n + 4.0 * (2 * n + H * hd + B * H * hd * hd), 5.0 * n * hd)
+    step = tuple(a.to(torch.bfloat16) if i < 3 else a
+                 for i, a in enumerate(wkv_inputs(torch, gen, B, 1, H, hd, device)))
+    state = torch.randn((B, H, hd, hd), generator=gen, device=device)
+    dec_ms = graph_ms(torch, lambda: wkv_cuda(*step, state), reps=20)
+    dec_plain_ms = graph_ms(torch, lambda: wkv_plain(*step, state), reps=20)
+    dec_b_ms, dec_b_by = wkv_decode_bound(B, H, hd, rkv_bytes=2)
+    log("time", f"wkv a rank's {H} of 32 heads: prefill r {tuple(bf[0].shape)} bf16 "
+        f"({wkv_plan(S).route}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+        f"bound {b_ms:.4f} ms ({b_by}); decode (graph replay) kernel {dec_ms:.4f} ms, plain "
+        f"{dec_plain_ms:.4f} ms, bound {dec_b_ms:.4f} ms ({dec_b_by})")
+    del ops, bf, step, state
+    dims = (TRAIN_BATCH, TRAIN_SEQ, H, hd)
+    (r, k, v, w, u), dout, _, _ = wkv_bwd_operands(torch, gen, dims, False, torch.bfloat16,
+                                                   False, False, device)
+    _, _, starts = wkv_cuda(r, k, v, w, u, return_starts=True)
+    bwd_ms = time_ms(torch, lambda: wkv_bwd_cuda(r, k, v, w, u, dout, starts), iters=10)
+    bwd_plain_ms = time_ms(torch, lambda: wkv_bwd_plain(r, k, v, w, u, dout), warmup=1, iters=3)
+    bwd_b_ms, bwd_b_by = wkv_bwd_bound(*dims, rkv_bytes=2)
+    log("time", f"wkv backward a rank's {H} of 32 heads: r {tuple(r.shape)} bf16: kernel "
+        f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, library none, bound {bwd_b_ms:.4f} ms "
+        f"({bwd_b_by}), {bwd_b_ms / bwd_ms:.1%} of the bound")
+    del r, k, v, w, u, dout, starts
+    torch.cuda.empty_cache()
+    serve_run = next(run["label"] for run in SHARDED_RUNS if run["arch"] == "rwkv6-1.6b")
+    train_run = next(run["label"] for run in SHARDED_TRAIN if run["arch"] == "rwkv6-1.6b")
+    common = {"route": "cuda", "library_ms": None, "heads": f"{H} of 32 (a rank's over 1x4)",
+              "launches_path": "a rank's rwkv6 run in phases 6b (serving) and 10d (training), "
+                               "16 heads a rank over 1x2"}
+    return [
+        {"name": f"wkv[a rank's {H} heads]", "source": "src/repro_torch/csrc/wkv.cu",
+         "replaces": "src/repro/kernels/wkv/wkv.py:53",
+         "launches": tp_serve[serve_run].get("wkv", 0) + tp_train[train_run]["wkv"],
+         "max_abs_err": max(errs["wkv_rank"]), "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "decode_ms": dec_ms,
+         "decode_plain_ms": dec_plain_ms, "decode_bound_ms": dec_b_ms,
+         "decode_bound_by": dec_b_by, **common},
+        {"name": f"wkv_bwd[a rank's {H} heads]", "source": "src/repro_torch/csrc/wkv_bwd.cu",
+         "replaces": "src/repro/models/ssm.py:303",
+         "launches": tp_train[train_run]["wkv_bwd"],
+         "max_abs_err": errs["wkv_bwd_by_label"][next(
+             label for label, dims, *_ in WKV_BWD_FORMS if dims == (TRAIN_BATCH, TRAIN_SEQ, H, hd))],
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_b_ms, "bound_by": bwd_b_by,
+         **common},
+    ]
 
 
 def family_flash_rows(torch, device, launches, errs, cases=FAMILY_FLASH, key="family") -> list:
@@ -4299,7 +4540,7 @@ def main(argv=None) -> int:
         require(device["count"] >= 4, f"--sharded-4card needs four cards, not {device['count']}")
         from repro_torch.kernels import _build
         cuda = torch.device("cuda")
-        _build.build_all(["flash_attention", "flash_attention_bwd"])
+        _build.build_all(["flash_attention", "flash_attention_bwd", "wkv"])
         bwd = {torch.float32: [], torch.bfloat16: [], "by_case": {}}
         check_flash_bwd(torch, cuda, bwd, calls=sharded_train_flash_calls(TRAIN_4CARD))
         trained = {form for form, _ in bwd["by_case"]}
@@ -4319,15 +4560,16 @@ def main(argv=None) -> int:
     phase_build()
     done("phase 2 (build)")
     fed = Federation(torch, torch.device("cuda"))
-    errs = {"proximity": [], "tsgemm": [], "wkv": [], "wkv_bwd": [],
+    errs = {"proximity": [], "tsgemm": [], "wkv": [], "wkv_bwd": [], "wkv_rank": [],
+            "wkv_bwd_by_label": {},
             "flash_attention": {torch.float32: [], torch.bfloat16: [], "by_case": {}},
             "flash_attention_bwd": {torch.float32: [], torch.bfloat16: [], "by_case": {}}}
     check_proximity(torch, fed, errs["proximity"])
     check_tsgemm(torch, fed.device, errs["tsgemm"])
     check_flash(torch, fed.device, errs["flash_attention"])
     check_flash_bwd(torch, fed.device, errs["flash_attention_bwd"])
-    check_wkv(torch, fed.device, errs["wkv"])
-    check_wkv_bwd(torch, fed.device, errs["wkv_bwd"])
+    check_wkv(torch, fed.device, errs["wkv"], errs["wkv_rank"])
+    check_wkv_bwd(torch, fed.device, errs["wkv_bwd"], errs["wkv_bwd_by_label"])
     done("phase 3 (kernels vs plain)")
     main_path = phase_main_path(torch, fed)
     any_rank = phase_any_rank(torch, fed.device)
@@ -4360,9 +4602,9 @@ def main(argv=None) -> int:
     training = phase_lm_training(torch, fed.device, trained)
     done("phase 10 (LM training)")
     tp_train = phase_sharded_training(torch, fed.device, trained)
-    log("train-4", f"{', '.join(r['label'] for r in TRAIN_4CARD)}: not run here: granite-8b at "
-        f"full depth trains over four cards under python3 chip_smoke.py --sharded-4card "
-        f"(this machine has {device['count']})")
+    log("train-4", f"{', '.join(r['label'] for r in TRAIN_4CARD)}: not run here: granite-8b, "
+        f"zamba2-7b and gemma3-4b at full depth train over four cards under python3 "
+        f"chip_smoke.py --sharded-4card (this machine has {device['count']})")
     done("phase 10d (sharded training)")
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
@@ -4371,6 +4613,7 @@ def main(argv=None) -> int:
                               cases=sharded_flash_timed(), key="sharded_run")
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
     rows += sharded_train_rows(torch, fed.device, tp_train, errs)
+    rows += wkv_rank_rows(torch, fed.device, tp_launches, tp_train, errs)
     rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
     # phase 4c's window and times beside the proximity row's own counts
     next(r for r in rows if r["name"] == "proximity")["sharded"] = {

@@ -14,9 +14,9 @@ bytes of:
   ``v`` (both float32, laid out as the parameters: ``opt_state_specs``);
 * prefill and decode: the parameters in the serving dtype, bfloat16 (the
   vectors float32, as ``lm.init_params`` stores them), and the caches in
-  the port's own layout (``lm.init_cache``: KV heads over ``model`` where
-  they divide, ring caches of the window's slots; batch over the data
-  axes);
+  the port's own layout (``lm.init_cache``: KV heads and the Mamba2 and
+  RWKV6 states' heads over ``model`` where they divide, ring caches of the
+  window's slots; batch over the data axes);
 * every step: the batch (int64 token ids, bfloat16 vision embeddings or
   encoder frames), its rows over the data axes as ``local_batch`` cuts
   them.
@@ -76,11 +76,14 @@ def _numel(shape) -> int:
 def param_bytes(cfg: ArchConfig, sizes: dict[str, int], scheme: str,
                 dtype: torch.dtype = torch.float32) -> int:
     """One rank's parameter bytes under ``scheme`` on a mesh of ``sizes``:
-    weights of two or more dimensions in ``dtype``, vectors in float32."""
+    weights of two or more dimensions in ``dtype``, vectors in float32; a
+    Mamba2 ``in_proj`` and ``conv_w`` as the port holds them over ``model``,
+    B and C whole on every rank (``sharding.mamba_parts``)."""
     named = sharding.meta_params(cfg)
     plan = sharding.param_specs(named, cfg, scheme=scheme)
     size = torch.empty((), dtype=dtype).element_size()
-    return sum(_numel(sharding.local_shape(tuple(p.shape), plan[n], sizes))
+    return sum(_numel(sharding.local_shape(tuple(p.shape), plan[n], sizes,
+                                           sharding.mamba_parts(cfg, n)))
                * (size if p.ndim >= 2 else 4) for n, p in named.items())
 
 
@@ -106,12 +109,15 @@ def cache_bytes(cfg: ArchConfig, shape: InputShape, sizes: dict[str, int],
                 dtype: torch.dtype = torch.bfloat16) -> int:
     """One rank's bytes of the caches a prefill of ``shape`` fills (and a
     decode reads): ``lm.init_cache``'s tree at the rank's rows, KV heads
-    over ``model`` where they divide."""
+    and recurrent states' heads over ``model`` where every kind of head
+    divides (``sharding.head_counts``)."""
     m = sizes.get("model", 1)
+    if any(n % m for _, n in sharding.head_counts(cfg)):
+        m = 1
     # what init_cache reads of a model: its configuration, device, compute
     # dtype and model axis
     model = SimpleNamespace(cfg=cfg, embed=torch.empty(0, device="meta"), compute_dtype=dtype,
-                            model_axis=MeshAxis(None, m if cfg.n_kv_heads % m == 0 else 1, 0))
+                            model_axis=MeshAxis(None, m, 0))
     cache = lm.init_cache(model, _rows(shape.global_batch, sizes), shape.seq_len)
 
     def walk(node) -> int:

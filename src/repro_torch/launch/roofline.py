@@ -6,7 +6,10 @@ is the reference's arithmetic over the port's ``ArchConfig`` and
 sequence to decode, N = ``cfg.active_param_count()``, plus the causal
 attention terms of attention models), mirrored as it is: for rwkv6 its
 ``param_count`` counts the channel mix as 3 D d_ff where the block holds
-2 D d_ff + D^2, so rwkv6's figures read high.  The denominators are one
+2 D d_ff + D^2, so rwkv6's figures read high; for zamba2 it adds a gated
+MLP (3 D d_ff) to every Mamba2 layer, which holds none: 19.20 B against
+the 6.75 B parameters the model holds, so zamba2's figures read about 2.8x
+high.  The denominators are one
 H100's dense bfloat16 tensor-core peak and memory rate (NVIDIA's data
 sheet, SXM part at 700 W), not the reference's TPU v5e constants.  The rest
 of the reference's module reads a compiled XLA module's costs and a mesh's

@@ -21,9 +21,12 @@ activation meets a rank's slice of a weight (identity forward, its
 gradient's partials summed over the axis), :meth:`MeshAxis.reduce` where
 the partials are summed (identity backward).  With that rule every
 replicated activation's gradient, and every replicated weight's, is whole
-and the same on every rank of the axis.  A weight held as the rank's piece
-over the data axis (FSDP, :class:`Fsdp`) is gathered just before use, its
-gradient reduce-scattered back.
+and the same on every rank of the axis.  Where a product needs a
+replicated activation's channels rank by rank (RWKV6's channel mix),
+:meth:`MeshAxis.scatter_sum` sums partials into the rank's channels and
+:meth:`MeshAxis.concat` puts the ranks' channels together again.  A weight
+held as the rank's piece over the data axis (FSDP, :class:`Fsdp`) is
+gathered just before use, its gradient reduce-scattered back.
 
 The initializers take ``keep`` (:data:`Keep`), called on every drawn weight
 with its parameter name right after the draw; it returns the part to keep
@@ -92,6 +95,18 @@ class MeshAxis:
         order; the backward sums the gradient over the axis and keeps the
         rank's piece (a reduce-scatter)."""
         return _Gather.apply(t, self, dim)
+
+    def scatter_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` summed over the axis, and only the rank's piece along
+        ``dim`` kept (a reduce-scatter of partials); the backward gathers the
+        gradient's pieces: every rank's ``t`` reaches every piece."""
+        return _ScatterSum.apply(t, self, dim)
+
+    def concat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' pieces of a replicated activation along ``dim`` put
+        together in rank order; the backward keeps the rank's piece of the
+        gradient, which every rank holds whole (Megatron's gather)."""
+        return _Concat.apply(t, self, dim)
 
     # -- the collectives themselves, out of place where they return a new
     # tensor; the same calls over NCCL and over gloo (which takes CUDA
@@ -197,6 +212,29 @@ class Fsdp:
         finally:
             for m, pname, piece in swapped:
                 m._parameters[pname] = piece
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.reduce_scatter(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather(g, ctx.dim), None, None
+
+
+class _Concat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.axis.size
+        return g.narrow(ctx.dim, ctx.axis.rank * n, n).contiguous(), None, None
 
 
 def param(t: torch.Tensor) -> nn.Parameter:

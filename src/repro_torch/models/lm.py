@@ -47,7 +47,10 @@ super-block, under its checkpoint, so only one super-block's whole weights
 live at a time and the recomputation gathers them again.  The batch's rows
 split over ``row_axes``: :func:`value_and_grad` averages the loss and the
 gradients over them, and the MoE blocks' Switch loss reads the whole
-batch.  Only the attention + MLP / MoE families run sharded.
+batch.  Every family runs sharded: Mamba2 and RWKV6 blocks on the rank's
+heads (:mod:`repro_torch.models.ssm`), zamba2's shared attention block
+and whisper's encoder and cross attention head-parallel like any
+attention, the recurrent states and ring caches at the rank's heads.
 """
 from __future__ import annotations
 
@@ -264,12 +267,10 @@ def _to_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def _init_block(gen, cfg: ArchConfig, stage: StageSpec, device, dtype,
                 keep: Keep = keep_all) -> nn.Module:
-    if stage.kind != "attn" and keep is not keep_all:
-        raise NotImplementedError(f"{stage.kind} blocks have no sharded init")
     if stage.kind == "rwkv":
-        block = ssm.init_rwkv(gen, cfg, device)
+        block = ssm.init_rwkv(gen, cfg, device, keep)
     elif stage.kind == "mamba":
-        block = ssm.init_mamba(gen, cfg, device)
+        block = ssm.init_mamba(gen, cfg, device, keep)
     else:
         block = _init_attn_block(gen, cfg, stage.cross_attn, device, cfg.is_moe, keep)
     return _to_dtype(block, dtype)
@@ -352,8 +353,10 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
     device = params.embed.device
     dtype = params.compute_dtype
     hd = cfg.resolved_head_dim
-    # a sharded model's cache holds the rank's KV heads
-    n_kv = cfg.n_kv_heads // (1 if params.model_axis is None else params.model_axis.size)
+    # a sharded model's cache holds the rank's KV heads, its recurrent
+    # states the rank's heads
+    axis = params.model_axis
+    n_kv = cfg.n_kv_heads // (1 if axis is None else axis.size)
 
     def kv(slots):
         return init_attn_cache(batch, slots, n_kv, hd, dtype=dtype, device=device)
@@ -369,9 +372,9 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
                     if stage.cross_attn:
                         entry[f"sub{i}"]["cross"] = kv(cfg.encoder_seq + (-cfg.encoder_seq) % 128)
                 elif stage.kind == "mamba":
-                    entry[f"sub{i}"] = ssm.init_mamba_state(cfg, batch, dtype, device)
+                    entry[f"sub{i}"] = ssm.init_mamba_state(cfg, batch, dtype, device, axis)
                 else:
-                    entry[f"sub{i}"] = ssm.init_rwkv_state(cfg, batch, device)
+                    entry[f"sub{i}"] = ssm.init_rwkv_state(cfg, batch, device, axis)
             if stage.shared_attn:
                 entry["shared"] = {"kv": kv(seq_len)}
             entries.append(entry)
@@ -427,24 +430,26 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
 
 
 def _apply_mamba_block(p: ssm.Mamba, cfg: ArchConfig, x: torch.Tensor, *,
-                       state: Optional[ssm.MambaState], decode: bool, dtype: torch.dtype):
+                       state: Optional[ssm.MambaState], decode: bool, dtype: torch.dtype,
+                       axis: Optional[MeshAxis] = None):
     h = rmsnorm(x, p.ln, cfg.norm_eps, dtype)
     if decode:
-        out, state = ssm.mamba_decode(p, cfg, h, state, dtype)
+        out, state = ssm.mamba_decode(p, cfg, h, state, dtype, axis)
     elif state is not None:  # prefill: outputs + final recurrent state
-        out, state = ssm.mamba_ssd(p, cfg, h, dtype, return_state=True)
+        out, state = ssm.mamba_ssd(p, cfg, h, dtype, return_state=True, axis=axis)
     else:
-        out = ssm.mamba_ssd(p, cfg, h, dtype)
+        out = ssm.mamba_ssd(p, cfg, h, dtype, axis=axis)
     return x + out, state
 
 
 def _apply_rwkv_block(p: ssm.RWKV, cfg: ArchConfig, x: torch.Tensor, *,
-                      state: Optional[ssm.RWKVState], dtype: torch.dtype):
+                      state: Optional[ssm.RWKVState], dtype: torch.dtype,
+                      axis: Optional[MeshAxis] = None):
     h = rmsnorm(x, p.ln1, cfg.norm_eps, dtype)
-    tm_out, state = ssm.rwkv_time_mix(p, cfg, h, state, dtype)
+    tm_out, state = ssm.rwkv_time_mix(p, cfg, h, state, dtype, axis)
     x = x + tm_out
     h2 = rmsnorm(x, p.ln2, cfg.norm_eps, dtype)
-    cm_out, state = ssm.rwkv_channel_mix(p, cfg, h2, state, dtype)
+    cm_out, state = ssm.rwkv_channel_mix(p, cfg, h2, state, dtype, axis)
     return x + cm_out, state
 
 
@@ -469,15 +474,16 @@ def _superblock(superblock: nn.ModuleDict, stage: StageSpec, cfg: ArchConfig,
             aux = _add(aux, a)
         elif stage.kind == "mamba":
             x, entry[f"sub{i}"] = _apply_mamba_block(
-                p, cfg, x, state=c, decode=decode_pos is not None, dtype=dtype)
+                p, cfg, x, state=c, decode=decode_pos is not None, dtype=dtype, axis=axis)
         else:
-            x, entry[f"sub{i}"] = _apply_rwkv_block(p, cfg, x, state=c, dtype=dtype)
+            x, entry[f"sub{i}"] = _apply_rwkv_block(p, cfg, x, state=c, dtype=dtype, axis=axis)
     if stage.shared_attn:
         # one parameter set, each application with its own KV cache
         x, entry["shared"], a = _apply_attn_block(
             shared_attn, cfg, x, kind="global", q_pos=q_pos,
             cache=None if entry_cache is None else entry_cache["shared"],
-            decode_pos=decode_pos, enc_out=None, dtype=dtype, causal=causal,
+            decode_pos=decode_pos, enc_out=None, dtype=dtype, causal=causal, axis=axis,
+            rows=rows,
         )
         aux = _add(aux, a)
     return x, entry, aux
@@ -499,12 +505,20 @@ def _apply_stage(stage_params: nn.ModuleList, stage: StageSpec, cfg: ArchConfig,
     None).  With ``remat`` each super-block runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward, only its input kept.  With ``fsdp`` each super-block's
-    weights are gathered inside it (inside its checkpoint)."""
+    weights, and the shared attention block's where the stage applies it,
+    are gathered inside it (inside its checkpoint): the shared block's
+    gradient pieces add up over its applications."""
     new_cache: Optional[list] = None if cache is None else []
     aux = None
 
+    @contextlib.contextmanager
     def gathered(superblock):
-        return contextlib.nullcontext() if fsdp is None else fsdp.gathered(superblock)
+        with contextlib.ExitStack() as stack:
+            if fsdp is not None:
+                stack.enter_context(fsdp.gathered(superblock))
+                if stage.shared_attn:
+                    stack.enter_context(fsdp.gathered(shared_attn))
+            yield
 
     for r, superblock in enumerate(stage_params):
         kw = dict(entry_cache=None if cache is None else cache[r], q_pos=q_pos,
@@ -589,7 +603,7 @@ def forward(
                 e, _, _ = _apply_stage(
                     params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
                     decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
-                    remat=remat,
+                    remat=remat, axis=axis, rows=rows, fsdp=params.fsdp,
                 )
             enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
 

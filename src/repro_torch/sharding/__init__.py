@@ -20,7 +20,8 @@ the reference's leading stacked ``None`` is not part of a port spec.
 
 Execution, serving and training alike: :func:`init_params_sharded` and
 :func:`shard_params` give one rank the contiguous slice of every sharded
-dimension that ``torch.tensor_split`` gives it, and attach the mesh's axes
+dimension that ``torch.tensor_split`` gives it (a Mamba2 leaf's columns
+over ``model`` by component instead, :func:`mamba_parts`), and attach the mesh's axes
 (:class:`ShardLayout`): the model axis, over which
 :mod:`repro_torch.models` sums the row-parallel partials; with ``fsdp_tp``
 on a data axis above 1, the weights held as the rank's piece over
@@ -31,11 +32,12 @@ gradients.  :func:`repro_torch.models.lm.make_train_step` then steps each
 rank's pieces with the elementwise optimizer, its state the rank's pieces
 (:func:`opt_state_specs`).  The collectives are written out, driven by the
 plan (no ``DistributedDataParallel`` or FSDP wrapper, which read no mixed
-``("data", "model")`` plan).  Only the attention + MLP / MoE families
-execute sharded, with the ``model`` entries in the ``tp_only`` layout;
-:func:`check_plan` refuses anything else, with the reason.  The batch
-splits over ``data`` (:func:`local_batch`).  The KV caches of a sharded
-model hold each rank's KV heads, which head-parallel attention needs;
+``("data", "model")`` plan).  Every family executes sharded, with the
+``model`` entries in the ``tp_only`` layout; :func:`check_plan` refuses
+anything else, with the reason.  The batch splits over ``data``
+(:func:`local_batch`).  The KV caches (ring caches too) and the recurrent
+states of a sharded model hold each rank's heads, which head-parallel
+attention, Mamba2 and RWKV6 need;
 :func:`cache_specs` is the reference's cache plan (sequence over ``model``
 from 8192 slots, replicated below), ported as a plan and not what the
 execution lays out.
@@ -51,7 +53,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, ssm
 from repro_torch.models.layers import Fsdp, MeshAxis
 
 SCHEMES = ("fsdp_tp", "tp_only", "ddp")
@@ -230,50 +232,120 @@ def _piece(entry, coords: Mapping[str, tuple[int, int]]) -> tuple[int, int]:
     return i, n
 
 
-def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int]) -> tuple:
+def mamba_parts(cfg: ArchConfig, name: str) -> Optional[tuple[tuple[int, bool], ...]]:
+    """How a Mamba2 leaf's dimension over ``model`` is cut: its components
+    in order, each (width, split): ``in_proj``'s z | x | B C | dt (widths
+    d_in, d_in, 2N, H), ``conv_w``'s x | B C; None for every other leaf.
+
+    The plan is the reference's, ``(fsdp, tp)`` over ``in_proj``'s columns
+    and ``(None, tp)`` over ``conv_w``'s, but the port cannot execute its
+    contiguous cut (:func:`local_slice`): the columns concatenate the
+    components, so a contiguous 1 / m of them does not give a rank whole
+    heads.  A rank holds its heads' slice of each split component and all
+    of B and C (one group, which every head reads), so its piece is wider
+    than 1 / m: the replicated columns enter its forward through
+    ``MeshAxis.copy`` (:mod:`repro_torch.models.ssm`), and the dry run
+    counts them (:func:`local_shape`)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if cfg.block_kind != "mamba2" or leaf not in ("in_proj", "conv_w"):
+        return None
+    d_in, _, H, N = ssm.mamba_dims(cfg)
+    if leaf == "in_proj":
+        return ((d_in, True), (d_in, True), (2 * N, False), (H, True))
+    return ((d_in, True), (2 * N, False))
+
+
+def _ranges(d: int, entry, coords: Mapping[str, tuple[int, int]], parts
+            ) -> list[tuple[int, int]]:
+    """(start, length) of each run of a dimension of ``d`` that the rank
+    holds: one contiguous 1 / n run, or with ``parts`` (the dimension over
+    ``model``) its run of each split part and the whole of the others."""
+    i, n = _piece(entry, coords)
+    if n == 1:
+        return [(0, d)]
+    if parts is None or entry != "model":
+        return [(i * (d // n), d // n)]
+    out, at = [], 0
+    for width, split in parts:
+        out.append((at + i * (width // n), width // n) if split else (at, width))
+        at += width
+    return out
+
+
+def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int], parts=None) -> tuple:
     """The shape of one rank's piece of a ``shape`` leaf on a mesh of
     ``sizes`` ({axis: ranks}); a dim its axes do not divide rounds up, as
-    GSPMD pads it."""
-    return tuple(-(-d // math.prod(sizes.get(a, 1) for a in _axes(e)))
-                 for d, e in zip(shape, spec))
+    GSPMD pads it; with ``parts`` (:func:`mamba_parts`) the dimension over
+    ``model`` holds the rank's piece of each split part and the others
+    whole."""
+    def width(d, e):
+        n = math.prod(sizes.get(a, 1) for a in _axes(e))
+        if parts is None or e != "model" or n == 1:
+            return -(-d // n)
+        return sum(-(-w // n) if split else w for w, split in parts)
+
+    return tuple(width(d, e) for d, e in zip(shape, spec))
 
 
-def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int]]
-                ) -> torch.Tensor:
-    """This rank's contiguous piece of ``t`` (a view), as ``tensor_split``
-    along each sharded dim gives it."""
+def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int]],
+                parts=None) -> torch.Tensor:
+    """This rank's piece of ``t``: the contiguous piece ``tensor_split``
+    gives along each sharded dim (a view), or with ``parts``
+    (:func:`mamba_parts`) the runs of the dimension over ``model`` put
+    together (a copy)."""
     for dim, entry in enumerate(spec):
-        i, n = _piece(entry, coords)
-        if n > 1:
-            size = t.shape[dim] // n
-            t = t.narrow(dim, i * size, size)
+        runs = _ranges(t.shape[dim], entry, coords, parts)
+        if len(runs) == 1:
+            t = t.narrow(dim, *runs[0])
+        else:
+            t = torch.cat([t.narrow(dim, *run) for run in runs], dim)
     return t
 
 
-def _sharded_families_only(cfg: ArchConfig) -> None:
-    """Refuse, with the reason, a family whose blocks do not run sharded."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: {cfg.block_kind} blocks have a plan but no "
-                                  "sharded execution yet")
-    for what, has in (("cross attention", cfg.is_enc_dec),
-                      ("sliding-window rings", cfg.swa_pattern is not None),
-                      ("a shared attention block", bool(cfg.attn_every))):
-        if has:
-            raise NotImplementedError(f"{cfg.name}: {what} has a plan but no sharded "
-                                      "execution yet")
+def place_slice(full: torch.Tensor, piece: torch.Tensor, spec: Spec,
+                coords: Mapping[str, tuple[int, int]], parts=None) -> torch.Tensor:
+    """Write a rank's ``piece`` (:func:`local_slice`) into ``full``, where
+    it came from; returns ``full``."""
+    views = [(full, piece)]
+    for dim, entry in enumerate(spec):
+        runs = _ranges(full.shape[dim], entry, coords, parts)
+        nxt = []
+        for f, p in views:
+            at = 0
+            for start, length in runs:
+                nxt.append((f.narrow(dim, start, length), p.narrow(dim, at, length)))
+                at += length
+        views = nxt
+    for f, p in views:
+        f.copy_(p)
+    return full
+
+
+def head_counts(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """(what, count) of each kind of head ``cfg``'s blocks split over the
+    model axis: attention's query and KV heads (every family with
+    attention), Mamba2's and RWKV6's heads."""
+    out = []
+    if cfg.block_kind == "attn" or cfg.attn_every:
+        out += [("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)]
+    if cfg.block_kind == "mamba2":
+        out.append(("Mamba heads", ssm.mamba_dims(cfg)[2]))
+    if cfg.block_kind == "rwkv6":
+        out.append(("WKV heads", ssm.rwkv_dims(cfg)[0]))
+    return out
 
 
 def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
     """Refuse, with the reason, a plan the port cannot execute on a mesh of
     ``sizes`` ({axis: ranks}); return whether it shards over ``model``.
 
-    Refused: names or ranks that are not ``cfg``'s parameters'; any weight
-    sharded (over ``model`` or, FSDP, over ``data``) in a family without
-    sharded execution; ``model`` entries other than ``tp_only``'s layout;
-    a weight dimension over several axes, or over ``pod``, or two over
-    ``data``; heads that do not divide over the model axis; and any sharded
-    dimension the axes' size does not divide (experts or their F,
-    ``vocab_padded``, an FSDP dimension, ...)."""
+    Refused: names or ranks that are not ``cfg``'s parameters'; ``model``
+    entries other than ``tp_only``'s layout; a weight dimension over
+    several axes, or over ``pod``, or two over ``data``; heads of any kind
+    (:func:`head_counts`) that do not divide over the model axis; and any
+    sharded dimension the axes' size does not divide (experts or their F,
+    ``vocab_padded``, an FSDP dimension, each split part of a Mamba2
+    leaf's, ...)."""
     named = meta_params(cfg)
     shapes = {n: tuple(p.shape) for n, p in named.items()}
     if set(plan) != set(shapes):
@@ -294,8 +366,6 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
             raise ValueError(f"{name}: {spec} splits two dimensions over data")
     m = sizes.get("model", 1)
     over_model = m > 1 and any(count(e) > 1 for s in plan.values() for e in s if e == "model")
-    if any(count(e) > 1 for s in plan.values() for e in s):
-        _sharded_families_only(cfg)
     if over_model:
         want = param_specs(named, cfg, scheme="tp_only")
         for name, spec in plan.items():
@@ -303,14 +373,17 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
             if got != want[name]:
                 raise ValueError(f"{name}: {spec} is not the tp_only layout {want[name]} "
                                  "over model that the sharded apply functions run")
-        for what, n in (("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)):
+        for what, n in head_counts(cfg):
             if n % m:
                 raise ValueError(f"{cfg.name}: {n} {what} do not divide over a model axis "
                                  f"of {m}")
     for name, spec in plan.items():
+        parts = mamba_parts(cfg, name)
         for dim, (d, entry) in enumerate(zip(shapes[name], spec)):
             n = count(entry)
-            if d % n:
+            widths = ([w for w, split in parts if split] if parts and entry == "model"
+                      else [d])
+            if any(w % n for w in widths):
                 raise ValueError(f"{name}: dim {dim} ({d}) of {shapes[name]} does not divide "
                                  f"over {entry} ({n} ranks)")
     return over_model
@@ -332,8 +405,9 @@ class ShardLayout:
             name: spec.index("data") for name, spec in plan.items() if "data" in spec}
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of the whole parameter ``name`` (a view)."""
-        return local_slice(t, self.plan[name], self.coords)
+        """This rank's slice of the whole parameter ``name`` (a view, or a
+        copy for a Mamba2 leaf cut by :func:`mamba_parts`)."""
+        return local_slice(t, self.plan[name], self.coords, mamba_parts(self.cfg, name))
 
     def keep(self, name: str, t: torch.Tensor, expert: Optional[int] = None
              ) -> Optional[torch.Tensor]:
@@ -349,7 +423,7 @@ class ShardLayout:
             spec = spec[1:]
         if all(_piece(e, self.coords)[1] == 1 for e in spec):
             return t
-        return local_slice(t, spec, self.coords).clone()
+        return local_slice(t, spec, self.coords, mamba_parts(self.cfg, name)).clone()
 
     def attach(self, model: lm.LM) -> lm.LM:
         """``model`` (the rank's pieces) with the layout's axes set."""

@@ -62,7 +62,9 @@ def serve_cases(data: int, model: int, cases: list, n_decode: int) -> dict:
         if params.model_axis is not None:
             for p in params.parameters():
                 p.requires_grad_(True)
-            logits, _ = lm.forward(params, batch["tokens"], mode="train")
+            logits, _ = lm.forward(params, batch["tokens"], mode="train",
+                                   vision_embeds=batch.get("vision_embeds"),
+                                   encoder_frames=batch.get("encoder_frames"))
             out[key]["train_graph"] = (bool(torch.isfinite(logits).all())
                                        and logits.grad_fn is not None)
             for p in params.parameters():
@@ -166,7 +168,8 @@ def train_cli(argv: list) -> list:
 def assemble(cfg, plan: dict, results: list, key, field: str) -> tuple[dict, bool]:
     """({name: tensor}, same): each leaf put together from the ranks'
     pieces (``results[r][key][field]``, keyed by parameter name, beside
-    ``results[r]["coords"]``), and whether every two ranks holding the same
+    ``results[r]["coords"]``; a Mamba2 leaf's by its components,
+    ``sharding.mamba_parts``), and whether every two ranks holding the same
     piece hold it bit for bit."""
     full = {n: torch.zeros(p.shape) for n, p in
             lm.init_params(cfg, dtype=torch.float32, device="meta").named_parameters()}
@@ -178,7 +181,8 @@ def assemble(cfg, plan: dict, results: list, key, field: str) -> tuple[dict, boo
             at = tuple(sharding._piece(e, coords) for e in spec)
             first = seen.setdefault((name, at), piece)
             same = same and torch.equal(first, piece)
-            sharding.local_slice(full[name], spec, coords).copy_(piece)
+            sharding.place_slice(full[name], piece, spec, coords,
+                                 sharding.mamba_parts(cfg, name))
     return full, same
 
 

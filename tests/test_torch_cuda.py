@@ -978,6 +978,7 @@ def test_rwkv6_gradients_on_cuda_match_cpu(cuda):
 # decays, r k v dtype, with state0, with dstateT
 WKV_BWD_CASES = [
     ((4, 2048, 32, 64), False, torch.bfloat16, False, False),
+    ((4, 2048, 8, 64), False, torch.bfloat16, False, False),   # a rank's 8 of 32 heads (1x4)
     ((4, 2048, 32, 64), True, torch.float32, True, True),
     ((2, 1, 4, 64), True, torch.float32, True, True),
     ((2, 47, 4, 64), False, torch.bfloat16, True, False),
@@ -1018,6 +1019,24 @@ def test_wkv_backward_kernel_matches_plain_and_repeats(cuda, dims, fast, dtype, 
         assert (a - b).abs().max().item() <= 1e-4 * scale
         if dtype == torch.bfloat16 and i < 3:
             assert (a.to(dtype).float() - b).abs().max().item() <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_on_a_ranks_heads_matches_plain(cuda, dtype):
+    """A rank's 8 of rwkv6's 32 heads (a model axis of 4), at the serving
+    shape: the prefill and a decode step from its final state against the
+    plain twin (1e-5 of max |value|, as every WKV check), one launch each."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    (r, k, v, w, u), _ = _wkv_operands(cuda, 4, 1024, 8, 64, 8, "slow", False, dtype)
+    before = _build.LAUNCHES["wkv"]
+    got = wkv_cuda(r, k, v, w, u)
+    _assert_wkv_close(got, wkv_plain(r.float(), k.float(), v.float(), w, u))
+    (r, k, v, w, u), _ = _wkv_operands(cuda, 4, 1, 8, 64, 9, "slow", False, dtype)
+    _assert_wkv_close(wkv_cuda(r, k, v, w, u, got[1]),
+                      wkv_plain(r.float(), k.float(), v.float(), w, u, got[1]))
+    assert _build.LAUNCHES["wkv"] == before + 2
 
 
 # The WKV backward's kernels since its redesign (csrc/wkv_bwd.cu): the
@@ -1341,6 +1360,8 @@ def test_mesh_axis_collectives_over_gloo_on_the_card(cuda):
     ("llama4-scout-17b-a16e", 16, (2, 1), "fsdp_tp", torch.float32),
     ("tinyllama-1.1b", None, (1, 2), "tp_only", torch.bfloat16),
     ("qwen2-moe-a2.7b", None, (1, 2), "tp_only", torch.bfloat16),
+    ("zamba2-7b", None, (1, 2), "tp_only", torch.float32),
+    ("rwkv6-1.6b", None, (1, 2), "tp_only", torch.float32),
 ])
 def test_sharded_train_step_ranks_share_the_card(cuda, arch, experts, mesh, scheme, dtype):
     """Two ranks sharing the card over gloo train a reduced model (16
@@ -1383,7 +1404,7 @@ def _check_sharded_train_step(cuda, arch, experts, mesh, scheme, dtype, backend,
     from repro_torch.models import lm
     from repro_torch.optim import adamw, cosine_schedule
 
-    _build.build_all(["flash_attention", "flash_attention_bwd"])   # loaded by the ranks
+    _build.build_all(["flash_attention", "flash_attention_bwd", "wkv", "wkv_bwd"])   # the ranks load
     data, model = mesh
     batch, seq = 4, 64
     out = run_ranks(ranks.card_train_case, data * model, arch, experts, data, model, scheme,
@@ -1398,7 +1419,7 @@ def _check_sharded_train_step(cuda, arch, experts, mesh, scheme, dtype, backend,
         full, _, _ = lm.make_train_step(opt)(full, opt.init(dict(full.named_parameters())),
                                              tokens)
     plan = sharding.plan_for(cfg, scheme)
-    got_g, same_g = ranks.assemble(cfg, plan, out, "case", "grads")
+    got_g, same_g = ranks.assemble(cfg, plan, out, "case", "grads")   # Mamba2 by component
     got_p, same_p = ranks.assemble(cfg, plan, out, "case", "params")
     assert same_g and same_p
     f32 = dtype == torch.float32

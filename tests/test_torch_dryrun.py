@@ -33,16 +33,34 @@ def _abstract(arch):
     return cfg, ref_lm.abstract_params(cfg)
 
 
+def _mamba_columns(cfg, name, m):
+    """A rank's columns of a Mamba2 ``in_proj`` (z | x | B C | dt) or
+    ``conv_w`` (x | B C) split over a model axis of ``m``: its heads' share
+    of z, x and dt, and B and C whole, as the port executes the reference's
+    plan (None for any other leaf)."""
+    if cfg.block_kind != "mamba2" or name not in ("in_proj", "conv_w"):
+        return None
+    d_in = cfg.ssm_expand * cfg.d_model
+    H, N = d_in // cfg.ssm_head_dim, cfg.ssm_state
+    split = 2 * d_in + H if name == "in_proj" else d_in
+    return -(-split // m) + 2 * N
+
+
 def _ref_bytes(arch, scheme, sizes):
+    """Each rank's bytes of the reference's plan; Mamba2's ``in_proj`` and
+    ``conv_w`` hold B and C whole over ``model`` (``_mamba_columns``)."""
     cfg, aparams = _abstract(arch)
     specs = ref_sharding.param_specs(aparams, cfg, scheme=scheme)
     total = 0
-    for leaf, spec in zip(jax.tree.leaves(aparams),
-                          jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))):
+    for (path, leaf), spec in zip(jax.tree_util.tree_flatten_with_path(aparams)[0],
+                                  jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))):
         shape = list(leaf.shape)
         for dim, entry in enumerate(tuple(spec)):
             axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
             shape[dim] = -(-shape[dim] // math.prod(sizes[a] for a in axes))
+            cols = _mamba_columns(cfg, getattr(path[-1], "key", None), sizes["model"])
+            if entry == "model" and cols is not None:
+                shape[dim] = cols
         total += math.prod(shape) * leaf.dtype.itemsize
     return total
 
@@ -68,6 +86,26 @@ def test_train_record_counts_adamw_and_fits():
     # 8.25 B float32 parameters, replicated over four data ranks
     ddp = dryrun.dryrun_one("granite-8b", "train_4k", "4x1", scheme="ddp")
     assert abs(ddp["bytes_per_rank"]["params"] / 4 / 8.25e9 - 1) < 0.01
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b", "gemma3-4b", "whisper-medium"])
+def test_recurrent_and_encoder_families_execute(arch):
+    """The families with Mamba2, RWKV6, sliding-window or cross-attention
+    blocks execute their plans over 1x4 and 2x2, each rank's bytes counting
+    a Mamba2 rank's B and C columns whole.  zamba2-7b's training state (6.75
+    B parameters: 108 GB of float32 parameters, gradients and AdamW
+    moments) fits no card alone and fits four."""
+    for mesh, scheme in (("1x4", "tp_only"), ("2x2", "fsdp_tp")):
+        rec = dryrun.dryrun_one(arch, "train_4k", mesh, scheme=scheme)
+        assert rec["port_executes"] and rec["refusal"] is None, rec["refusal"]
+        assert rec["bytes_per_rank"]["params"] == _ref_bytes(
+            arch, scheme, dryrun.mesh_sizes(mesh))
+        if arch == "zamba2-7b":
+            assert rec["fits"], (mesh, rec["total_bytes_per_rank"])
+    one = dryrun.dryrun_one(arch, "train_4k", "1x1", scheme="ddp")
+    assert one["port_executes"]
+    if arch == "zamba2-7b":
+        assert not one["fits"] and 6.7e9 < one["bytes_per_rank"]["params"] / 4 < 6.8e9
 
 
 def test_serving_records_and_refusals():

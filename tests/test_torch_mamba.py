@@ -90,3 +90,23 @@ def test_init_mamba_matches_reference_shapes_and_constants():
     state = ssm.init_mamba_state(cfg, 3, F32, "cpu")
     ref_state = ref_ssm.init_mamba_state(ref_cfg, 3)
     assert state.h.shape == ref_state.h.shape and state.conv.shape == ref_state.conv.shape
+
+
+def test_ssd_gradients_stay_finite_past_float32s_decay_range():
+    """With dt large enough that a chunk's decay from a later step back to
+    an earlier one leaves float32's range (dt_bias 30: exp of ~1e4), the
+    SSD's outputs are still the reference's and every gradient is finite:
+    the port masks the decay's exponent before exp, where the reference's
+    exp(+large) of the masked entries gives inf and its gradient NaN."""
+    ref_cfg, cfg, tree, port = _setup(seed=2)
+    tree = {**tree, "dt_bias": np.full_like(tree["dt_bias"], 30.0)}
+    port = ssm.Mamba(**{k: torch.from_numpy(np.array(v)) for k, v in tree.items()})
+    u = _u(2, 21, cfg.d_model, 2)
+    want = ref_ssm.mamba_ssd(tree, ref_cfg, jnp.asarray(u))
+    x = torch.from_numpy(u).requires_grad_()
+    for p in port.parameters():
+        p.requires_grad_(True)
+    got = ssm.mamba_ssd(port, cfg, x, F32)
+    _close(got.detach().numpy(), want)
+    grads = torch.autograd.grad(got.square().sum(), [x, *port.parameters()], allow_unused=True)
+    assert all(bool(torch.isfinite(g).all()) for g in grads if g is not None)   # ln: the block's

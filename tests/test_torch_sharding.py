@@ -10,8 +10,9 @@ with and without the pod axis, at batch 1 and 8, below and above the 8192
 slots from which the reference shards a cache's sequence.  The reference's
 stacked stage leaves map to the port's super-blocks through
 ``repro_torch.convert.lm_leaves`` (the converter's own walk), their leading
-stacked ``None`` dropped.  Then the plans the port refuses to execute, each
-with its reason, and the mesh helpers' own refusals.
+stacked ``None`` dropped.  Then the plans the port executes (every family),
+the ones it refuses, each with its reason, a Mamba2 rank's component cut,
+and the mesh helpers' own refusals.
 """
 import dataclasses
 
@@ -29,7 +30,8 @@ from repro_torch import sharding
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_leaves
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import lm
+from repro_torch.models import lm, ssm
+from repro_torch.models.layers import MeshAxis
 from repro_torch.optim import adamw
 
 SCHEMES = ("fsdp_tp", "tp_only", "ddp")
@@ -190,6 +192,11 @@ def test_plan_check_accepts_what_it_executes():
      r"dim 0 \(48\)"),
     ("vocab_padded 512 over 3", "tinyllama-1.1b", {"n_heads": 6, "n_kv_heads": 3}, "tp_only",
      {"model": 3}, r"embed: dim 0 \(512\)"),
+    # attention's 8 / 8 heads divide; 4 Mamba heads of 128 do not
+    ("Mamba heads 4 over 8", "zamba2-7b", {"ssm_head_dim": 128}, "tp_only", {"model": 8},
+     "4 Mamba heads"),
+    ("WKV heads 4 over 8", "rwkv6-1.6b", {"rwkv_head_dim": 64}, "fsdp_tp",
+     {"data": 2, "model": 8}, "4 WKV heads"),
 ], ids=lambda c: c[0])
 def test_plan_check_refuses_what_does_not_divide(case):
     _, arch, changes, scheme, sizes, match = case
@@ -198,17 +205,54 @@ def test_plan_check_refuses_what_does_not_divide(case):
         sharding.check_plan(cfg, sharding.plan_for(cfg, scheme), sizes)
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("rwkv6-1.6b", "rwkv6 blocks"), ("zamba2-7b", "mamba2 blocks"),
-    ("whisper-medium", "cross attention"), ("gemma3-4b", "sliding-window rings"),
-])
-def test_plan_check_refuses_families_without_sharded_execution(arch, what):
-    cfg = _reduced(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        sharding.check_plan(cfg, sharding.plan_for(cfg, "tp_only"), {"model": 2})
-    # training's FSDP layout, with no weight over model, as well
-    with pytest.raises(NotImplementedError, match=what):
-        sharding.check_plan(cfg, sharding.plan_for(cfg, "fsdp_tp"), {"data": 2, "model": 1})
+@pytest.mark.parametrize("scheme,sizes", [("tp_only", {"model": 2}),
+                                          ("fsdp_tp", {"data": 2, "model": 2})])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b", "gemma3-4b", "whisper-medium"])
+def test_plan_check_accepts_the_recurrent_and_encoder_families(arch, scheme, sizes):
+    """Mamba2 (with zamba2's shared attention block), RWKV6, the
+    sliding-window rings and the encoder-decoder execute sharded, at reduced
+    size and at full width, on a mesh that divides their heads."""
+    for cfg in (_reduced(arch), get_config(arch)):
+        assert sharding.check_plan(cfg, sharding.plan_for(cfg, scheme), sizes)
+        # FSDP alone: no weight over model
+        assert not sharding.check_plan(cfg, sharding.plan_for(cfg, scheme), {"data": 2})
+
+
+def test_component_cut_is_what_the_mamba_forward_reads():
+    """A rank's ``in_proj`` and ``conv_w`` (``mamba_parts``) give it its
+    heads' z, x and dt and all of B and C of the unsharded projection, and
+    its conv channels; ``local_shape`` counts B and C whole; the replicated
+    vectors give it its heads' entries."""
+    cfg = _reduced("zamba2-7b")
+    d_in, hd, H, N = ssm.mamba_dims(cfg)
+    m = 4
+    block = lm.init_params(cfg, seed=1, dtype=torch.float32, device="cpu").stages[0][0]["sub0"]
+    plan = sharding.plan_for(cfg, "tp_only")
+    u = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    z, xbc, dt = ssm._split_proj(block, cfg, u, torch.float32)
+    for i in range(m):
+        coords, axis = {"model": (i, m)}, MeshAxis(None, m, i)
+        piece = {}
+        for name, t in block.named_parameters():
+            full = f"stages.0.0.sub0.{name}"
+            parts = sharding.mamba_parts(cfg, full)
+            piece[name] = sharding.local_slice(t, plan[full], coords, parts)
+            assert tuple(piece[name].shape) == sharding.local_shape(
+                tuple(t.shape), plan[full], {"model": m}, parts), name
+        w = ssm._mamba_weights(ssm.Mamba(**piece), cfg, axis)
+        z_l, xbc_l, dt_l = ssm._split_proj(w, cfg, u, torch.float32, axis)
+        ch, hs = slice(i * d_in // m, (i + 1) * d_in // m), slice(i * H // m, (i + 1) * H // m)
+        assert torch.allclose(z_l, z[..., ch], rtol=0, atol=1e-6)
+        assert torch.allclose(xbc_l, torch.cat([xbc[..., ch], xbc[..., d_in:]], -1), rtol=0,
+                              atol=1e-6)
+        assert torch.allclose(dt_l, dt[..., hs], rtol=0, atol=1e-6)
+        conv = torch.cat([torch.arange(d_in)[ch], torch.arange(d_in, d_in + 2 * N)])
+        assert torch.equal(w.conv_w, block.conv_w[:, conv])
+        assert torch.equal(w.conv_b, block.conv_b[conv])
+        for name in ("A_log", "D_skip", "dt_bias"):
+            assert torch.equal(getattr(w, name), getattr(block, name)[hs])
+        assert torch.equal(w.out_norm, block.out_norm[ch])
+        assert torch.equal(w.out_proj, block.out_proj[ch])
 
 
 def test_plan_check_refuses_other_layouts_and_names():
@@ -227,12 +271,6 @@ def test_plan_check_refuses_other_layouts_and_names():
         sharding.check_plan(cfg, {**plan, q: (("data", "model"), None)}, {"data": 2, "model": 2})
     with pytest.raises(ValueError, match="two dimensions over data"):
         sharding.check_plan(cfg, {**plan, q: ("data", "data")}, {"data": 2})
-
-
-def test_sharded_init_refuses_recurrent_blocks():
-    cfg = _reduced("rwkv6-1.6b")
-    with pytest.raises(NotImplementedError, match="no sharded init"):
-        lm.init_params(cfg, device="meta", keep=lambda name, t, expert=None: t)
 
 
 def test_local_slice_is_tensor_split():
