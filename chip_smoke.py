@@ -173,8 +173,16 @@ Phases, each printing its own lines; any failure exits nonzero:
    that AdamW's first step allows the gradient's limit, every piece two
    ranks hold bit-equal, each rank's flash launches ``lm.train_step_launches`` and
    its flash forms checked in phase 3 (``sharded_train_flash_calls``);
-   then one line saying that the four-card trainings (granite-8b,
-   zamba2-7b, gemma3-4b) did not run.
+   zamba2's ranks then save their state after the step
+   (``ckpt.save_sharded``, the reference's checkpoint format, rank 0
+   writing: FSDP pieces, pieces replicated over the data axis, Mamba2's
+   B and C columns, the shared block) and restore the file into fresh
+   models (``ckpt.restore_sharded``, each rank its slices): every
+   parameter, moment and step a rank restores is bit-equal to the one it
+   saved, so the file is the ranks' pieces put together (save and
+   restore seconds, bytes, peak RSS growth printed); then one line saying
+   that the four-card trainings (granite-8b, zamba2-7b, gemma3-4b) did not
+   run.
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, phase 4c's sharded calls, each federation and each server call of phase 5, each
@@ -222,7 +230,11 @@ batch: the loss down 0.5 nat, the ranks' losses equal, step time, tok/s,
 model-FLOP utilisation beside the parameters ``param_count`` gives and the
 model holds, each card's peak beside ``launch/dryrun.py``'s forecast), with
 the kernel builds and the phase-3 checks they need, on a machine with four
-cards.
+cards.  granite-8b's 2x2 run saves its state after step 5 (~99 GB; it stops
+first, naming the bytes, where the disk lacks them), restores it after
+step 10 into fresh models (the file removed once every rank has read it)
+and takes steps 6-10 again: their losses must be the uninterrupted run's,
+bit for bit.
 
     python3 chip_smoke.py --sweep-wkv
     python3 chip_smoke.py --sweep-eq2
@@ -247,6 +259,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -486,7 +499,7 @@ SHARDED_TRAIN = (
     dict(label="qwen2-moe tp_only, 2 layers", arch="qwen2-moe-a2.7b", cut={"n_layers": 2},
          mesh=(2, 2), scheme="tp_only", batch=4, seq=512),
     dict(label="zamba2 fsdp_tp, 6 layers", arch="zamba2-7b", cut={"n_layers": 6},
-         mesh=(2, 2), scheme="fsdp_tp", batch=2, seq=256),
+         mesh=(2, 2), scheme="fsdp_tp", batch=2, seq=256, ckpt=True),
     dict(label="rwkv6 tp_only, 2 layers", arch="rwkv6-1.6b", cut={"n_layers": 2},
          mesh=(1, 2), scheme="tp_only", batch=2, seq=256, floor=True),
     dict(label="gemma3 tp_only, 2 layers", arch="gemma3-4b", cut={"n_layers": 2},
@@ -507,11 +520,16 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048   # phase 10a
 # and AdamW moments; no one card trains it) at 1x4 tp_only and 2x2
 # fsdp_tp, and gemma3-4b (4.55 B; 73 GB of masters, gradients and moments, 8.6 GB of
 # float32 logits over its 262,144 words at 4 x 2048) at 1x4 tp_only.
+# granite-8b's 2x2 run also saves its state (ckpt.save_sharded, ~99 GB:
+# float32 masters and AdamW's m and v) after TRAIN_RESUME_AFTER steps,
+# restores it into fresh models after the tenth and takes the last steps
+# again: their losses must be the uninterrupted run's, bit for bit.
+TRAIN_RESUME_AFTER = 5
 TRAIN_4CARD = (
     dict(label="granite-8b tp_only 1x4", arch="granite-8b", cut={}, mesh=(1, 4),
          scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
     dict(label="granite-8b fsdp_tp 2x2", arch="granite-8b", cut={}, mesh=(2, 2),
-         scheme="fsdp_tp", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+         scheme="fsdp_tp", batch=TRAIN_BATCH, seq=TRAIN_SEQ, resume=TRAIN_RESUME_AFTER),
     dict(label="zamba2-7b tp_only 1x4", arch="zamba2-7b", cut={}, mesh=(1, 4),
          scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
     dict(label="zamba2-7b fsdp_tp 2x2", arch="zamba2-7b", cut={}, mesh=(2, 2),
@@ -3126,17 +3144,21 @@ def _sharded_train_batch(torch, run: dict, cfg, device) -> dict:
                            torch.Generator(device=device).manual_seed(SEED))
 
 
-def _train_step_read(torch, params, batch, routes=None) -> tuple:
+def _train_step_read(torch, params, batch, routes=None, on_state=None) -> tuple:
     """One ``make_train_step`` of phase 10d's optimizer from zero moments,
     under float32_math, with every MoE route recorded by ``routes`` (a
     :class:`_RouteLog` by default): (loss, the step's gradients read back
-    from its first moment, its second moment, the route log)."""
+    from its first moment, its second moment, the route log).  The state
+    the step made goes to ``on_state`` (if given) before its first moment
+    is read back in place."""
     from repro_torch._device import float32_math
     from repro_torch.models import lm, moe
 
     with float32_math(), routes or _RouteLog(moe) as routes:
         params, state, metrics = lm.make_train_step(_sharded_train_opt())(
             params, _zero_moments(torch, params), batch)
+        if on_state is not None:
+            on_state(state)
         grads = {n: m.div_(1 - ADAM_B1) for n, m in state["m"].items()}
     return metrics["loss"].item(), grads, state["v"], routes
 
@@ -3249,6 +3271,90 @@ def _outside(x, window) -> float:
     return max((lo - x).clamp_(min=0.0).max().item(), (x - hi).clamp_(min=0.0).max().item())
 
 
+class _RssGrowth:
+    """How far this process's resident set grows over a block, bytes: its
+    peak, sampled every 10 ms from ``/proc/self/statm`` (mapped file pages
+    count), less its size on entry (``growth``); and the growth of
+    ``getrusage``'s peak (``ru_growth``: 0 where an earlier peak was
+    higher)."""
+
+    def _now(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    @staticmethod
+    def _ru() -> int:
+        import resource
+
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._now())
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self._now()
+        self._ru0 = self._ru()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._now())
+        self.growth, self.ru_growth = self.peak - self.start, self._ru() - self._ru0
+
+
+def _state_digests(torch, params, state) -> dict:
+    """:func:`_digest` of every parameter piece, AdamW moment piece and the step."""
+    out = {("params", n): _digest(torch, p) for n, p in params.named_parameters()}
+    out.update({(k, n): _digest(torch, t) for k in ("m", "v") for n, t in state[k].items()})
+    out["step"] = int(state["step"])
+    return out
+
+
+def _ckpt_round_trip(torch, params, state, plan, mesh, path, device) -> dict:
+    """On every rank of a phase 10d run, after its first step (``params``,
+    ``state``): ``ckpt.save_sharded`` into ``path``, then
+    ``ckpt.restore_sharded`` into a fresh model and state.  The digests of
+    the state saved and of the state restored (each rank's slices of the
+    file: equal on every rank, the file is the ranks' pieces put
+    together; a step from equal states repeats bit for bit, phase 10a);
+    the save's and the restore's seconds and peak RSS growth, the file's
+    bytes.  The directory is removed."""
+    import torch.distributed as dist
+
+    from repro_torch import ckpt
+
+    cfg, saved = params.cfg, _state_digests(torch, params, state)
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    with _RssGrowth() as save_rss:
+        ckpt.save_sharded(path, params, state, plan, mesh, step=int(state["step"]))
+    save_s = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    with _RssGrowth() as restore_rss:
+        model, st, meta = ckpt.restore_sharded(path, cfg, plan, mesh, device=device)
+        torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t0
+    restored = _state_digests(torch, model, st)
+    nbytes = (Path(path) / "arrays.npz").stat().st_size
+    del model, st
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(path)
+    return {"saved": saved, "restored": restored, "meta_step": meta["step"],
+            "bytes": nbytes, "save_s": save_s,
+            "save_rss": (save_rss.growth, save_rss.ru_growth), "restore_s": restore_s,
+            "restore_rss": (restore_rss.growth, restore_rss.ru_growth)}
+
+
 def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) -> list:
     """One rank of phase 10d, in its own process (``run_ranks`` joined the
     process group and set its card), each run freed before the next, on
@@ -3315,10 +3421,17 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
         t1 = time.perf_counter()
         rows = run["batch"] // run["mesh"][0]
         rows = slice(coords["data"][0] * rows, (coords["data"][0] + 1) * rows)
+        kept = {}   # the step's state, for the checkpoint's round trip
+
+        def keep(state):
+            if run.get("ckpt"):
+                kept.update(step=state["step"], v=state["v"],
+                            m={n: m.clone() for n, m in state["m"].items()})
+
         _build.reset_launches()
         with _FlashLog() as flash_log:
             loss, grads, v, routes = _train_step_read(torch, params, batch,
-                                                      _RouteForce(moe, chosen, rows))
+                                                      _RouteForce(moe, chosen, rows), keep)
             torch.cuda.synchronize(device)
         t2 = time.perf_counter()
         launches = dict(_build.LAUNCHES)
@@ -3357,7 +3470,11 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
             "reserved_gib": torch.cuda.max_memory_reserved(device) / 2**30,
             "params": sum(p.numel() for p in named.values())})
-        del params, named, start, grads, v, batch, ref
+        if kept:
+            grads = None
+            out[-1]["ckpt"] = _ckpt_round_trip(torch, params, kept, plan, mesh,
+                                               Path(path).parent / "ckpt", device)
+        del params, named, start, grads, v, batch, ref, kept
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3443,6 +3560,39 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
     require(worst_g[0] <= tol["grad"], f"{label}: gradient {worst_g}, limit {tol['grad']}")
     require(worst_p[0] == 0.0, f"{label}: parameter {worst_p[1]} {worst_p[0]} outside its window")
     require(worst_v[0] == 0.0, f"{label}: v of {worst_v[1]} {worst_v[0]} outside its window")
+    if "ckpt" in ranks[0]:
+        _check_ckpt_round_trip(run, ranks)
+
+
+def _gib(growth: tuple) -> str:
+    """An :class:`_RssGrowth`'s (sampled, getrusage) growth in GiB."""
+    return f"{growth[0] / 2**30:.3f} (getrusage {growth[1] / 2**30:.3f})"
+
+
+def _check_ckpt_round_trip(run: dict, ranks: list) -> None:
+    """Phase 10d's checkpoint round trip (:func:`_ckpt_round_trip`): every
+    rank's restored parameters, moments and step bit-equal to the ones it
+    saved (its slices of the file: together the file is the ranks'
+    pieces), and the step in ``meta.json``."""
+    label = run["label"]
+    for r in ranks:
+        got = r["ckpt"]
+        differ = [k for k, v in got["saved"].items() if got["restored"].get(k) != v]
+        require(not differ and len(got["restored"]) == len(got["saved"]),
+                f"{label}: rank {r['rank']} restored {len(differ)} pieces other than it "
+                f"saved, e.g. {differ[:3]}")
+        require(got["meta_step"] == got["saved"]["step"] == 1,
+                f"{label}: rank {r['rank']}: step {got['meta_step']} in meta.json")
+    ck = ranks[0]["ckpt"]
+    save_s = max(r["ckpt"]["save_s"] for r in ranks)
+    restore_s = max(r["ckpt"]["restore_s"] for r in ranks)
+    log("train-tp", f"{label}: sharded checkpoint (ckpt.save_sharded / restore_sharded, "
+        f"gloo through the host): {ck['bytes'] / 1e9:.3f} GB written by rank 0 in "
+        f"{save_s:.2f} s ({ck['bytes'] / 1e9 / save_s:.3f} GB/s; its RSS grew "
+        f"{_gib(ck['save_rss'])} GiB at peak), restored by every rank in {restore_s:.2f} s "
+        f"(RSS growth {'; '.join(_gib(r['ckpt']['restore_rss']) for r in ranks)} GiB); "
+        f"the {len(ck['saved'])} parameters, moments and step of every rank restored bit "
+        f"for bit; round trip {save_s + restore_s:.1f} s")
 
 
 def phase_sharded_training(torch, device, checked: set) -> dict:
@@ -3452,8 +3602,6 @@ def phase_sharded_training(torch, device, checked: set) -> dict:
     unsharded step, computed first in this process, kept on the host and
     freed from the card before the ranks start.  Returns each run's rank-0
     launches of its train step."""
-    import tempfile
-
     from repro_torch.launch.mesh import run_ranks
 
     t_phase = time.perf_counter()
@@ -3495,17 +3643,23 @@ def phase_sharded_training(torch, device, checked: set) -> dict:
     return launches
 
 
-def _train_4card_rank(runs: list) -> list:
+def _train_4card_rank(runs: list, ckpt_dir: str) -> list:
     """One rank of the four-card training (NCCL, a card a rank): each run's
     TRAIN_STEPS steps of ``make_train_step`` on one repeated batch (the
     rank's rows), the launch counts of each step set to 0 just before it
-    and read just after, each run freed before the next."""
+    and read just after, each run freed before the next.  A run with
+    ``resume`` saves its state after that many steps (``ckpt.save_sharded``
+    into ``ckpt_dir``), and after the last step, its model and state
+    freed, restores it (``ckpt.restore_sharded``) and takes the steps after
+    ``resume`` again (rank 0 removes the file once every rank has
+    restored): their losses, the save's and the restore's seconds and peak
+    RSS growth."""
     import gc
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch import sharding
+    from repro_torch import ckpt, sharding
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -3524,6 +3678,7 @@ def _train_4card_rank(runs: list) -> list:
         params = sharding.init_params_sharded(cfg, sharding.plan_for(cfg, run["scheme"]), mesh,
                                               seed=SEED, dtype=torch.float32,
                                               compute_dtype=torch.bfloat16, device=device)
+        plan = sharding.plan_for(cfg, run["scheme"])
         opt = adamw(cosine_schedule(TRAIN_LR, warmup=2, total=TRAIN_STEPS))
         state = opt.init(dict(params.named_parameters()))
         step = lm.make_train_step(opt)
@@ -3532,9 +3687,9 @@ def _train_4card_rank(runs: list) -> list:
         torch.cuda.synchronize(device)
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(device)
-        losses, seconds, counts = [], [], []
+        losses, seconds, counts, resumed = [], [], [], {}
         with _FlashLog() as flash_log:
-            for _ in range(TRAIN_STEPS):
+            for i in range(TRAIN_STEPS):
                 torch.cuda.synchronize(device)
                 _build.reset_launches()
                 t0 = time.perf_counter()
@@ -3542,10 +3697,38 @@ def _train_4card_rank(runs: list) -> list:
                 losses.append(metrics["loss"].item())     # a sync
                 seconds.append(time.perf_counter() - t0)
                 counts.append(dict(_build.LAUNCHES))
+                if i + 1 == run.get("resume"):
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    with _RssGrowth() as rss:
+                        ckpt.save_sharded(ckpt_dir, params, state, plan, mesh, step=i + 1,
+                                          config={"arch": run["arch"]})
+                    resumed.update(save_s=time.perf_counter() - t0,
+                                   save_rss=(rss.growth, rss.ru_growth))
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            n_params = sum(p.numel() for p in params.parameters())
+            if resumed:
+                del params, state
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+                t0 = time.perf_counter()
+                with _RssGrowth() as rss:
+                    params, state, _ = ckpt.restore_sharded(ckpt_dir, cfg, plan, mesh,
+                                                            device=device,
+                                                            compute_dtype=torch.bfloat16)
+                    torch.cuda.synchronize(device)
+                resumed.update(restore_s=time.perf_counter() - t0,
+                               restore_rss=(rss.growth, rss.ru_growth), losses=[])
+                dist.barrier()
+                if dist.get_rank() == 0:   # its host memory, where TMPDIR is a tmpfs
+                    shutil.rmtree(ckpt_dir)
+                for _ in range(run["resume"], TRAIN_STEPS):
+                    params, state, metrics = step(params, state, batch)
+                    resumed["losses"].append(metrics["loss"].item())
         out.append({"rank": dist.get_rank(), "losses": losses, "seconds": seconds,
                     "launches": counts, "forms": flash_log.forms, "init_s": init_s,
-                    "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-                    "params": sum(p.numel() for p in params.parameters())})
+                    "peak_gib": peak, "params": n_params, "resumed": resumed})
         del params, state, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -3558,7 +3741,10 @@ def phase_train_4card(torch, checked: set) -> dict:
     ranks' losses equal, every step's launches ``lm.train_step_launches``
     and every flash form checked in phase 3.  Prints the warm step time,
     tok/s, model-FLOP utilisation of the four cards, each card's peak and
-    launch/dryrun.py's forecast of the bytes a rank holds beside it."""
+    launch/dryrun.py's forecast of the bytes a rank holds beside it.  A run
+    with ``resume`` first checks that its checkpoint's bytes are free on
+    the disk (it stops, naming them, where they are not), and its resumed
+    steps' losses must be the uninterrupted run's, bit for bit."""
     from repro_torch.configs import InputShape, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import run_ranks
@@ -3570,11 +3756,28 @@ def phase_train_4card(torch, checked: set) -> dict:
     # gradient) otherwise leave ~20 GiB of a card reserved in pieces too
     # small to reuse (one card, 6 layers: out of memory at 55 GiB allocated)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="ckpt_"))
+    for run in TRAIN_4CARD:
+        if run.get("resume"):   # float32 masters and AdamW's m and v, whole
+            cfg = get_config(run["arch"])
+            need = 12 * sum(p.numel() for p in lm.init_params(cfg, device="meta").parameters())
+            free = shutil.disk_usage(ckpt_dir).free
+            log("train-4", f"{run['label']}: its checkpoint needs {need} bytes "
+                f"({need / 1e9:.1f} GB); {free / 1e9:.1f} GB free under {ckpt_dir}")
+            if free < need:
+                shutil.rmtree(ckpt_dir)
+            require(free >= need, f"{run['label']}: the checkpoint needs {need} bytes, "
+                    f"{free} are free under {ckpt_dir}")
     t0 = time.perf_counter()
-    results = run_ranks(_train_4card_rank, 4, list(TRAIN_4CARD), backend="nccl",
-                        devices=[f"cuda:{i}" for i in range(4)], timeout=1800)
+    try:
+        results = run_ranks(_train_4card_rank, 4, list(TRAIN_4CARD), str(ckpt_dir / "state"),
+                            backend="nccl", devices=[f"cuda:{i}" for i in range(4)],
+                            timeout=1800)
+    finally:
+        shutil.rmtree(ckpt_dir)
     log("train-4", f"four cards over NCCL: {len(TRAIN_4CARD)} runs in "
-        f"{time.perf_counter() - t0:.1f} s (spawn, init, {TRAIN_STEPS} steps each)")
+        f"{time.perf_counter() - t0:.1f} s of the spawn's 1800 s timeout (spawn, init, "
+        f"{TRAIN_STEPS} steps each)")
     out = {}
     for i, run in enumerate(TRAIN_4CARD):
         ranks = [res[i] for res in results]
@@ -3614,7 +3817,35 @@ def phase_train_4card(torch, checked: set) -> dict:
         out[label] = {"losses": losses, "step_s": warm, "mfu": mfu, "held_params": held,
                       "peak_gib": [r["peak_gib"] for r in ranks], "forecast_gib": forecast,
                       "launches": ranks[0]["launches"][-1]}
+        if run.get("resume"):
+            out[label]["resume"] = _check_4card_resume(run, ranks, held)
     return out
+
+
+def _check_4card_resume(run: dict, ranks: list, held: int) -> dict:
+    """The resumed steps' losses against the uninterrupted run's, bit for
+    bit, on every rank; the save's and the restore's seconds, GB/s and
+    rank 0's (the writer's) peak RSS growth."""
+    after = run["resume"]
+    for r in ranks:
+        got = r["resumed"]["losses"]
+        require(got == r["losses"][after:], f"{run['label']}: rank {r['rank']}'s steps "
+                f"{after + 1}-{TRAIN_STEPS} from the checkpoint gave {got!r}, the uninterrupted "
+                f"run {r['losses'][after:]!r}")
+    gb = 12 * held / 1e9   # float32 masters and AdamW's m and v
+    save_s = max(r["resumed"]["save_s"] for r in ranks)
+    restore_s = max(r["resumed"]["restore_s"] for r in ranks)
+    res = {"gb": gb, "save_s": save_s, "restore_s": restore_s,
+           "save_rss": ranks[0]["resumed"]["save_rss"],
+           "restore_rss": [r["resumed"]["restore_rss"] for r in ranks]}
+    log("train-4", f"{run['label']}: saved after step {after} (ckpt.save_sharded, {gb:.1f} GB) "
+        f"in {save_s:.1f} s ({gb / save_s:.2f} GB/s; rank 0's RSS grew "
+        f"{_gib(res['save_rss'])} GiB at peak), restored into fresh models after step "
+        f"{TRAIN_STEPS} in {restore_s:.1f} s ({gb / restore_s:.2f} GB/s over the four ranks; "
+        f"RSS growth {'; '.join(_gib(x) for x in res['restore_rss'])} GiB); steps "
+        f"{after + 1}-{TRAIN_STEPS} again: losses {ranks[0]['resumed']['losses']}, the "
+        f"uninterrupted run's bit for bit on every rank")
+    return res
 
 
 # The backward's timed shapes (phase 8 and --time-kernels): tinyllama's

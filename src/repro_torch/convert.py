@@ -11,6 +11,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
@@ -91,44 +92,60 @@ def lm_leaves(model: lm.LM, ref: Any
     """``(port parameter name, port parameter, reference leaf, r)`` for
     every leaf of a tree laid out as the reference's ``lm.init_params``
     pytree (its values, or any tree of that layout, such as its
-    ``PartitionSpec``s): the tree walk that unstacks each stage's
+    ``PartitionSpec``s), walked along :func:`lm_layout`: each stage's
     ``(repeats, ...)`` leaves (the decoder's ``stages`` and the encoder's)
-    into super-block ``r``'s parameter (``stages.{si}.{r}...``); ``r`` is
+    give super-block ``r``'s parameter (``stages.{si}.{r}...``); ``r`` is
     None for a leaf outside the stages.  Raises on a reference key with no
-    port counterpart."""
-    def walk(module, tree: dict, prefix: str, index):
-        for key, val in tree.items():
-            if key == "stages":
-                if len(val) != len(module.stages):
-                    raise ValueError(f"{len(val)} reference stages vs {len(module.stages)}")
-                for si, (stage_ref, stage) in enumerate(zip(val, module.stages)):
-                    for r, superblock in enumerate(stage):
-                        yield from walk(superblock, stage_ref, f"{prefix}stages.{si}.{r}.", r)
-                continue
-            target = getattr(module, key, None)
-            if target is None:
-                raise ValueError(f"{key}: no port parameter or module of that name")
-            if isinstance(val, dict):
-                yield from walk(target, val, f"{prefix}{key}.", index)
-            else:
-                yield f"{prefix}{key}", target, val, index
+    port counterpart; a port parameter the tree lacks is not yielded."""
+    named = dict(model.named_parameters())
 
-    yield from walk(model, ref, "", None)
+    def walk(layout, tree):
+        if isinstance(layout, RefLeaf):
+            for r, name in enumerate(layout.names):
+                yield name, named[name], tree, r if layout.stacked else None
+            return
+        if isinstance(layout, list):
+            if len(tree) != len(layout):
+                raise ValueError(f"{len(tree)} reference stages vs {len(layout)}")
+            for sub, val in zip(layout, tree):
+                yield from walk(sub, val)
+            return
+        for key in tree:
+            if key not in layout:
+                raise ValueError(f"{key}: no port parameter or module of that name")
+        for key, sub in layout.items():
+            if key in tree:
+                yield from walk(sub, tree[key])
+
+    yield from walk(lm_layout(model.cfg), ref)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor on ``arr``'s memory where it is writable (a mapped
+    checkpoint member's), else on a copy; the |V2 records of a bfloat16
+    leaf as bfloat16."""
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _fill_from_numpy(model: lm.LM, ref: dict, local=None) -> lm.LM:
     """Set every parameter of ``model`` (allocated, any shape plan) from the
-    reference tree, through ``local(name, array)`` when given (a rank's
-    slice), each exactly once with a matching shape."""
+    reference tree, through ``local(name, tensor)`` when given (a rank's
+    slice, taken before anything else is read or converted), each exactly
+    once with a matching shape.  Leaves are float32 (other float dtypes
+    pass through float32) or bfloat16's |V2 records."""
     unset = {id(p) for p in model.parameters()}
     for name, target, leaf, index in lm_leaves(model, ref):
-        arr = np.asarray(leaf if index is None else leaf[index])
+        t = _tensor(np.asarray(leaf if index is None else leaf[index]))
         if local is not None:
-            arr = local(name, torch.from_numpy(np.array(arr, dtype=np.float32))).numpy()
-        if tuple(target.shape) != arr.shape:
+            t = local(name, t)
+        if tuple(target.shape) != tuple(t.shape):
             raise ValueError(f"{name.rsplit('.', 1)[-1]}: port {tuple(target.shape)} vs "
-                             f"reference {arr.shape}")
-        target.data.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+                             f"reference {tuple(t.shape)}")
+        target.data.copy_(t if t.dtype == torch.bfloat16 else t.float())
         unset.discard(id(target))
     if unset:
         raise ValueError(f"{len(unset)} port parameters have no reference leaf")
@@ -158,18 +175,19 @@ def lm_params_from_numpy(
 
 def lm_shard_from_numpy(
     cfg: ArchConfig, ref: dict, plan: dict, mesh, *, dtype: torch.dtype = torch.float32,
-    device: DeviceLike = None,
+    compute_dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
 ) -> lm.LM:
     """:func:`lm_params_from_numpy` on one rank of ``mesh``: the rank's
     slice of every leaf under ``plan`` (:mod:`repro_torch.sharding`), with
     the mesh's model axis attached, as
-    :func:`repro_torch.sharding.init_params_sharded` lays it out."""
+    :func:`repro_torch.sharding.init_params_sharded` lays it out; the
+    model computes in ``compute_dtype`` (default: its weights' dtype).
+    Only the slices are read, so a leaf may be a mapped array."""
     from repro_torch import sharding
 
     lay = sharding.layout(cfg, plan, mesh)
-    model = lay.skeleton(dtype).to_empty(device=resolve_device(device))
-    return lay.attach(_fill_from_numpy(model, ref,
-                                       lambda name, t: lay.local(name, t).contiguous()))
+    model = lay.skeleton(dtype, compute_dtype).to_empty(device=resolve_device(device))
+    return lay.attach(_fill_from_numpy(model, ref, lay.local))
 
 
 def opt_state_shard_from_numpy(
@@ -188,42 +206,47 @@ def opt_state_shard_from_numpy(
             model = lm_shard_from_numpy(cfg, val, plan, mesh, device=dev)
             out[key] = {n: p.detach() for n, p in model.named_parameters()}
         else:
-            out[key] = torch.as_tensor(np.asarray(val), device=dev)
+            out[key] = torch.as_tensor(np.array(val), device=dev)   # a copy: val may be mapped
     return out
 
 
-def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]] = None
-                       ) -> dict:
-    """The reference's ``lm.init_params`` pytree layout of ``model``'s
-    parameters, leaves as float32 NumPy arrays: the inverse of
-    :func:`lm_params_from_numpy`.
+@dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """One leaf of the reference's ``lm.init_params`` tree in the port's
+    terms: the port parameters it holds (one, or each super-block's of a
+    stage in order, stacked along a new axis 0; none for a stage with no
+    super-block) and the unsharded shape of each."""
+    names: tuple[str, ...]
+    stacked: bool
+    shape: tuple[int, ...]
 
-    Each stage's super-blocks (the decoder's ``stages`` and the encoder's
-    ``encoder.stages``) are restacked into ``(repeats, ...)`` leaves, a list
-    entry per stage; ``shared_attn`` and single tensors stay as they are.
-    With ``values`` (``{name: tensor}`` keyed by ``model.named_parameters``
-    names, e.g. the train step's gradients) those tensors take the
-    parameters' places, so port gradients compare with the reference's
-    leaf by leaf.
-    """
+    @property
+    def ref_shape(self) -> tuple[int, ...]:
+        """The reference leaf's shape."""
+        return (len(self.names), *self.shape) if self.stacked else self.shape
+
+
+@functools.lru_cache(maxsize=None)
+def lm_layout(cfg: ArchConfig) -> dict:
+    """The reference's ``lm.init_params`` tree of ``cfg`` with a
+    :class:`RefLeaf` at each leaf (built on ``meta`` once a
+    configuration; treat it as read-only).  Each stage (the decoder's
+    ``stages`` and the encoder's, ``encoder.stages``) is a list entry
+    whose leaves stack its super-blocks' parameters; ``shared_attn`` and
+    single tensors are one parameter each."""
+    model = lm.init_params(cfg, device="meta")
     names = {id(p): n for n, p in model.named_parameters()}
-    cfg = model.cfg
-
-    def leaf(p) -> np.ndarray:
-        if p.device.type == "meta":   # a stage with no super-block: (0, ...) leaves
-            return np.zeros((0, *p.shape), dtype=np.float32)
-        t = p if values is None else values[names[id(p)]]
-        return t.detach().float().cpu().numpy()
 
     def stage_tree(stage, spec) -> dict:
         if len(stage):
             return stack([tree(sb) for sb in stage])
         proto = lm._init_stages(None, cfg, [dataclasses.replace(spec, repeats=1)], "meta",
                                 torch.float32)[0][0]
-        return tree(torch.nn.ModuleDict(proto))
+        return empty(tree(torch.nn.ModuleDict(proto)))
 
     def tree(module) -> dict:
-        out = {n: leaf(p) for n, p in module.named_parameters(recurse=False)}
+        out = {n: RefLeaf((names.get(id(p), n),), False, tuple(p.shape))
+               for n, p in module.named_parameters(recurse=False)}
         for n, child in module.named_children():
             if n == "stages":
                 specs = lm.stages_for(cfg) if module is model else lm.encoder_stages(cfg)
@@ -234,9 +257,60 @@ def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]
 
     def stack(trees: list) -> dict:
         return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-                else np.stack([t[k] for t in trees]) for k in trees[0]}
+                else RefLeaf(tuple(t[k].names[0] for t in trees), True, trees[0][k].shape)
+                for k in trees[0]}
+
+    def empty(node: dict) -> dict:
+        return {k: empty(v) if isinstance(v, dict) else RefLeaf((), True, v.shape)
+                for k, v in node.items()}
 
     return tree(model)
+
+
+def map_layout(fn, node):
+    """``node`` (a tree of :func:`lm_layout`) with each :class:`RefLeaf`
+    replaced by ``fn(leaf)``."""
+    if isinstance(node, dict):
+        return {k: map_layout(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [map_layout(fn, v) for v in node]
+    return fn(node)
+
+
+def lm_params_to_numpy(model: lm.LM, values: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> dict:
+    """The reference's ``lm.init_params`` pytree layout of ``model``'s
+    parameters, leaves as float32 NumPy arrays: the inverse of
+    :func:`lm_params_from_numpy`.
+
+    Each stage's super-blocks (the decoder's ``stages`` and the encoder's
+    ``encoder.stages``) are restacked into ``(repeats, ...)`` leaves, a list
+    entry per stage (:func:`lm_layout`); ``shared_attn`` and single tensors
+    stay as they are.  With ``values`` (``{name: tensor}`` keyed by
+    ``model.named_parameters`` names, e.g. the train step's gradients)
+    those tensors take the parameters' places, so port gradients compare
+    with the reference's leaf by leaf.  Every tensor must have the
+    unsharded model's shape: a rank's pieces raise (a sharded model's
+    checkpoint is :func:`repro_torch.ckpt.save_sharded`'s).
+    """
+    named = dict(model.named_parameters())
+
+    def array(name: str, shape: tuple) -> np.ndarray:
+        t = named[name] if values is None else values[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)}, the unsharded model's is {shape}: a rank's "
+                "piece; write a sharded model's state with repro_torch.ckpt.save_sharded")
+        return t.detach().float().cpu().numpy()
+
+    def leaf(ref: RefLeaf) -> np.ndarray:
+        if not ref.names:   # a stage with no super-block: (0, ...) leaves
+            return np.zeros(ref.ref_shape, dtype=np.float32)
+        if ref.stacked:
+            return np.stack([array(n, ref.shape) for n in ref.names])
+        return array(ref.names[0], ref.shape)
+
+    return map_layout(leaf, lm_layout(model.cfg))
 
 
 def _flatten_tree(tree, prefix: str = ""):

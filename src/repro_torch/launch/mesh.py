@@ -19,6 +19,7 @@ returns each rank's result: the tests' and ``chip_smoke.py``'s launcher.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import tempfile
 import time
@@ -90,6 +91,17 @@ def axis_coords(mesh) -> dict[str, tuple[int, int]]:
     """``{axis: (this rank's index along it, its size)}``."""
     return {name: (mesh.get_local_rank(name), mesh.size(mesh.mesh_dim_names.index(name)))
             for name in mesh.mesh_dim_names}
+
+
+def rank_coords(mesh) -> list[dict[str, tuple[int, int]]]:
+    """:func:`axis_coords` of every rank of ``mesh``, by rank (the mesh
+    holds ranks 0 .. N - 1 of the default process group)."""
+    grid = mesh.mesh
+    out: list = [None] * grid.numel()
+    for at in itertools.product(*map(range, grid.shape)):
+        out[int(grid[at])] = {name: (i, n) for name, i, n in
+                              zip(mesh.mesh_dim_names, at, grid.shape)}
+    return out
 
 
 def parse_mesh(text: str) -> tuple[int, int]:

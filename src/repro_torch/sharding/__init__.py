@@ -321,6 +321,19 @@ def place_slice(full: torch.Tensor, piece: torch.Tensor, spec: Spec,
     return full
 
 
+def piece_writers(spec: Spec, coords: list) -> list[int]:
+    """The ranks whose pieces of a leaf laid out by ``spec`` put the whole
+    leaf together once (``coords[r]``: rank r's ``{axis: (index, size)}``):
+    those at index 0 of every axis ``spec`` does not split over, so a leaf
+    replicated over ``pod`` or ``data`` is taken from index 0 of those
+    axes.  Each piece is one such rank's; a Mamba2 leaf's replicated
+    columns (:func:`mamba_parts`) come from each of its model ranks, each
+    a copy of the same values."""
+    used = {a for e in spec for a in _axes(e)}
+    return [r for r, c in enumerate(coords)
+            if all(i == 0 for a, (i, _) in c.items() if a not in used)]
+
+
 def head_counts(cfg: ArchConfig) -> list[tuple[str, int]]:
     """(what, count) of each kind of head ``cfg``'s blocks split over the
     model axis: attention's query and KV heads (every family with

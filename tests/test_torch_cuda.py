@@ -1394,6 +1394,33 @@ def test_sharded_train_step_over_nccl(cuda, arch, scheme):
                               [f"cuda:{i}" for i in range(4)])
 
 
+def test_sharded_checkpoint_resumes_over_nccl(cuda, tmp_path):
+    """zamba2 at reduced size on a 2x2 ``fsdp_tp`` mesh over NCCL, a card a
+    rank (FSDP pieces, pieces replicated over the data axis, Mamba2's B
+    and C columns, the shared block): ``ckpt.save_sharded`` gathering on
+    the cards, ``ckpt.restore_sharded`` onto them.  One step, save,
+    restore into a fresh model and state, a second step, against two
+    steps uninterrupted: the restored state is the saved one, and after
+    the second step the loss, every parameter, ``m``, ``v`` and ``step``
+    are bit-equal."""
+    import _torch_ckpt_ranks as ckpt_ranks
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"a 2x2 mesh over NCCL needs four cards (NCCL takes one rank a card); "
+                    f"this machine has {n}")
+    _build.build_all(["flash_attention", "flash_attention_bwd"])   # the ranks load
+    out = run_ranks(ckpt_ranks.card_ckpt_case, 4, "zamba2", "zamba2-7b", None, "fsdp_tp",
+                    str(tmp_path / "zamba2"), backend="nccl",
+                    devices=[f"cuda:{i}" for i in range(4)], timeout=300)
+    for res in out:
+        assert res["restored_differ"] == [] and res["resumed_differ"] == []
+        assert res["losses"][2] == res["losses"][1] and res["meta_step"] == 1
+    assert len({tuple(res["losses"]) for res in out}) == 1
+
+
 def _check_sharded_train_step(cuda, arch, experts, mesh, scheme, dtype, backend, devices):
     import _torch_tp_ranks as ranks
     from repro_torch import sharding
