@@ -537,6 +537,9 @@ TRAIN_4CARD = (
     dict(label="gemma3-4b tp_only 1x4", arch="gemma3-4b", cut={}, mesh=(1, 4),
          scheme="tp_only", batch=TRAIN_BATCH, seq=TRAIN_SEQ),
 )
+# the runs whose peak is printed beside launch/step_costs.py's count of
+# their step (the others beside dryrun's plan-only bytes)
+COUNTED_4CARD = ("granite-8b fsdp_tp 2x2", "gemma3-4b tp_only 1x4")
 
 # LM training (phase 10a): tinyllama-1.1b at full width and depth, float32
 # masters and bfloat16 compute, remat on, AdamW under a cosine schedule, on
@@ -2950,7 +2953,8 @@ def _loss_drop_run(torch, device, checked: set, arch: str = TRAIN_ARCH) -> dict:
     log("train", "largest kernels of a step (ms): " + ", ".join(f"{k[:60]} {v:.1f}" for k, v in top))
     return {"losses": losses, "step_s": warm, "first_s": seconds[0], "peak_gib": peak,
             "idle": 1 - busy / warm, "mfu": mfu, "wkv_bwd_ms": wkv_bwd_ms,
-            "launches": counts[-1], "run_launches": {k: sum(c[k] for c in counts) for k in want}}
+            "launches": counts[-1], "run_launches": {k: sum(c[k] for c in counts) for k in want},
+            "device_launches": dict(traced.launches), "busy_s": busy}
 
 
 def _launcher_steps(torch, arch: str) -> list:
@@ -3106,6 +3110,86 @@ def phase_lm_training(torch, device, checked: set) -> dict:
     torch.cuda.empty_cache()
     _launcher_steps(torch, RWKV_TRAIN_ARCH)
     log("train", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# Phase 10e: launch/step_costs.py's count of phase 10's steps.  A counted
+# peak more than 25% below the measured one fails (an undercount is what
+# hid gemma3-4b's float32 logits); the device kernel each counted launch
+# runs exactly once (phase 10's profiled step); the phase's budget.
+COUNT_PEAK_FLOOR = 0.75
+COUNTED_KERNEL = {"flash_attention": "flash_fwd_tc", "flash_attention_bwd": "flash_bwd_dq_tc",
+                  "wkv": "wkv_scan", "wkv_bwd": "wkv_bwd_du"}
+COUNT_BUDGET_S = 30.0
+
+
+def counted_step(cfg, batch: int, seq: int, sizes: dict, scheme: str) -> dict:
+    """launch/step_costs.py's count of one rank's train step of ``cfg`` at
+    ``batch`` x ``seq`` (bfloat16 compute, float32 masters: the card's
+    policy), with its roofline's three terms (``launch/roofline.py``: the
+    H100 figures, NVLink or InfiniBand by the rank's groups)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import roofline, step_costs
+
+    shape = InputShape("train", seq, batch, "train")
+    counted = step_costs.count_step(cfg, shape, sizes, scheme)
+    report = roofline.build_report(
+        arch=cfg.name, shape_name="train", mesh_name="x".join(map(str, sizes.values())),
+        n_chips=math.prod(sizes.values()), counted=counted, cfg=cfg, shape=shape,
+        links={a: roofline.link_bw(sizes, a) for a in sizes})
+    counted["terms"] = {k: getattr(report, k) for k in ("compute_s", "memory_s", "collective_s")}
+    return counted
+
+
+def _counted_line(counted: dict, peak_gib: float) -> str:
+    t = counted["terms"]
+    return (f"counted peak {counted['peak_bytes'] / 2**30:.2f} GiB against {peak_gib:.2f} GiB "
+            f"measured ({counted['peak_bytes'] / 2**30 / peak_gib:.1%}); compute "
+            f"{t['compute_s'] * 1e3:.1f} ms, memory {t['memory_s'] * 1e3:.1f} ms, collective "
+            f"{t['collective_s'] * 1e3:.1f} ms at the H100 data sheet's rates "
+            f"({counted['flops']:.4e} flops, {counted['bytes']:.4e} bytes; counted in "
+            f"{counted['count_s']:.1f} s)")
+
+
+def phase_counted_training(torch, training: dict) -> dict:
+    """Phase 10e: the dry run's count (launch/step_costs.py: the step run on
+    meta tensors, no card) of phase 10's two train steps, tinyllama-1.1b and
+    rwkv6-1.6b at TRAIN_BATCH x TRAIN_SEQ on one card, beside what phase 10
+    measured of them, adding no step on the card: the counted kernel
+    launches must equal the wrappers' and the profiler's device launches
+    exactly (COUNTED_KERNEL), the counted peak must be at least
+    COUNT_PEAK_FLOOR of max_memory_allocated, and the compute and memory
+    terms stand beside the warm step's seconds."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch, run in ((TRAIN_ARCH, training), (RWKV_TRAIN_ARCH, training["rwkv"])):
+        counted = counted_step(get_config(arch), TRAIN_BATCH, TRAIN_SEQ,
+                               {"data": 1, "model": 1}, "fsdp_tp")
+        launches = {k: v["launches"] for k, v in counted["kernels"].items()}
+        device = {k: sum(n for name, n in run["device_launches"].items()
+                         if name.split("<")[0] == COUNTED_KERNEL[k]) for k in launches}
+        t = counted["terms"]
+        log("count", f"{arch} train step {TRAIN_BATCH} x {TRAIN_SEQ} on one card: counted "
+            f"launches {launches}, the wrappers' {run['launches']}, the profiler's device "
+            f"launches {device}; {_counted_line(counted, run['peak_gib'])}; the warm step "
+            f"{run['step_s'] * 1e3:.1f} ms on the host clock, its kernels "
+            f"{run['busy_s'] * 1e3:.1f} ms (compute + memory terms "
+            f"{(t['compute_s'] + t['memory_s']) / run['step_s']:.1%} of the warm step)")
+        require(launches == run["launches"] == device,
+                f"{arch}: counted launches {launches}, the wrappers' {run['launches']}, the "
+                f"profiler's {device}")
+        require(counted["peak_bytes"] / 2**30 >= COUNT_PEAK_FLOOR * run["peak_gib"],
+                f"{arch}: counted peak {counted['peak_bytes'] / 2**30:.2f} GiB is more than "
+                f"{1 - COUNT_PEAK_FLOOR:.0%} below the measured {run['peak_gib']:.2f} GiB")
+        out[arch] = {"launches": launches, "device_launches": device,
+                     "peak_gib": counted["peak_bytes"] / 2**30,
+                     "measured_peak_gib": run["peak_gib"], "step_s": run["step_s"],
+                     "kernels_s": run["busy_s"], **t}
+    seconds = time.perf_counter() - t0
+    log("count", f"phase 10e took {seconds:.1f} s (budget {COUNT_BUDGET_S:.0f} s)")
+    require(seconds <= COUNT_BUDGET_S, f"phase 10e took {seconds:.1f} s")
     return out
 
 
@@ -3803,6 +3887,13 @@ def phase_train_4card(torch, checked: set) -> dict:
         sizes = {"data": data, "model": model}
         forecast = (4 * dryrun.param_bytes(cfg, sizes, run["scheme"])
                     + dryrun.batch_bytes(cfg, shape, sizes)) / 2**30
+        peak = max(r["peak_gib"] for r in ranks)
+        if label in COUNTED_4CARD:
+            counted = counted_step(cfg, run["batch"], run["seq"], sizes, run["scheme"])
+            forecast_line = f"{_counted_line(counted, peak)} (rank 0)"
+        else:
+            forecast_line = (f"dryrun's forecast {forecast:.1f} GiB a rank (parameters, "
+                             f"gradients, AdamW m and v, batch; no activations)")
         log("train-4", f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
             f"{ranks[0]['params'] / 1e9:.3f} B parameters a rank (drawn in "
             f"{[round(r['init_s'], 1) for r in ranks]} s); loss {losses[0]:.4f} -> "
@@ -3811,12 +3902,17 @@ def phase_train_4card(torch, checked: set) -> dict:
             f"tok/s, model-FLOP utilisation {mfu:.1%} of 4 x 989 TFLOP/s, from "
             f"ArchConfig.param_count's {cfg.param_count() / 1e9:.2f} B parameters, the model "
             f"holds {held / 1e9:.3f} B); peak "
-            f"{[round(r['peak_gib'], 1) for r in ranks]} GiB allocated a card, dryrun's forecast "
-            f"{forecast:.1f} GiB a rank (parameters, gradients, AdamW m and v, batch; no "
-            f"activations); launches a step {ranks[0]['launches'][-1]}")
+            f"{[round(r['peak_gib'], 1) for r in ranks]} GiB allocated a card, "
+            f"{forecast_line}; launches a step {ranks[0]['launches'][-1]}")
         out[label] = {"losses": losses, "step_s": warm, "mfu": mfu, "held_params": held,
                       "peak_gib": [r["peak_gib"] for r in ranks], "forecast_gib": forecast,
                       "launches": ranks[0]["launches"][-1]}
+        if label in COUNTED_4CARD:
+            out[label]["counted_peak_gib"] = counted["peak_bytes"] / 2**30
+            out[label]["counted_terms"] = counted["terms"]
+            require(counted["peak_bytes"] / 2**30 >= COUNT_PEAK_FLOOR * peak,
+                    f"{label}: counted peak {counted['peak_bytes'] / 2**30:.2f} GiB is more "
+                    f"than {1 - COUNT_PEAK_FLOOR:.0%} below the measured {peak:.2f} GiB")
         if run.get("resume"):
             out[label]["resume"] = _check_4card_resume(run, ranks, held)
     return out
@@ -3856,11 +3952,24 @@ FLASH_BWD_TIMED = (TRAINED_FORMS[0], *TRAINED_FORMS[2:4])
 def flash_bwd_bound(dims, causal: bool, window) -> tuple[float, str]:
     """The backward's least time: 10 hd flops per valid (query head, key)
     pair at the bfloat16 peak, or q, k, v, o, dO, lse read and dq, dk, dv
-    written once (bf16, lse float32)."""
-    B, Sq, Skv, Hq, Hkv, hd = dims
-    pairs = flash_pairs(Sq, Skv, causal, window, 0)
-    return bound(2.0 * (4 * B * Sq * Hq * hd + 4 * B * Skv * Hkv * hd) + 4.0 * B * Hq * Sq,
-                 10.0 * B * Hq * hd * pairs, PEAK_BF16_FLOPS)
+    written once (bf16, lse float32): ``flash_bwd_cost``, the formula the
+    dry run counts each launch with."""
+    from repro_torch.kernels.flash_attention.flash_attention_bwd import flash_bwd_cost
+
+    flops, nbytes = flash_bwd_cost(*dims, causal=causal, window=window)
+    return bound(nbytes, flops, PEAK_BF16_FLOPS)
+
+
+def flash_fwd_bound(dims, causal: bool = True, window=None, q_offset: int = 0
+                    ) -> tuple[float, str]:
+    """The forward's least time (bfloat16, no lse): 4 hd flops per valid
+    (query head, key) pair at the bfloat16 peak, or q, k, v read and o
+    written once: ``flash_fwd_cost``, the formula the dry run counts each
+    launch with."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_fwd_cost
+
+    flops, nbytes = flash_fwd_cost(*dims, causal=causal, window=window, q_offset=q_offset)
+    return bound(nbytes, flops, PEAK_BF16_FLOPS)
 
 
 def flash_bwd_rows(torch, device, train, errs, cases=FLASH_BWD_TIMED, launches=None,
@@ -3930,20 +4039,16 @@ def flash_bwd_rows(torch, device, train, errs, cases=FLASH_BWD_TIMED, launches=N
 WKV_BWD_TIMED = (4, 2048, 32, 64)
 # The kernels of one WKV backward launch (csrc/wkv_bwd.cu), each run once.
 WKV_BWD_KERNELS = ("wkv_bwd_chunk_tc", "wkv_bwd_scan", "wkv_bwd_grad_tc", "wkv_bwd_du")
-WKV_BWD_SUB = 16                # steps a sub-block (csrc/wkv_bwd.cu kT)
 PEAK_3XTF32_FLOPS = 495e12 / 3  # float32-accurate products as three TF32 passes
 
 
 def wkv_bwd_bytes(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> float:
     """The WKV backward's least bytes: r, k, v (``rkv_bytes`` each), w, dout,
     u and the chunk-start states read and dr, dk, dv, dw (float32), du and
-    dstate0 written once."""
-    from repro_torch.kernels.wkv import wkv_bwd_plan
+    dstate0 written once (``wkv_bwd_cost``)."""
+    from repro_torch.kernels.wkv.wkv import wkv_bwd_cost
 
-    n = B * S * H * hd
-    starts = B * H * wkv_bwd_plan(S).n_chunks * hd * hd
-    return (rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + starts)
-            + 4.0 * (4 * n + H * hd + B * H * hd * hd))
+    return wkv_bwd_cost(B, S, H, hd, rkv_bytes=rkv_bytes)[2]
 
 
 def wkv_bwd_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
@@ -3952,11 +4057,14 @@ def wkv_bwd_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int) -> tuple[floa
     TFLOP/s: five hd x hd products a sub-block and M = V dout^T in
     wkv_bwd_grad_tc, G_c in wkv_bwd_chunk_tc; T = 16 steps a sub-block),
     the pair terms' 8 T hd flops a step on the FP32 cores beside them, or
-    ``wkv_bwd_bytes`` at the memory rate, whichever takes longest."""
-    steps = B * S * H
-    t_tc = (12.0 * hd + 2.0 * WKV_BWD_SUB) * steps * hd / PEAK_3XTF32_FLOPS * 1e3
-    t_fp32 = 8.0 * WKV_BWD_SUB * steps * hd / PEAK_F32_FLOPS * 1e3
-    t_bytes = wkv_bwd_bytes(B, S, H, hd, rkv_bytes) / PEAK_BYTES_PER_S * 1e3
+    ``wkv_bwd_bytes`` at the memory rate, whichever takes longest
+    (``wkv_bwd_cost``, the formula the dry run counts each launch with)."""
+    from repro_torch.kernels.wkv.wkv import wkv_bwd_cost
+
+    tc, fp32, nbytes = wkv_bwd_cost(B, S, H, hd, rkv_bytes=rkv_bytes)
+    t_tc = tc / PEAK_3XTF32_FLOPS * 1e3
+    t_fp32 = fp32 / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max((t_bytes, "bytes"), (max(t_tc, t_fp32), "operations"))
 
 
@@ -4029,10 +4137,18 @@ def cross_bound(Ka: int, Kb: int, n: int, p: int, q: int, measure: str) -> tuple
 def wkv_decode_bound(B: int, H: int, hd: int, rkv_bytes: int) -> tuple[float, str]:
     """The least time of one WKV decode step: r, k, v read once, w and out
     (float32) and u once, the state read and written once; 5 flops a state
-    entry (see lm_kernel_timings)."""
-    n1 = B * H * hd
-    return bound(rkv_bytes * 3.0 * n1 + 4.0 * (2 * n1 + H * hd + 2 * B * H * hd * hd),
-                 5.0 * n1 * hd)
+    entry (``wkv_cost`` with a state0)."""
+    return wkv_bound(B, 1, H, hd, rkv_bytes, state0=True)
+
+
+def wkv_bound(B: int, S: int, H: int, hd: int, rkv_bytes: int, state0: bool = False
+              ) -> tuple[float, str]:
+    """The least time of a WKV forward at the FP32 rate: ``wkv_cost``, the
+    formula the dry run counts each launch with."""
+    from repro_torch.kernels.wkv.wkv import wkv_cost
+
+    flops, nbytes = wkv_cost(B, S, H, hd, rkv_bytes=rkv_bytes, state0=state0)
+    return bound(nbytes, flops)
 
 
 def phase_timings(torch, fed, launches, errs) -> list:
@@ -4172,9 +4288,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), iters=5)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = S * (S + 1) / 2
-    b_ms, b_by = bound(2.0 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * Hq * hd * pairs,
-                       PEAK_BF16_FLOPS)
+    b_ms, b_by = flash_fwd_bound((B, S, S, Hq, Hkv, hd))
     log("time", f"flash prefill q {tuple(q.shape)} k {tuple(k.shape)} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     rows.append({
@@ -4198,8 +4312,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     plain3 = time_ms(torch, lambda: flash_attention_plain(q3, k3, v3), iters=5)
     lib3 = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q3t, k3t, v3t, is_causal=True, enable_gqa=True))
-    b3, b3_by = bound(2.0 * (2 * q3.numel() + 2 * k3.numel()), 4.0 * B * Hq3 * hd3 * pairs,
-                      PEAK_BF16_FLOPS)
+    b3, b3_by = flash_fwd_bound((B, S, S, Hq3, Hkv3, hd3))
     log("time", f"flash prefill q {tuple(q3.shape)} k {tuple(k3.shape)} bf16 causal "
         f"(llama3.2-3b heads): kernel {ms3:.4f} ms, plain {plain3:.4f} ms, SDPA {lib3:.4f} ms, "
         f"bound {b3:.4f} ms ({b3_by})")
@@ -4217,9 +4330,8 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     q1t, kct, vct = (x.transpose(1, 2) for x in (q1, kc, vc))
     lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         q1t, kct[:, :, :pos + 1], vct[:, :, :pos + 1], enable_gqa=True), reps=20)
-    keys = pos + 1
-    b_ms, b_by = bound(2.0 * (2 * q1.numel() + 2 * B * keys * Hkv * hd),
-                       4.0 * B * Hq * hd * keys, PEAK_BF16_FLOPS)
+    keys = pos + 1   # the keys the query sees, each read once
+    b_ms, b_by = flash_fwd_bound((B, 1, keys, Hq, Hkv, hd), q_offset=pos)
     log("time", f"flash decode q {tuple(q1.shape)} cache {tuple(kc.shape)} pos {pos} bf16 "
         f"(graph replay): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
@@ -4235,8 +4347,7 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     ms = time_ms(torch, lambda: wkv_cuda(*bf))
     ms_f32 = time_ms(torch, lambda: wkv_cuda(*ops))
     plain_ms = time_ms(torch, lambda: wkv_plain(*bf), warmup=1, iters=3)
-    n = B * S * H * hd
-    b_ms, b_by = bound(2.0 * 3 * n + 4.0 * (2 * n + H * hd + B * H * hd * hd), 5.0 * n * hd)
+    b_ms, b_by = wkv_bound(B, S, H, hd, rkv_bytes=2)
     log("time", f"wkv prefill r {tuple(ops[0].shape)} ({plan.route}, chunk {plan.chunk}): "
         f"kernel {ms:.4f} ms with bfloat16 r, k, v (the serving path's), {ms_f32:.4f} ms "
         f"float32; plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by})")
@@ -4260,17 +4371,6 @@ def lm_kernel_timings(torch, device, launches, errs) -> list:
     rows[-1].update(decode_ms=ms, decode_plain_ms=plain_ms, decode_bound_ms=b_ms,
                     decode_bound_by=b_by)
     return rows
-
-
-def flash_pairs(Sq: int, Skv: int, causal: bool, window, q_offset: int) -> int:
-    """(query, key) pairs a call's mask leaves valid, per query head."""
-    total = 0
-    for i in range(Sq):
-        pos = q_offset + i
-        hi = min(Skv, pos + 1) if causal else Skv
-        lo = max(0, pos - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
 
 
 def family_flash_case(torch, gen, device, case):
@@ -4307,9 +4407,7 @@ def family_flash_case(torch, gen, device, case):
     # the backend SDPA's dispatcher picks for these operands
     sdpa.backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
         qt, kt, vt, mask, 0.0, is_causal, enable_gqa=True)).name
-    pairs = flash_pairs(Sq, Skv, causal, window, q_off)
-    b = bound(2.0 * (2 * q.numel() + 2 * B * Skv * Hkv * hd), 4.0 * B * Hq * hd * pairs,
-              PEAK_BF16_FLOPS)
+    b = flash_fwd_bound((B, Sq, Skv, Hq, Hkv, hd), causal, window, q_off)
     return (q, k, v), kw, sdpa, b
 
 
@@ -4363,8 +4461,7 @@ def wkv_rank_rows(torch, device, tp_serve: dict, tp_train: dict, errs: dict) -> 
     bf = tuple(a.to(torch.bfloat16) if i < 3 else a for i, a in enumerate(ops))
     ms = time_ms(torch, lambda: wkv_cuda(*bf))
     plain_ms = time_ms(torch, lambda: wkv_plain(*bf), warmup=1, iters=3)
-    n = B * S * H * hd
-    b_ms, b_by = bound(2.0 * 3 * n + 4.0 * (2 * n + H * hd + B * H * hd * hd), 5.0 * n * hd)
+    b_ms, b_by = wkv_bound(B, S, H, hd, rkv_bytes=2)
     step = tuple(a.to(torch.bfloat16) if i < 3 else a
                  for i, a in enumerate(wkv_inputs(torch, gen, B, 1, H, hd, device)))
     state = torch.randn((B, H, hd, hd), generator=gen, device=device)
@@ -4832,6 +4929,8 @@ def main(argv=None) -> int:
     trained = {form for form, dtype in errs["flash_attention_bwd"]["by_case"]}
     training = phase_lm_training(torch, fed.device, trained)
     done("phase 10 (LM training)")
+    phase_counted_training(torch, training)
+    done("phase 10e (the dry run's count of phase 10's steps)")
     tp_train = phase_sharded_training(torch, fed.device, trained)
     log("train-4", f"{', '.join(r['label'] for r in TRAIN_4CARD)}: not run here: granite-8b, "
         f"zamba2-7b and gemma3-4b at full depth train over four cards under python3 "

@@ -19,7 +19,9 @@ merge in plain PyTorch).  float32 runs on the CUDA cores, unsplit.
 
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` takes the
 plain twin only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.
+kernel or raises.  ``meta`` tensors (a dry run) take
+:func:`flash_attention_meta`: the outputs' shapes and one launch counted
+with :func:`flash_fwd_cost`, the formula the kernel's bound is read from.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,11 +136,12 @@ def check_operands(
 def check_cuda_operands(*tensors: torch.Tensor, window: Optional[int], q_offset: int
                         ) -> Optional[int]:
     """Raise on CUDA operands the kernels (forward: q, k, v; backward also o
-    and dO) do not take; returns the window the kernels apply: None where
-    every key a query can see lies inside it (no mask to apply)."""
+    and dO) do not take (``meta`` operands, a dry run's, as CUDA ones);
+    returns the window the kernels apply: None where every key a query can
+    see lies inside it (no mask to apply)."""
     q, k, v = tensors[:3]
     check_operands(q, k, v, window=window, q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"the flash-attention kernels need CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
@@ -228,4 +231,65 @@ def flash_attention_cuda(
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
         )
     _build.LAUNCHES["flash_attention"] += 1
+    return (o, lse) if return_lse else o
+
+
+def valid_pairs(Sq: int, Skv: int, *, causal: bool = True, window: Optional[int] = None,
+                q_offset: int = 0) -> int:
+    """(query, key) pairs a call's mask leaves valid, per query head: query
+    ``i`` at position ``q_offset + i`` sees the keys from ``pos - window +
+    1`` (with a window) up to ``pos`` (causal) of ``[0, Skv)``.  Summed in
+    closed form over the runs of positions where that count is linear."""
+    w = window or 0
+
+    def seen(pos: int) -> int:
+        hi = min(Skv, pos + 1) if causal else Skv
+        return max(0, hi - (max(0, pos - w + 1) if w else 0))
+
+    a, b = q_offset, q_offset + Sq
+    cuts = sorted({a, b, *(c for c in (Skv, w - 1, Skv + w - 1) if a < c < b)})
+    return sum((hi - lo) * (seen(lo) + seen(hi - 1)) // 2 for lo, hi in zip(cuts, cuts[1:]))
+
+
+def flash_fwd_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, *,
+                   causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+                   elem_bytes: int = 2, lse: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of one forward call, the least work the kernel must
+    do: 4 hd flops a valid (query head, key) pair (the products Q K^T and
+    P V, 2 hd each); q, k and v read and o written once in ``elem_bytes``,
+    and with ``lse`` each row's float32 log-sum-exp written."""
+    pairs = valid_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset)
+    nbytes = elem_bytes * (2.0 * B * Sq * Hq * hd + 2.0 * B * Skv * Hkv * hd)
+    return 4.0 * B * Hq * hd * pairs, nbytes + (4.0 * B * Hq * Sq if lse else 0.0)
+
+
+def flash_attention_meta(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    return_lse: bool = False,
+):
+    """:func:`flash_attention_cuda` on ``meta`` tensors: the same outputs
+    and scratch (the split-KV partials where the bfloat16 kernel splits,
+    planned for an H100's SMs) as empty ``meta`` tensors, and one launch
+    reported to the dry run with :func:`flash_fwd_cost`.  It refuses what
+    the kernel refuses."""
+    check_cuda_operands(q, k, v, window=window, q_offset=q_offset)
+    B, Sq, Hq, hd = (int(s) for s in q.shape)
+    Skv, Hkv = int(k.shape[1]), int(k.shape[2])
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
+    nsplit = split_plan(B, Sq, Skv, Hq, Hkv, hd)[0] if q.dtype == torch.bfloat16 else 1
+    if nsplit > 1:   # the partials, live for the call as on the card
+        rows = Sq * (Hq // Hkv)
+        parts = [torch.empty((2, B, Hkv, nsplit, rows), dtype=torch.float32, device=q.device),
+                 torch.empty((B, Hkv, nsplit, rows, hd), dtype=torch.float32, device=q.device)]
+        del parts
+    _meta.record("flash_attention", *flash_fwd_cost(
+        B, Sq, Skv, Hq, Hkv, hd, causal=causal, window=window, q_offset=q_offset,
+        elem_bytes=q.element_size(), lse=return_lse))
     return (o, lse) if return_lse else o

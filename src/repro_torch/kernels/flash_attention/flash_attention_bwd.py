@@ -21,7 +21,9 @@ the tiles that skip the mask hold only valid pairs.
 
 :class:`repro_torch.kernels.flash_attention.ops.FlashAttention` calls
 :func:`flash_attention_bwd_cuda` for CUDA tensors and
-:func:`flash_attention_bwd_plain` for CPU tensors.
+:func:`flash_attention_bwd_plain` for CPU tensors, and
+:func:`flash_attention_bwd_meta` for ``meta`` tensors (a dry run: the
+gradients' shapes and one launch counted with :func:`flash_bwd_cost`).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.flash_attention import _DTYPES, check_cuda_operands
+from repro_torch.kernels import _build, _meta
+from repro_torch.kernels.flash_attention.flash_attention import (
+    _DTYPES, check_cuda_operands, valid_pairs)
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
@@ -168,4 +171,34 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
         )
     _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_bwd_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, *,
+                   causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+                   elem_bytes: int = 2) -> tuple[float, float]:
+    """(flops, bytes) of one backward call, the least work the kernels must
+    do: 10 hd flops a valid (query head, key) pair (S = Q K^T again, dV +=
+    P^T dO, dP = dO V^T, dQ += dS K, dK += dS^T Q, 2 hd each); q, k, v, o,
+    dO read and dq, dk, dv written once in ``elem_bytes``, the float32 lse
+    read."""
+    pairs = valid_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset)
+    nbytes = elem_bytes * (4.0 * B * Sq * Hq * hd + 4.0 * B * Skv * Hkv * hd) + 4.0 * B * Hq * Sq
+    return 10.0 * B * Hq * hd * pairs, nbytes
+
+
+def flash_attention_bwd_meta(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: Optional[int] = None, q_offset: int = 0):
+    """:func:`flash_attention_bwd_cuda` on ``meta`` tensors: dq, dk, dv and
+    the ``delta`` scratch as empty ``meta`` tensors, and one launch reported
+    to the dry run with :func:`flash_bwd_cost`.  It refuses what the
+    kernels refuse."""
+    check_cuda_operands(q, k, v, o, do, window=window, q_offset=q_offset)
+    B, Sq, Hq, hd = (int(s) for s in q.shape)
+    Skv, Hkv = int(k.shape[1]), int(k.shape[2])
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)   # delta, for the call
+    _meta.record("flash_attention_bwd", *flash_bwd_cost(
+        B, Sq, Skv, Hq, Hkv, hd, causal=causal, window=window, q_offset=q_offset,
+        elem_bytes=q.element_size()))
     return dq, dk, dv

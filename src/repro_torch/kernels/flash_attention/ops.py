@@ -8,12 +8,19 @@ import torch
 from repro_torch.kernels.flash_attention.flash_attention import (
     check_operands,
     flash_attention_cuda,
+    flash_attention_meta,
     flash_attention_plain,
 )
 from repro_torch.kernels.flash_attention.flash_attention_bwd import (
     flash_attention_bwd_cuda,
+    flash_attention_bwd_meta,
     flash_attention_bwd_plain,
 )
+
+# the forward and backward by the operands' device type: the plain twins on
+# the CPU, the kernels on CUDA, a launch counted without running on meta
+_FORWARD = {"cpu": flash_attention_plain, "meta": flash_attention_meta}
+_BACKWARD = {"cpu": flash_attention_bwd_plain, "meta": flash_attention_bwd_meta}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -24,14 +31,15 @@ class FlashAttention(torch.autograd.Function):
     the backward.  On CUDA the forward launches the forward kernel and the
     backward the backward kernel; on the CPU both call the plain twins
     (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), so
-    the CPU tests run this Function's own wiring.  Query heads fold onto
+    the CPU tests run this Function's own wiring; on ``meta`` the
+    kernels' meta branches count the launches.  Query heads fold onto
     their KV heads inside the kernels and twins (dk, dv sum over the G heads
     of a group); each gradient comes back in its operand's dtype.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        fwd = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
+        fwd = _FORWARD.get(q.device.type, flash_attention_cuda)
         o, lse = fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
                      return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -41,7 +49,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
+        bwd = _BACKWARD.get(q.device.type, flash_attention_bwd_cuda)
         dq, dk, dv = bwd(q, k, v, o, do.to(o.dtype), lse, **ctx.form)
         return dq, dk, dv, None, None, None
 
@@ -61,11 +69,11 @@ def flash_attention(
     Where autograd records (grad enabled and an operand requiring grad) the
     call runs through :class:`FlashAttention`.  Otherwise CPU tensors take
     :func:`flash_attention_plain` and CUDA tensors launch the kernel (and
-    raise if it cannot), never the twin.
+    raise if it cannot), never the twin; ``meta`` tensors (a dry run) take
+    :func:`flash_attention_meta`, which counts a launch and runs nothing.
     """
     check_operands(q, k, v, window=window, q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    fwd = _FORWARD.get(q.device.type, flash_attention_cuda)
+    return fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)

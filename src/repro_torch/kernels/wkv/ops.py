@@ -8,8 +8,10 @@ import torch
 from repro_torch.kernels.wkv.wkv import (
     check_operands,
     wkv_bwd_cuda,
+    wkv_bwd_meta,
     wkv_bwd_plain,
     wkv_cuda,
+    wkv_meta,
     wkv_plain,
 )
 
@@ -31,7 +33,8 @@ class WKV(torch.autograd.Function):
     the start of each of the backward's chunks; the backward launches the
     backward kernel, which recomputes the states inside each chunk.  On the
     CPU both call the plain twins (:func:`wkv_plain`, :func:`wkv_bwd_plain`),
-    so the CPU tests run this Function's own wiring.  An unused output's
+    so the CPU tests run this Function's own wiring; on ``meta`` the
+    kernels' meta branches count the launches.  An unused output's
     gradient may be None (the final state's, usually).  Each gradient comes
     back in its operand's dtype.
     """
@@ -43,9 +46,10 @@ class WKV(torch.autograd.Function):
         if r.device.type == "cpu":
             out, stateT = wkv_plain(r, k, v, w, u, state0)
             ctx.save_for_backward(r, k, v, w, u, state0)
-        else:
+        else:   # the kernel on CUDA, a launch counted on meta
             ops = _kernel_operands(r, k, v, w, u, state0)
-            out, stateT, starts = wkv_cuda(*ops, return_starts=True)
+            fwd = wkv_meta if r.device.type == "meta" else wkv_cuda
+            out, stateT, starts = fwd(*ops, return_starts=True)
             ctx.save_for_backward(*ops[:5], starts)
         return out, stateT
 
@@ -60,7 +64,8 @@ class WKV(torch.autograd.Function):
         if r.device.type == "cpu":
             grads = wkv_bwd_plain(*saved[:5], dout, saved[5], dstateT)
         else:
-            grads = wkv_bwd_cuda(*saved[:5], dout, saved[5], dstateT)
+            bwd = wkv_bwd_meta if r.device.type == "meta" else wkv_bwd_cuda
+            grads = bwd(*saved[:5], dout, saved[5], dstateT)
         return tuple(None if dtype is None or not needed else g.to(dtype)
                      for g, dtype, needed in zip(grads, ctx.dtypes, ctx.needs_input_grad))
 
@@ -72,9 +77,10 @@ def wkv(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
     Where autograd records (grad enabled and an operand requiring grad) the
     call runs through :class:`WKV`, on either device.  Otherwise CPU tensors
     take :func:`wkv_plain` and CUDA tensors launch the kernel (and raise if
-    it cannot), never the twin.  The kernel reads bfloat16 r, k, v as they
-    are (converted on load, exactly); other types are cast to float32 here,
-    as are w, u and state0.
+    it cannot), never the twin; ``meta`` tensors (a dry run) take
+    :func:`wkv_meta`, which counts a launch and runs nothing.  The kernel
+    reads bfloat16 r, k, v as they are (converted on load, exactly); other
+    types are cast to float32 here, as are w, u and state0.
     """
     check_operands(r, k, v, w, u, state0)
     operands = (r, k, v, w, u) + (() if state0 is None else (state0,))
@@ -82,4 +88,5 @@ def wkv(r, k, v, w, u, state0: Optional[torch.Tensor] = None):
         return WKV.apply(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u, state0)
-    return wkv_cuda(*_kernel_operands(r, k, v, w, u, state0))
+    fwd = wkv_meta if r.device.type == "meta" else wkv_cuda
+    return fwd(*_kernel_operands(r, k, v, w, u, state0))

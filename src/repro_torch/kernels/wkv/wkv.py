@@ -18,6 +18,10 @@ tensor cores (3xTF32); :func:`wkv_bwd_plain` is its twin and
 
 :func:`repro_torch.kernels.wkv.ops.wkv` takes the plain twins only for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises.
+``meta`` tensors (a dry run) take :func:`wkv_meta` and :func:`wkv_bwd_meta`:
+the outputs' and scratch's shapes, and one launch counted with
+:func:`wkv_cost` or :func:`wkv_bwd_cost`, the formulas the kernels' bounds
+are read from.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -134,12 +138,13 @@ def wkv_bwd_plain(r, k, v, w, u, dout, state0: Optional[torch.Tensor] = None,
 
 
 def _check_cuda_operands(fn: str, r, k, v, w, u, extra: dict) -> tuple[int, int, int, int]:
-    """The checks the forward and backward kernels share: CUDA tensors, r, k,
-    v of one dtype (float32 or bfloat16), w, u and ``extra`` float32, a head
-    dim and shape the kernels take.  Returns (B, S, H, hd)."""
+    """The checks the forward and backward kernels share: CUDA tensors (or
+    a dry run's ``meta`` ones), r, k, v of one dtype (float32 or bfloat16),
+    w, u and ``extra`` float32, a head dim and shape the kernels take.
+    Returns (B, S, H, hd)."""
     operands = (r, k, v, w, u) + tuple(a for a in extra.values() if a is not None)
     for a in operands:
-        if a.device.type != "cuda":
+        if a.device.type not in ("cuda", "meta"):
             raise ValueError(f"{fn} needs CUDA tensors, got {a.device}")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"r, k, v must be one of float32 / bfloat16, got "
@@ -267,3 +272,83 @@ def wkv_bwd_cuda(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = 
         )
     _build.LAUNCHES["wkv_bwd"] += 1
     return dr, dk, dv, dw, du, dstate0
+
+
+def wkv_cost(B: int, S: int, H: int, hd: int, *, rkv_bytes: int, state0: bool,
+             starts: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of one forward call, the least work the kernel must
+    do: 5 flops a step and state entry (``out_j += r_i S_ij``, one FMA, and
+    ``S_ij = w_i S_ij + k_i v_j``, a multiply and an FMA; the bonus term is
+    per column, not per entry); r, k, v read in ``rkv_bytes``, w read and
+    out written in float32, u read, the final state written and
+    ``state0`` read where given, and with ``starts`` the backward's
+    chunk-start states written."""
+    n = B * S * H * hd
+    states = (2 if state0 else 1) + (wkv_bwd_plan(S).n_chunks if starts else 0)
+    return 5.0 * n * hd, rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + states * B * H * hd * hd)
+
+
+def wkv_bwd_cost(B: int, S: int, H: int, hd: int, *, rkv_bytes: int
+                 ) -> tuple[float, float, float]:
+    """(tensor-core flops, FP32 flops, bytes) of one backward call, the work
+    its kernels do: 12 hd^2 + 2 T hd flops a step on the TF32 tensor cores
+    as 3xTF32 (five hd x hd products a sub-block and M = V dout^T in
+    wkv_bwd_grad_tc, G_c in wkv_bwd_chunk_tc; T = ``SUB_BLOCK`` steps a
+    sub-block) and the pair terms' 8 T hd flops a step on the FP32 cores
+    beside them; r, k, v (``rkv_bytes`` each), w, dout, u and the
+    chunk-start states read and dr, dk, dv, dw (float32), du and dstate0
+    written once."""
+    steps, n = B * S * H, B * S * H * hd
+    starts = B * H * wkv_bwd_plan(S).n_chunks * hd * hd
+    nbytes = (rkv_bytes * 3.0 * n + 4.0 * (2 * n + H * hd + starts)
+              + 4.0 * (4 * n + H * hd + B * H * hd * hd))
+    return ((12.0 * hd + 2.0 * SUB_BLOCK) * steps * hd, 8.0 * SUB_BLOCK * steps * hd, nbytes)
+
+
+def wkv_meta(r, k, v, w, u, state0: Optional[torch.Tensor] = None, *,
+             return_starts: bool = False):
+    """:func:`wkv_cuda` on ``meta`` tensors: out, the final state, the
+    chunked route's workspace and with ``return_starts`` the chunk-start
+    states as empty ``meta`` tensors, and one launch reported to the dry
+    run with :func:`wkv_cost`.  It refuses what the kernel refuses."""
+    check_operands(r, k, v, w, u, state0)
+    B, S, H, hd = _check_cuda_operands("wkv_meta", r, k, v, w, u, {"state0": state0})
+    plan = wkv_plan(S)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=r.device)
+
+    out, stateT = f32(B, S, H, hd), f32(B, H, hd, hd)
+    ws = None
+    if plan.route == "chunked":   # the chunk states, and their decays for the call
+        ws = f32(B, H, plan.n_chunks, hd, hd)
+        f32(B, H, plan.n_chunks, hd)
+    _meta.record("wkv", *wkv_cost(B, S, H, hd, rkv_bytes=r.element_size(),
+                                  state0=state0 is not None, starts=return_starts))
+    if not return_starts:
+        return out, stateT
+    return out, stateT, f32(B, H, 1, hd, hd) if ws is None else ws
+
+
+def wkv_bwd_meta(r, k, v, w, u, dout, starts, dstateT: Optional[torch.Tensor] = None):
+    """:func:`wkv_bwd_cuda` on ``meta`` tensors: the six gradients and the
+    kernels' scratch (``BWD_STATE_SLOTS`` states a chunk among them) as
+    empty ``meta`` tensors, and one launch reported to the dry run with
+    :func:`wkv_bwd_cost`, both parts of its flops.  It refuses what the
+    kernels refuse."""
+    check_operands(r, k, v, w, u)
+    B, S, H, hd = _check_cuda_operands("wkv_bwd_meta", r, k, v, w, u, {
+        "dout": dout, "starts": starts, "dstateT": dstateT})
+    plan = wkv_bwd_plan(S)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=r.device)
+
+    grads = tuple(f32(B, S, H, hd) for _ in range(4)) + (f32(H, hd), f32(B, H, hd, hd))
+    # the scratch, live for the call as on the card (the sub-block states last)
+    scratch = [f32(B, H, plan.n_chunks, hd, hd), f32(B, H, plan.n_chunks, hd),
+               f32(B, H, plan.n_chunks, hd), f32(B, H, plan.n_chunks, BWD_STATE_SLOTS, hd, hd)]
+    del scratch
+    tc, fp32, nbytes = wkv_bwd_cost(B, S, H, hd, rkv_bytes=r.element_size())
+    _meta.record("wkv_bwd", tc + fp32, nbytes)
+    return grads

@@ -1,36 +1,44 @@
-"""Each rank's bytes of every step on a mesh, without running it.
+"""Each rank's bytes and counted step on a mesh, and its roofline.
 
     python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh 2x2
     python -m repro_torch.launch.dryrun --all [--mesh single|multi|both|DATAxMODEL]
 
 Counterpart of ``repro.launch.dryrun``, which lowers and compiles every
 (architecture x input shape x mesh) step on a 512-device fake mesh to read
-XLA's memory analysis.  The port runs eagerly and compiles nothing, so this
-counts instead, from the ported plan (:mod:`repro_torch.sharding`) over the
-model built on ``meta`` tensors (no ranks, no allocation), each rank's
-bytes of:
+XLA's memory and cost analyses, ``hlo_analysis``'s trip-count-aware counts
+and the three-term roofline: proof that the distribution config is
+coherent.  The port runs eagerly and compiles nothing.  Each record holds:
 
-* train: the float32 parameters, their gradients and AdamW's ``m`` and
-  ``v`` (both float32, laid out as the parameters: ``opt_state_specs``);
-* prefill and decode: the parameters in the serving dtype, bfloat16 (the
-  vectors float32, as ``lm.init_params`` stores them), and the caches in
-  the port's own layout (``lm.init_cache``: KV heads and the Mamba2 and
-  RWKV6 states' heads over ``model`` where they divide, ring caches of the
-  window's slots; batch over the data axes);
-* every step: the batch (int64 token ids, bfloat16 vision embeddings or
+* each rank's bytes from the ported plan (:mod:`repro_torch.sharding`) over
+  the model built on ``meta``: train: the float32 parameters, their
+  gradients and AdamW's ``m`` and ``v`` (both float32, laid out as the
+  parameters: ``opt_state_specs``); prefill and decode: the parameters in
+  the serving dtype, bfloat16 (the vectors float32, as ``lm.init_params``
+  stores them), and the caches in the port's own layout (``lm.init_cache``:
+  KV heads and the Mamba2 and RWKV6 states' heads over ``model`` where they
+  divide, ring caches of the window's slots; batch over the data axes);
+  every step: the batch (int64 token ids, bfloat16 vision embeddings or
   encoder frames), its rows over the data axes as ``local_batch`` cuts
-  them.
+  them.  A dimension its axes do not divide rounds up, as GSPMD pads it;
+* where the port executes the plan (``sharding.check_plan``; else the
+  refusal and ``roofline: null``, never a guess): one rank's step run on
+  ``meta`` tensors and counted (:mod:`repro_torch.launch.step_costs`): its
+  FLOPs, bytes, collectives by kind and axis (bytes, count, group size),
+  kernel launches, the peak of its live bytes (``peak_bytes_per_rank``:
+  parameters, optimizer state, batch, caches and every activation, the
+  counterpart of XLA's ``argument + output + temp``), ``top_ops`` /
+  ``top_bytes``, the seconds the count took, and the three-term roofline
+  on H100 figures (:func:`repro_torch.launch.roofline.build_report`).
 
-A dimension its axes do not divide rounds up, as GSPMD pads it.  No
-activation is estimated: activation memory is what ``chip_smoke.py``
-measures as each run's peak.  ``fits`` holds the sum against the card's
-memory (``torch.cuda.get_device_properties`` where a card is present, else
-an H100's 80 GB, labelled as such); ``port_executes`` says whether the
-port's sharded execution takes the plan on that mesh
-(``sharding.check_plan``), with the reason where not.  Meshes: the
-reference's production meshes, ``single`` 16x16 and ``multi`` 2x16x16
-(pod, data, model), or any ``DATAxMODEL``; one JSON record a combination
-under ``--out`` (default ``build/dryrun/``).
+The count is of what the port runs.  The reference's dry run also shards
+the residual stream between blocks over (data, model) (sequence
+parallelism); the port keeps it replicated over ``model``, and its records
+say so.  ``fits`` holds the plan's bytes against the card's memory
+(``torch.cuda.get_device_properties`` where a card is present, else an
+H100's 80 GB, labelled as such); the roofline's ``fits_hbm`` holds the
+counted peak.  Meshes: the reference's production meshes, ``single`` 16x16
+and ``multi`` 2x16x16 (pod, data, model), or any ``DATAxMODEL``; one JSON
+record a combination under ``--out`` (default ``build/dryrun/``).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import argparse
 import json
 import math
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional
@@ -47,6 +56,7 @@ import torch
 from repro_torch import sharding
 from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, ArchConfig, get_config
 from repro_torch.configs.base import InputShape
+from repro_torch.launch import roofline, step_costs
 from repro_torch.launch.mesh import parse_mesh
 from repro_torch.models import lm
 from repro_torch.models.layers import MeshAxis
@@ -54,7 +64,10 @@ from repro_torch.models.layers import MeshAxis
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 H100_BYTES = 80e9   # H100 SXM, 80 GB (data sheet): the figure used without a card
 PRODUCTION = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
-ACTIVATIONS = "not estimated: chip_smoke.py measures each run's peak"
+NOTE = ("step_flops and step_bytes counted from the port's step executed on meta tensors "
+        "(launch/step_costs.py; bytes: every op's operands and outputs, unfused); the "
+        "residual stream stays replicated over model between blocks, where the reference's "
+        "dry run shards it over (data, model); H100 SXM data-sheet rates")
 
 
 def mesh_sizes(mesh: str) -> dict[str, int]:
@@ -147,9 +160,13 @@ def skip_reason(cfg: ArchConfig, shape: InputShape) -> Optional[str]:
 
 def dryrun_one(arch: str, shape_name: str, mesh: str, *, scheme: str = "fsdp_tp") -> dict:
     """The record of one (architecture, input shape, mesh) under ``scheme``."""
-    cfg = get_config(arch)
+    return record(get_config(arch), shape_name, mesh_sizes(mesh), scheme)
+
+
+def record(cfg: ArchConfig, shape_name: str, sizes: dict[str, int], scheme: str) -> dict:
+    """The record of ``cfg`` at one input shape on a mesh of ``sizes``."""
     shape = INPUT_SHAPES[shape_name]
-    sizes = mesh_sizes(mesh)
+    arch = cfg.name
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(sizes), "scheme": scheme,
            "ranks": _numel(sizes.values())}
     reason = skip_reason(cfg, shape)
@@ -169,9 +186,25 @@ def dryrun_one(arch: str, shape_name: str, mesh: str, *, scheme: str = "fsdp_tp"
         refusal = None
     except (ValueError, NotImplementedError) as exc:
         refusal = str(exc)
-    return {**rec, "status": "ok", "bytes_per_rank": parts, "total_bytes_per_rank": total,
-            "card_bytes": card, "card": card_what, "fits": total <= card,
-            "activations": ACTIVATIONS, "port_executes": refusal is None, "refusal": refusal}
+    rec = {**rec, "status": "ok", "bytes_per_rank": parts, "total_bytes_per_rank": total,
+           "card_bytes": card, "card": card_what, "fits": total <= card,
+           "port_executes": refusal is None, "refusal": refusal}
+    if refusal is not None:
+        return {**rec, "roofline": None, "collectives": None, "kernels": None,
+                "top_ops": None, "top_bytes": None, "peak_bytes_per_rank": None,
+                "count_s": None}
+    counted = step_costs.count_step(cfg, shape, sizes, scheme)
+    links = {a: roofline.link_bw(sizes, a, counted["rank"]) for a in sizes}
+    report = roofline.build_report(
+        arch=arch, shape_name=shape_name, mesh_name=rec["mesh"], n_chips=rec["ranks"],
+        counted=counted, cfg=cfg, shape=shape, links=links, card_bytes=card, note=NOTE)
+    return {**rec, "roofline": report.to_dict(), "counted_rank": counted["rank"],
+            "flops": {k: counted[k] for k in ("matmul_flops", "elementwise_flops",
+                                               "kernel_flops")},
+            "collectives": counted["collectives"], "links": links,
+            "kernels": counted["kernels"], "top_ops": counted["top_ops"],
+            "top_bytes": counted["top_bytes"], "peak_bytes_per_rank": counted["peak_bytes"],
+            "count_s": counted["count_s"]}
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -190,6 +223,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     out_dir = Path(args.out) if args.out else OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     for a in archs:
         for s in shapes:
             for m in meshes:
@@ -205,7 +239,17 @@ def main(argv: Optional[list[str]] = None) -> int:
                       f"{rec['total_bytes_per_rank'] / 2**30:.2f} of {rec['card']} "
                       f"{rec['card_bytes'] / 2**30:.2f}: fits {rec['fits']}; port executes "
                       f"{rec['port_executes']}")
-    print(f"done: {len(archs) * len(shapes) * len(meshes)} combinations in {out_dir}")
+                r = rec["roofline"]
+                if r is None:
+                    print(f"  refused: {rec['refusal']}")
+                    continue
+                print(f"  counted in {rec['count_s']:.1f}s: peak {r['bytes_per_device'] / 2**30:.2f}"
+                      f" GiB a rank; roofline: compute {r['compute_s'] * 1e3:.2f}ms  memory "
+                      f"{r['memory_s'] * 1e3:.2f}ms  collective {r['collective_s'] * 1e3:.2f}ms "
+                      f"-> {r['dominant']}-bound; useful_ratio {r['useful_ratio']:.2f}  "
+                      f"fits_hbm={r['fits_hbm']}")
+    print(f"done: {len(archs) * len(shapes) * len(meshes)} combinations in {out_dir} "
+          f"({time.perf_counter() - t0:.1f}s)")
     return 0
 
 

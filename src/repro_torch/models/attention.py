@@ -125,14 +125,15 @@ def chunked_attention(
     (``q_pos = q_offset + arange(Sq)``, ``kv_pos = arange(Skv)`` with the
     slots above the last query masked by causality, and with ``kv_len``
     every slot from ``kv_len`` on invalid); CUDA tensors need it and launch
-    the flash kernel on the first ``kv_len`` slots (default all), as do CPU
+    the flash kernel on the first ``kv_len`` slots (default all), as do
+    ``meta`` tensors (a dry run: the kernel's launch counted) and CPU
     tensors that autograd records (the kernel's twins, forward and
     backward).  Other CPU tensors run the reference's scan on ``q_pos`` /
     ``kv_pos``.
     """
     recorded = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad)
-    if q.device.type == "cuda" or (recorded and q_offset is not None):
+    if q.device.type in ("cuda", "meta") or (recorded and q_offset is not None):
         if q_offset is None:
             raise ValueError("CUDA attention needs the kernel's implicit positions (q_offset)")
         if kv_len is not None:

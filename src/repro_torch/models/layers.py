@@ -68,11 +68,11 @@ def scoped(keep: Keep, prefix: str) -> Keep:
 
 class MeshAxis:
     """One axis of a device mesh as the apply functions see it: its process
-    group, its size and this rank's index along it.  Its collectives are
-    autograd Functions (module docstring)."""
+    group, its size, this rank's index along it and its name on the mesh.
+    Its collectives are autograd Functions (module docstring)."""
 
-    def __init__(self, group, size: int, rank: int):
-        self.group, self.size, self.rank = group, size, rank
+    def __init__(self, group, size: int, rank: int, name: Optional[str] = None):
+        self.group, self.size, self.rank, self.name = group, size, rank, name
 
     def copy(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as it is; in the backward its gradient summed over the
@@ -260,7 +260,7 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     x, w = x.to(dtype), w.to(dtype)
     if dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.device.type == "cuda":   # the GEMM writes its float32 accumulator
+    if x.device.type in ("cuda", "meta"):   # the GEMM writes its float32 accumulator
         if w.ndim == 3:
             return _MmF32.apply(x, w)
         out = _MmF32.apply(x.reshape(-1, x.shape[-1]), w)

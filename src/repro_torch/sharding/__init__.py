@@ -463,7 +463,7 @@ def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
 
     def axis(name):
         i, n = coords.get(name, (0, 1))
-        return MeshAxis(mesh.get_group(name), n, i) if n > 1 else None
+        return MeshAxis(mesh.get_group(name), n, i, name) if n > 1 else None
 
     pod, data = axis("pod"), axis("data")
     fsdp = data is not None and any("data" in s for s in plan.values())

@@ -82,7 +82,7 @@ def test_train_record_counts_adamw_and_fits():
         assert parts["adamw_m_v"] == 2 * parts["params"] == 2 * parts["grads"]
         assert rec["card_bytes"] == 80e9 and "80 GB" in rec["card"]
         assert rec["fits"] is fits, (mesh, scheme, rec["total_bytes_per_rank"])
-        assert rec["port_executes"] and "not estimated" in rec["activations"]
+        assert rec["port_executes"] and rec["peak_bytes_per_rank"] >= rec["total_bytes_per_rank"]
     # 8.25 B float32 parameters, replicated over four data ranks
     ddp = dryrun.dryrun_one("granite-8b", "train_4k", "4x1", scheme="ddp")
     assert abs(ddp["bytes_per_rank"]["params"] / 4 / 8.25e9 - 1) < 0.01
