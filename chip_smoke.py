@@ -129,7 +129,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    bfloat16 training shapes of granite-8b over four cards (8 / 2 heads at
    1x4, 16 / 4 at 2x2, hd 128), of zamba2-7b's shared block (8 / 8 at 1x4,
    hd 112) and of gemma3-4b's local and global layers (2 / 1 at 1x4, hd
-   256) beside SDPA's; WKV prefill, decode and backward on a rank's 8 of
+   256) beside SDPA's; the same at model index 0's heads of a model axis
+   of 16 under the shared-KV split (llama3.2-3b 2 / 1, hd 128; gemma3-4b's
+   local and global layers 1 / 1, hd 256), each with phase 10f's rank-0
+   launches; WKV prefill, decode and backward on a rank's 8 of
    rwkv6's 32 heads; the WKV backward at rwkv6's training shape
    beside its twin, its bound at the rates its kernels run on and the
    stepwise kernel's bound, and each of its four kernels' device time a
@@ -182,12 +185,24 @@ Phases, each printing its own lines; any failure exits nonzero:
    saved, so the file is the ranks' pieces put together (save and
    restore seconds, bytes, peak RSS growth printed); then one line saying
    that the four-card trainings (granite-8b, zamba2-7b, gemma3-4b) did not
-   run.
+   run; (f) KV heads shared by a group of ranks (its spawn at most 120 s):
+   one ``run_ranks`` spawn of 16 ranks sharing the card over gloo, loading
+   phase 2's builds, a model axis of 16 as at the reference's production
+   meshes, float32 at full width with the depth cut, each run against the
+   unsharded model alone first: llama3.2-3b over 1x16 ``tp_only`` (query
+   heads 2 / 1 a rank, KV heads shared by pairs) served as phase 6b serves
+   and trained one step as 10d trains, gemma3-4b over 1x16 served (one 5
+   local + 1 global super-block, prompt 1040; 1 / 1 / 0 / 0 query heads in
+   each group of four: ranks with no query head), tinyllama-1.1b over 2x8
+   ``fsdp_tp`` trained one step (4 x 512); held to 6b's and 10d's limits,
+   each rank's flash launches its own heads' count (none where it holds no
+   query head), every piece two ranks hold (the KV replicas included)
+   bit-equal after the step.
 
 Launch counts are set to 0 just before each main path (phase 4, each
 measure of 4b, phase 4c's sharded calls, each federation and each server call of phase 5, each
 architecture of 6, each family call, federation and the move of 9, each
-training step of 10a and 10c, each rank's step of 10d) and read just
+training step of 10a and 10c, each rank's step of 10d and 10f) and read just
 after; launches that only check a result (phase 5's ``admit_oracle``
 and its newcomers' signatures, phase 9's repeats and card-against-CPU work)
 fall outside every window. The kernels line sums phases 4, 4b, 5 and 9's
@@ -511,6 +526,48 @@ SHARDED_TRAIN = (
 SHARDED_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4}
 ROUTE_TIE = 1e-4   # largest gate gap of a choice a rank makes otherwise than the unsharded run
 SHARDED_TRAIN_BUDGET_S = 180.0
+# Shared KV heads (phase 10f): one ``run_ranks`` spawn of 16 ranks sharing
+# the card over gloo, a model axis of 16 as at the reference's production
+# meshes, where the KV heads are fewer than the ranks: R = 16 / Hkv
+# consecutive ranks (a replica group) each hold one KV head whole and split
+# its query heads (``sharding.attn_heads``).  Full width, depth cut,
+# float32 under float32_math, each run against the unsharded model on the
+# card, run alone first, held to phase 6b's and 10d's limits:
+# llama3.2-3b over 1x16 tp_only (24 / 8 heads: query heads 2 / 1 a rank,
+# KV heads shared by pairs) serves and takes one train step; gemma3-4b
+# over 1x16 serves (8 / 4 heads: 1 / 1 / 0 / 0 query heads in each group of
+# four, so ranks with no query head; one 5 local + 1 global super-block,
+# prompt 1040, the rings roll and wrap); tinyllama-1.1b over 2x8 fsdp_tp
+# (32 / 4 heads: 4 / 4, KV heads shared by pairs under FSDP) takes one
+# train step.  Each rank's flash launches are its heads' count (none where
+# it holds no query head), every piece two ranks hold (the KV replicas
+# included) is bit-equal after the step.
+SHARED_KV_RANKS = 16
+SHARED_KV_SERVE = (
+    dict(label="llama3.2-3b float32, 2 layers, 1x16", arch="llama3.2-3b", cut={"n_layers": 2},
+         dtype="float32", mesh=(1, 16), scheme="tp_only", batch=F32_BATCH, prompt=F32_PROMPT,
+         tokens=F32_DECODE),
+    dict(label="gemma3 float32, 6 layers, 1x16", arch="gemma3-4b", cut={"n_layers": 6},
+         dtype="float32", mesh=(1, 16), scheme="tp_only", batch=F32_BATCH, prompt=1040,
+         tokens=F32_DECODE),
+)
+SHARED_KV_TRAIN = (
+    dict(label="llama3.2-3b tp_only 1x16, 2 layers", arch="llama3.2-3b", cut={"n_layers": 2},
+         mesh=(1, 16), scheme="tp_only", batch=2, seq=256),
+    dict(label="tinyllama fsdp_tp 2x8, 2 layers", arch="tinyllama-1.1b", cut={"n_layers": 2},
+         mesh=(2, 8), scheme="fsdp_tp", batch=4, seq=512),
+)
+SHARED_KV_BUDGET_S = 120.0   # the spawn: start, init, serve, a step each
+# Phase 8's rows at a rank's heads under the shared-KV split, bfloat16 at
+# 4 x 2048: model index 0 of llama3.2-3b over 1x16 (2 query heads over 1 KV
+# head, hd 128) and of gemma3-4b (1 over 1, hd 256, local and global
+# layers); their launches are phase 10f's rank 0's (``timed_from``).
+SHARED_KV_TIMED = (
+    dict(label="llama3.2-3b 1x16 rank 0", arch="llama3.2-3b", cut={"n_layers": 1},
+         mesh=(1, 16), batch=4, seq=2048, timed_from=SHARED_KV_TRAIN[0]["label"]),
+    dict(label="gemma3-4b 1x16 rank 0", arch="gemma3-4b", cut={"n_layers": 6},
+         mesh=(1, 16), batch=4, seq=2048, timed_from=SHARED_KV_SERVE[1]["label"]),
+)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048   # phase 10a
 # --sharded-4card training: granite-8b at full width and depth over NCCL, a
 # card a rank, float32 masters and bfloat16 compute, TRAIN_BATCH x
@@ -1105,20 +1162,43 @@ def flash_form(dims, causal: bool, window, q_offset: int, slots) -> tuple:
     return tuple(int(x) for x in dims), bool(causal), window, int(q_offset), slots
 
 
-def model_flash_calls(cfg, batch: int, model: int, seq: int, tokens=None) -> dict:
-    """{form: label} of every distinct flash call a forward of ``cfg`` makes
-    on ``batch`` rows and 1 / ``model`` of each kind of head (a rank's over a
-    model axis of ``model``): with ``tokens`` None a train-mode forward of
-    ``seq`` tokens (the backward takes each forward's form), else a prefill
-    of ``seq`` then decode steps up to ``seq + tokens - 1``, each decode form
-    at the first and the last step (the steps between differ only in
-    q_offset).  Encoder self-attention, cross attention (at decode over the
-    cache padded to a multiple of 128), and each self-attention kind, the
-    shared attention block's global."""
-    from repro_torch.models import attention, lm
+def rank_heads(cfg, model: int, index=None) -> list:
+    """The distinct (query heads, KV heads) of attention that the ranks of
+    a model axis of ``model`` hold (``sharding.attn_heads``; only model
+    index ``index``'s where given), leaving out a rank with no query head,
+    which makes no flash call."""
+    from repro_torch import sharding
 
-    heads = (cfg.n_heads // model, cfg.n_kv_heads // model, cfg.resolved_head_dim)
+    out = []
+    for i in range(model) if index is None else (index,):
+        (_, n_q), (_, n_kv) = sharding.attn_heads(cfg, model, i)
+        if n_q and (n_q, n_kv) not in out:
+            out.append((n_q, n_kv))
+    return out
+
+
+def model_flash_calls(cfg, batch: int, model: int, seq: int, tokens=None, index=None) -> dict:
+    """{form: label} of every distinct flash call a forward of ``cfg`` makes
+    on ``batch`` rows and a rank's heads over a model axis of ``model``
+    (``rank_heads``: every rank's, or model index ``index``'s): with
+    ``tokens`` None a train-mode forward of ``seq`` tokens (the backward
+    takes each forward's form), else a prefill of ``seq`` then decode steps
+    up to ``seq + tokens - 1``, each decode form at the first and the last
+    step (the steps between differ only in q_offset).  Encoder
+    self-attention, cross attention (at decode over the cache padded to a
+    multiple of 128), and each self-attention kind, the shared attention
+    block's global."""
     calls = {}
+    has_attention = cfg.block_kind == "attn" or cfg.attn_every
+    for n_q, n_kv in rank_heads(cfg, model, index) if has_attention else ():
+        _rank_flash_calls(cfg, batch, (n_q, n_kv, cfg.resolved_head_dim), seq, tokens, calls)
+    return calls
+
+
+def _rank_flash_calls(cfg, batch: int, heads: tuple, seq: int, tokens, calls: dict) -> None:
+    """:func:`model_flash_calls` on one rank's ``heads`` (Hq, Hkv, hd),
+    added to ``calls``."""
+    from repro_torch.models import attention, lm
 
     def add(label, Sq, Skv, causal, window, q_off, slots=None):
         calls.setdefault(flash_form((batch, Sq, Skv, *heads), causal, window, q_off, slots),
@@ -1146,7 +1226,6 @@ def model_flash_calls(cfg, batch: int, model: int, seq: int, tokens=None) -> dic
             form = attention.decode_form(s_cache, pos, window)
             add(f"{kind} decode at {pos}", 1, s_cache, form.causal, form.window,
                 form.q_offset)
-    return calls
 
 
 def served_flash_calls() -> list:
@@ -1172,10 +1251,10 @@ def served_flash_calls() -> list:
 
 def sharded_flash_calls() -> list:
     """(label, form) of every distinct flash call a rank of phase 6b makes
-    (and of the four-card run): on the rank's heads, 1 / model of each,
-    at prefill and at the first and the last decode step."""
+    (and of the four-card run and phase 10f's serving): on the rank's
+    heads, at prefill and at the first and the last decode step."""
     calls = {}
-    for run in SHARDED_RUNS + SHARDED_4CARD:
+    for run in SHARDED_RUNS + SHARDED_4CARD + SHARED_KV_SERVE:
         data, model = run["mesh"]
         for form, label in model_flash_calls(_sharded_config(run), run["batch"] // data, model,
                                              run["prompt"], run["tokens"]).items():
@@ -2235,14 +2314,21 @@ def phase_families(torch, device, main, fl) -> dict:
     return out
 
 
-def kernel_calls(cfg, kernel: str, prefill: bool) -> int:
+def kernel_calls(cfg, kernel: str, prefill: bool, model=(1, 0)) -> int:
     """Launches of ``kernel`` in one forward of ``cfg``: its attention calls
-    (``lm.attention_calls``) or WKV calls (``lm.wkv_calls``)."""
+    (``lm.attention_calls``; on a rank of a model axis, ``model``: its size
+    and index, the rank's) or WKV calls (``lm.wkv_calls``)."""
     from repro_torch.models import lm
 
     if kernel == "wkv":
         return lm.wkv_calls(cfg)
-    return lm.attention_calls(cfg, prefill)
+    return lm.attention_calls(cfg, prefill, model)
+
+
+def _model_of(res: dict) -> tuple:
+    """(model axis size, index) of a rank's result with ``coords``."""
+    i, n = res["coords"].get("model", (0, 1))
+    return n, i
 
 
 class _FlashLog:
@@ -2408,12 +2494,32 @@ def _serve_run(torch, params, run: dict, device, mesh=None) -> dict:
             **times}
 
 
-def _sharded_rank(runs: list) -> list:
+def _in_waves(torch, device, wave, fn):
+    """``fn()`` on this rank; with ``wave`` (ranks that share the card),
+    the process group's ranks take turns in waves of ``wave``, each freeing
+    its cached blocks before the next wave starts, so the whole weights an
+    init draws one at a time (gemma3-4b's float32 embedding and its scaled
+    copy: 5.4 GB) do not meet on the card from every rank at once."""
+    import torch.distributed as dist
+
+    if wave is None:
+        return fn()
+    out = None
+    for start in range(0, dist.get_world_size(), wave):
+        if start <= dist.get_rank() < start + wave:
+            out = fn()
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _sharded_rank(runs: list, wave=None) -> list:
     """One rank of phase 6b's runs on one mesh, in its own process
     (``run_ranks`` has joined the process group and set its card), each
     freed before the next: the kernel phase 2 built is loaded, never built;
-    the rank's shard is drawn by ``init_params_sharded`` and served by
-    :func:`_serve_run`."""
+    the rank's shard is drawn by ``init_params_sharded`` (in waves of
+    ``wave`` ranks, :func:`_in_waves`) and served by :func:`_serve_run`."""
     import gc
     import resource
 
@@ -2422,7 +2528,7 @@ def _sharded_rank(runs: list) -> list:
 
     from repro_torch import sharding
     from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import axis_coords, make_mesh
 
     # the kernels the path launches, loaded as phase 2 built them (never nvcc)
     for name in ("flash_attention", "wkv"):
@@ -2440,13 +2546,14 @@ def _sharded_rank(runs: list) -> list:
     for run in runs:
         cfg = _sharded_config(run)
         t0 = time.perf_counter()
-        params = sharding.init_params_sharded(cfg, sharding.plan_for(cfg, run["scheme"]), mesh,
-                                              seed=SEED, dtype=getattr(torch, run["dtype"]),
-                                              device=device)
+        params = _in_waves(torch, device, wave, lambda: sharding.init_params_sharded(
+            cfg, sharding.plan_for(cfg, run["scheme"]), mesh, seed=SEED,
+            dtype=getattr(torch, run["dtype"]), device=device))
         torch.cuda.synchronize(device)
         init_s = time.perf_counter() - t0
         res = _serve_run(torch, params, run, device, mesh)
         res.update(init_s=init_s, context_s=context_s, rank=dist.get_rank(),
+                   coords=axis_coords(mesh),
                    backend=dist.get_backend(), device=str(device),
                    params=sum(p.numel() for p in params.parameters()),
                    host_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
@@ -2490,6 +2597,18 @@ def _divergence(got, want) -> list:
     return out
 
 
+def _launch_line(launches: list) -> str:
+    """Each rank's launch counts, runs of equal ones joined."""
+    out = []
+    for r, d in enumerate(launches):
+        if out and out[-1][1] == d:
+            out[-1][0].append(r)
+        else:
+            out.append(([r], d))
+    return "; ".join(f"ranks {rs[0]}-{rs[-1]} {d}" if len(rs) > 1 else f"rank {rs[0]} {d}"
+                     for rs, d in out)
+
+
 def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> None:
     """Phase 6b's checks of one run (``ranks``: each rank's result):
     every rank's logits and tokens the same, its flash launches the
@@ -2504,11 +2623,16 @@ def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> 
     for r in ranks[1:]:   # activations replicated over the model axis
         require(torch.equal(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"]),
                 f"{label}: rank {r['rank']}'s logits or tokens differ from rank 0's")
-    # each rank launches the unsharded model's kernels, on its heads
-    expected = {k: n for k in ("flash_attention", "wkv") if (n := kernel_calls(cfg, k, True)
-                                                             + (run["tokens"] - 1)
-                                                             * kernel_calls(cfg, k, False))}
+    # each rank launches the unsharded model's kernels, on its heads (none
+    # where it holds no query head)
+    def launches_of(r):
+        model = _model_of(r)
+        return {k: n for k in ("flash_attention", "wkv")
+                if (n := kernel_calls(cfg, k, True, model)
+                    + (run["tokens"] - 1) * kernel_calls(cfg, k, False, model))}
+
     for r in ranks:
+        expected = launches_of(r)
         require(r["launches"] == expected,
                 f"{label}: rank {r['rank']} launched {r['launches']}, expected {expected}")
         require(len(r["forms"]) == expected.get("flash_attention", 0),
@@ -2524,8 +2648,10 @@ def _check_sharded(torch, run: dict, ranks: list, want: dict, checked: dict) -> 
         f"{[round(r['context_s'], 2) for r in ranks]} s); prefill "
         f"{[round(r['prefill_s'], 4) for r in ranks]} s, {run['tokens'] - 1} decode steps "
         f"{[round(r['decode_s'], 4) for r in ranks]} s{shared}; peak "
-        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches a rank {expected}, "
-        f"{len(set(r0['forms']))} flash forms, each checked in phase 3; sample "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches by rank "
+        f"{_launch_line([r['launches'] for r in ranks])}, each the rank's heads' count, "
+        f"{len(set(f for r in ranks for f in r['forms']))} flash forms, each checked in "
+        f"phase 3; sample "
         f"{r0['tokens'][0, :8].tolist()}")
     if want is None:
         return
@@ -2811,12 +2937,15 @@ def trained_flash_calls() -> list:
     return [(label, form) for form, label in calls.items()]
 
 
-def sharded_train_flash_calls(runs=SHARDED_TRAIN + TRAIN_4CARD) -> list:
-    """(label, form) of the flash calls a rank of ``runs`` (phase 10d's and
-    the four-card training) makes: its rows of the batch on its heads, 1 /
-    model of each (granite: 16 / 4 at 2x2, 8 / 2 at 1x4; qwen2-moe: 8 / 8;
-    hd 128; zamba2's shared block 8 / 8 at 1x4, 16 / 16 at 2x2, hd 112;
-    gemma3 2 / 1 at 1x4, hd 256)."""
+def sharded_train_flash_calls(runs=SHARDED_TRAIN + TRAIN_4CARD + SHARED_KV_TRAIN
+                              + SHARED_KV_TIMED) -> list:
+    """(label, form) of the flash calls a rank of ``runs`` (phase 10d's, the
+    four-card training, phase 10f's and the shapes phase 8 times on a
+    rank's heads) makes: its rows of the batch on its heads (granite: 16 /
+    4 at 2x2, 8 / 2 at 1x4; qwen2-moe: 8 / 8; hd 128; zamba2's shared block
+    8 / 8 at 1x4, 16 / 16 at 2x2, hd 112; gemma3 2 / 1 at 1x4, hd 256;
+    llama3.2-3b 2 / 1 and 1 / 1 at 1x16, hd 128; gemma3 1 / 1 at 1x16;
+    tinyllama 4 / 1 at 2x8, hd 64)."""
     calls = {}
     for run in runs:
         data, model = run["mesh"]
@@ -3439,7 +3568,8 @@ def _ckpt_round_trip(torch, params, state, plan, mesh, path, device) -> dict:
             "restore_rss": (restore_rss.growth, restore_rss.ru_growth)}
 
 
-def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) -> list:
+def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list,
+                        wave=None) -> list:
     """One rank of phase 10d, in its own process (``run_ranks`` joined the
     process group and set its card), each run freed before the next, on
     its mesh: the runs of the spawn's mesh first; for a run on a smaller
@@ -3447,7 +3577,7 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
     one of that size (over a file store beside ``paths``), the others
     taking no further part (None for each of their runs).  The
     rank's shard drawn by ``init_params_sharded`` (seed as the unsharded
-    model) takes one ``make_train_step`` on its rows
+    model; in waves of ``wave`` ranks, :func:`_in_waves`) takes one ``make_train_step`` on its rows
     (:func:`_train_step_read`), its launch counts set to 0 just before and
     read just after; its MoE blocks take the unsharded run's expert
     choices for its rows (``choices``, :class:`_RouteForce`).  Held
@@ -3492,8 +3622,8 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
         cfg = _sharded_config(run)
         plan = sharding.plan_for(cfg, run["scheme"])
         t0 = time.perf_counter()
-        params = sharding.init_params_sharded(cfg, plan, mesh, seed=SEED, dtype=torch.float32,
-                                              device=device)
+        params = _in_waves(torch, device, wave, lambda: sharding.init_params_sharded(
+            cfg, plan, mesh, seed=SEED, dtype=torch.float32, device=device))
         # the step's start kept on the host: four ranks of qwen2-moe 2x2
         # share the card, and with a second copy of each rank's 3.3 GiB of
         # parameters on it a rank's check once found 0.37 GiB of its 79 GiB
@@ -3525,7 +3655,7 @@ def _sharded_train_rank(runs: list, paths: list, deltas: list, choices: list) ->
         grad_err, step_err = {}, {}
         for n, g in grads.items():
             want = sharding.local_slice(ref[n], plan[n], coords,
-                                        sharding.mamba_parts(cfg, n)).to(device)
+                                        sharding.model_parts(cfg, n)).to(device)
             err = {"p": 0.0, "v": 0.0, "open": 0, "settled": 0.0, "elements": want.numel()}
             flat = [t.detach().reshape(-1) for t in (start[n], g, want, named[n], v[n])]
             grad_err[n] = 0.0
@@ -3580,8 +3710,9 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
     if want["floor"] is not None:   # the gradient limit or the floor, whichever is larger
         tol["grad"] = max(tol["grad"], want["floor"])
     plan = sharding.plan_for(cfg, run["scheme"])
-    expected = lm.train_step_launches(cfg)
+    shapes = {n: tuple(p.shape) for n, p in sharding.meta_params(cfg).items()}
     for r in ranks:
+        expected = lm.train_step_launches(cfg, _model_of(r))   # the rank's heads'
         require(r["loss"] == ranks[0]["loss"],
                 f"{label}: rank {r['rank']}'s loss differs from rank 0's")
         require(r["launches"] == expected,
@@ -3614,8 +3745,10 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
     for what in ("grad_digest", "param_digest"):
         seen = {}
         for r in ranks:
-            for n, d in r[what].items():
-                at = (n, tuple(sharding._piece(e, r["coords"]) for e in plan[n]))
+            for n, d in r[what].items():   # the same runs of a leaf: KV replicas too
+                parts = sharding.model_parts(cfg, n)
+                at = (n, tuple(tuple(sharding._ranges(w, e, r["coords"], parts))
+                               for w, e in zip(shapes[n], plan[n])))
                 if at in seen:
                     shared += 1
                     require(seen[at] == d, f"{label}: rank {r['rank']}'s {what} of {n} differs "
@@ -3634,9 +3767,9 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
         f"({worst_p[1]}), v by {worst_v[0]:.3e} ({worst_v[1]}); {n_open} of {n_all} elements "
         f"with |g| within the limit (sign open, window ~2 lr), the others at most "
         f"{settled[0]:.3e} from the unsharded gradient's step ({settled[1]}); "
-        f"{shared} pieces held by two ranks, each bit-equal; launches a rank "
-        f"{ranks[0]['launches']} (lm.train_step_launches {expected}, each on the rank's "
-        f"heads); init "
+        f"{shared} pieces held by two ranks, each bit-equal; launches by rank "
+        f"{_launch_line([r['launches'] for r in ranks])} (lm.train_step_launches of each "
+        f"rank's heads); init "
         f"{[round(r['init_s'], 2) for r in ranks]} s, step {[round(r['step_s'], 3) for r in ranks]}"
         f" s (the ranks time-slice one card); peak {[round(r['peak_gib'], 1) for r in ranks]} "
         f"GiB allocated, {[round(r['reserved_gib'], 1) for r in ranks]} GiB reserved")
@@ -3725,6 +3858,93 @@ def phase_sharded_training(torch, device, checked: set) -> dict:
     log("train-tp", f"phase 10d took {seconds:.1f} s (budget {SHARDED_TRAIN_BUDGET_S:.0f} s)")
     require(seconds <= SHARDED_TRAIN_BUDGET_S, f"phase 10d took {seconds:.1f} s")
     return launches
+
+
+# phase 10f's ranks draw their shards eight at a time: all 16 at once do not
+# fit (gemma3-4b's float32 embedding and its scaled copy, 5.4 GB a rank).
+# They keep the default allocator: with expandable segments (phase 10d's)
+# the spawn took 132.6-159.0 s against 78.5 s (H100 80GB HBM3, 700 W).
+SHARED_KV_WAVE = 8
+
+
+def _shared_kv_rank(serve: list, train: list, paths: list, deltas: list, choices: list
+                    ) -> tuple:
+    """One rank of phase 10f, in its own process: phase 6b's rank on the
+    ``serve`` runs, then phase 10d's on the ``train`` runs (one mesh after
+    another over the same 16 ranks), each shard drawn in waves of
+    SHARED_KV_WAVE ranks."""
+    return (_sharded_rank(serve, SHARED_KV_WAVE),
+            _sharded_train_rank(train, paths, deltas, choices, SHARED_KV_WAVE))
+
+
+def phase_shared_kv(torch, device, checked: dict, trained: set) -> dict:
+    """Phase 10f: SHARED_KV_SERVE and SHARED_KV_TRAIN over one spawn of
+    SHARED_KV_RANKS ranks sharing the card through gloo
+    (:func:`_shared_kv_rank`, loading phase 2's builds), each against the
+    unsharded model or step, computed first in this process and freed from
+    the card before the ranks start; phase 6b's checks for the serving
+    runs, phase 10d's for the training runs, each rank's launches its own
+    heads' count.  The spawn's seconds are held to SHARED_KV_BUDGET_S.
+    Returns each run's launches by rank."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    card = f"cuda:{torch.cuda.current_device()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        served = [_unsharded(torch, run, device, {}) for run in SHARED_KV_SERVE]
+        paths = [str(Path(tmp) / f"run{i}.pt") for i in range(len(SHARED_KV_TRAIN))]
+        stepped = [_unsharded_step(torch, run, device, path)
+                   for run, path in zip(SHARED_KV_TRAIN, paths)]
+        torch.cuda.empty_cache()
+        log("shared-kv", f"starting {SHARED_KV_RANKS} ranks; {memory(torch)}")
+        t0 = time.perf_counter()
+        results = run_ranks(_shared_kv_rank, SHARED_KV_RANKS, list(SHARED_KV_SERVE),
+                            list(SHARED_KV_TRAIN), paths, [w["delta"] for w in stepped],
+                            [w["routes"] for w in stepped], backend="gloo",
+                            devices=[card] * SHARED_KV_RANKS, timeout=SHARDED_TIMEOUT_S,
+                            store_dir=tmp)
+        spawn_s = time.perf_counter() - t0
+    log("shared-kv", f"{SHARED_KV_RANKS} ranks on {card} served {len(SHARED_KV_SERVE)} runs and "
+        f"trained {len(SHARED_KV_TRAIN)} in {spawn_s:.1f} s (spawn, init, serve, a step each; "
+        f"budget {SHARED_KV_BUDGET_S:.0f} s)")
+    launches = {}
+    for i, run in enumerate(SHARED_KV_SERVE):
+        ranks = [res[0][i] for res in results]
+        _check_sharded(torch, run, ranks, served[i], checked)
+        launches[run["label"]] = [r["launches"] for r in ranks]
+    for i, run in enumerate(SHARED_KV_TRAIN):
+        ranks = [res[1][i] for res in results]
+        _check_sharded_train(torch, run, ranks, stepped[i], trained)
+        launches[run["label"]] = [r["launches"] for r in ranks]
+    log("shared-kv", f"phase 10f took {time.perf_counter() - t_phase:.1f} s")
+    require(spawn_s <= SHARED_KV_BUDGET_S, f"phase 10f's spawn took {spawn_s:.1f} s")
+    return launches
+
+
+def shared_kv_rows(torch, device, shared: dict, errs: dict) -> list:
+    """Phase 8's rows for the flash forward and backward at model index
+    0's heads of SHARED_KV_TIMED, bfloat16, beside SDPA, each with phase
+    10f's rank-0 launches of the run it names (``timed_from``; gemma3-4b
+    only serves there, so its backward row's launches are 0)."""
+    from repro_torch import sharding
+
+    rows = []
+    for run in SHARED_KV_TIMED:
+        cfg = _sharded_config(run)
+        data, model = run["mesh"]
+        (_, n_q), (_, n_kv) = sharding.attn_heads(cfg, model, 0)
+        calls = [(label, form) for form, label in model_flash_calls(
+            cfg, run["batch"] // data, model, run["seq"], index=0).items()]
+        rank0 = shared[run["timed_from"]][0]
+        fwd = [(run["label"], f"{run['label']}: {label} ({n_q} / {n_kv} heads) training", *form)
+               for label, form in calls]
+        bwd = [(f"{run['label']}: {label} ({n_q} / {n_kv} heads) training", *form[:3])
+               for label, form in calls]
+        rows += family_flash_rows(torch, device, {run["label"]: rank0}, errs, cases=fwd,
+                                  key="shared_kv_run")
+        rows += flash_bwd_rows(torch, device, None, errs["flash_attention_bwd"], cases=bwd,
+                               launches=rank0.get("flash_attention_bwd", 0), first=False)
+    return rows
 
 
 def _train_4card_rank(runs: list, ckpt_dir: str) -> list:
@@ -4936,6 +5156,8 @@ def main(argv=None) -> int:
         f"zamba2-7b and gemma3-4b at full depth train over four cards under python3 "
         f"chip_smoke.py --sharded-4card (this machine has {device['count']})")
     done("phase 10d (sharded training)")
+    shared_kv = phase_shared_kv(torch, fed.device, checked_by, trained)
+    done("phase 10f (shared KV heads over 16 ranks)")
     rows = phase_timings(torch, fed, launches, errs)
     rows += lm_kernel_timings(torch, fed.device, lm_launches, errs)
     rows += family_flash_rows(torch, fed.device, lm_launches, errs)
@@ -4943,6 +5165,7 @@ def main(argv=None) -> int:
                               cases=sharded_flash_timed(), key="sharded_run")
     rows += flash_bwd_rows(torch, fed.device, training, errs["flash_attention_bwd"])
     rows += sharded_train_rows(torch, fed.device, tp_train, errs)
+    rows += shared_kv_rows(torch, fed.device, shared_kv, errs)
     rows += wkv_rank_rows(torch, fed.device, tp_launches, tp_train, errs)
     rows += wkv_bwd_rows(torch, fed.device, training, errs["wkv_bwd"])
     # phase 4c's window and times beside the proximity row's own counts

@@ -250,13 +250,16 @@ def _state_tree(cfg, named: Mapping, opt_state: Mapping) -> dict:
 
 
 def _gather(t: torch.Tensor, shape: tuple, spec, parts, coords: list, writers: list,
-            host: bool) -> Optional[torch.Tensor]:
+            host: bool, widest: tuple) -> Optional[torch.Tensor]:
     """The whole of a leaf (``shape``) from each rank's piece ``t``, on
     :data:`WRITER`'s host (None elsewhere): one ``gather`` that every rank
     joins, through the host (``host``: gloo) or the card (NCCL, then one
     copy to the host on the writer), the writer putting the pieces of
     ``writers`` in place (:func:`repro_torch.sharding.place_slice`).  A
-    leaf whose only writer is :data:`WRITER` takes no collective."""
+    piece narrower than ``widest`` (a rank with fewer query heads than
+    another) travels zero-padded to it; ``place_slice`` reads its own
+    part.  A leaf whose only writer is :data:`WRITER` takes no
+    collective."""
     import torch.distributed as dist
 
     from repro_torch import sharding
@@ -268,6 +271,10 @@ def _gather(t: torch.Tensor, shape: tuple, spec, parts, coords: list, writers: l
     mine = dist.get_rank() == WRITER
     if writers == [WRITER]:
         return piece.cpu() if mine else None
+    if tuple(piece.shape) != tuple(widest):
+        padded = piece.new_zeros(widest)
+        padded[tuple(slice(0, n) for n in piece.shape)] = piece
+        piece = padded
     bufs = [torch.empty_like(piece) for _ in coords] if mine else None
     dist.gather(piece, bufs, dst=WRITER)
     if not mine:
@@ -310,6 +317,7 @@ def save_sharded(path, model, opt_state: Mapping, plan: dict, mesh, *, step: int
         raise ValueError(f"a mesh of {len(coords)} ranks in a process group of "
                          f"{dist.get_world_size()}: a checkpoint's ranks are the whole group")
     sizes = {a: n for a, (_, n) in coords[0].items()}
+    model_index = coords[dist.get_rank()].get("model", (0, 1))[0]
     sharding.check_plan(cfg, plan, sizes)
     host = dist.get_backend() == "gloo"
     named = dict(model.named_parameters())
@@ -336,13 +344,14 @@ def save_sharded(path, model, opt_state: Mapping, plan: dict, mesh, *, step: int
                 writer.begin(key, ref.ref_shape, _np_dtype(dtype))
             for name in ref.names:
                 t, spec = entry.source[name], plan[name]
-                parts = sharding.mamba_parts(cfg, name)
-                want = sharding.local_shape(ref.shape, spec, sizes, parts)
+                parts = sharding.model_parts(cfg, name)
+                want = sharding.local_shape(ref.shape, spec, sizes, parts, model_index)
                 if tuple(t.shape) != want:
                     raise ValueError(f"{key} ({name}): a piece of {tuple(t.shape)}, the plan "
                                      f"gives {want} of {ref.shape}")
                 full = _gather(t, ref.shape, spec, parts, coords,
-                               sharding.piece_writers(spec, coords), host)
+                               sharding.piece_writers(spec, coords, parts), host,
+                               sharding.local_shape(ref.shape, spec, sizes, parts))
                 if writer is not None:
                     writer.write(full)
             if writer is not None:

@@ -15,8 +15,11 @@ coherent.  The port runs eagerly and compiles nothing.  Each record holds:
   parameters: ``opt_state_specs``); prefill and decode: the parameters in
   the serving dtype, bfloat16 (the vectors float32, as ``lm.init_params``
   stores them), and the caches in the port's own layout (``lm.init_cache``:
-  KV heads and the Mamba2 and RWKV6 states' heads over ``model`` where they
-  divide, ring caches of the window's slots; batch over the data axes);
+  KV heads over ``model`` by ``sharding.attn_heads``, a shared KV head
+  whole on each rank of its replica group, the Mamba2 and RWKV6 states'
+  heads over ``model`` where they divide, ring caches of the window's
+  slots; batch over the data axes); attention's weights by head too, at
+  model index 0 (a rank with the most query heads);
   every step: the batch (int64 token ids, bfloat16 vision embeddings or
   encoder frames), its rows over the data axes as ``local_batch`` cuts
   them.  A dimension its axes do not divide rounds up, as GSPMD pads it;
@@ -29,6 +32,10 @@ coherent.  The port runs eagerly and compiles nothing.  Each record holds:
   counterpart of XLA's ``argument + output + temp``), ``top_ops`` /
   ``top_bytes``, the seconds the count took, and the three-term roofline
   on H100 figures (:func:`repro_torch.launch.roofline.build_report`).
+  The counted rank is model index 0 of every axis, a rank with the most
+  query heads where a replica group shares each KV head; its collectives
+  include the sum of the shared heads' k and v gradients over the group
+  (``kv_replicas``).
 
 The count is of what the port runs.  The reference's dry run also shards
 the residual stream between blocks over (data, model) (sequence
@@ -65,7 +72,8 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 H100_BYTES = 80e9   # H100 SXM, 80 GB (data sheet): the figure used without a card
 PRODUCTION = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
 NOTE = ("step_flops and step_bytes counted from the port's step executed on meta tensors "
-        "(launch/step_costs.py; bytes: every op's operands and outputs, unfused); the "
+        "(launch/step_costs.py; bytes: every op's operands and outputs, unfused) on model "
+        "index 0, a rank with the most query heads where ranks share a KV head; the "
         "residual stream stays replicated over model between blocks, where the reference's "
         "dry run shards it over (data, model); H100 SXM data-sheet rates")
 
@@ -91,12 +99,13 @@ def param_bytes(cfg: ArchConfig, sizes: dict[str, int], scheme: str,
     """One rank's parameter bytes under ``scheme`` on a mesh of ``sizes``:
     weights of two or more dimensions in ``dtype``, vectors in float32; a
     Mamba2 ``in_proj`` and ``conv_w`` as the port holds them over ``model``,
-    B and C whole on every rank (``sharding.mamba_parts``)."""
+    B and C whole on every rank, and attention's ``q``, ``k``, ``v``, ``o``
+    by head, model index 0's (``sharding.model_parts``)."""
     named = sharding.meta_params(cfg)
     plan = sharding.param_specs(named, cfg, scheme=scheme)
     size = torch.empty((), dtype=dtype).element_size()
     return sum(_numel(sharding.local_shape(tuple(p.shape), plan[n], sizes,
-                                           sharding.mamba_parts(cfg, n)))
+                                           sharding.model_parts(cfg, n)))
                * (size if p.ndim >= 2 else 4) for n, p in named.items())
 
 
@@ -122,10 +131,13 @@ def cache_bytes(cfg: ArchConfig, shape: InputShape, sizes: dict[str, int],
                 dtype: torch.dtype = torch.bfloat16) -> int:
     """One rank's bytes of the caches a prefill of ``shape`` fills (and a
     decode reads): ``lm.init_cache``'s tree at the rank's rows, KV heads
-    and recurrent states' heads over ``model`` where every kind of head
-    divides (``sharding.head_counts``)."""
+    over ``model`` by ``sharding.attn_heads`` (whole KV heads a rank) and
+    the recurrent states' heads over ``model``, where every kind of head
+    goes over it whole (``sharding.check_heads``), else whole."""
     m = sizes.get("model", 1)
-    if any(n % m for _, n in sharding.head_counts(cfg)):
+    try:
+        sharding.check_heads(cfg, m)
+    except ValueError:
         m = 1
     # what init_cache reads of a model: its configuration, device, compute
     # dtype and model axis
@@ -195,6 +207,8 @@ def record(cfg: ArchConfig, shape_name: str, sizes: dict[str, int], scheme: str)
                 "count_s": None}
     counted = step_costs.count_step(cfg, shape, sizes, scheme)
     links = {a: roofline.link_bw(sizes, a, counted["rank"]) for a in sizes}
+    links["kv_replicas"] = roofline.replica_link_bw(
+        sizes, sharding.kv_replicas(cfg, sizes.get("model", 1)), counted["rank"])
     report = roofline.build_report(
         arch=arch, shape_name=shape_name, mesh_name=rec["mesh"], n_chips=rec["ranks"],
         counted=counted, cfg=cfg, shape=shape, links=links, card_bytes=card, note=NOTE)

@@ -107,6 +107,21 @@ def link_bw(sizes: Mapping[str, int], axis: str, coords: Mapping[str, int] | Non
     return IB_BW if spans_nodes(sizes, axis, coords) else NVLINK_BW
 
 
+def replica_link_bw(sizes: Mapping[str, int], R: int,
+                    coords: Mapping[str, int] | None = None) -> float:
+    """The link rate of a collective over the replica group of the rank at
+    ``coords``: the R consecutive ranks of its model axis that share its KV
+    head (``repro_torch.sharding.kv_replicas``)."""
+    at = dict(coords or {})
+    at["model"] = at.get("model", 0) // R * R   # the group's first rank
+    base = 0
+    for a in ("pod", "data", "model"):
+        if a in sizes:
+            base = base * sizes[a] + at.get(a, 0)
+    spans = base // RANKS_PER_NODE != (base + R - 1) // RANKS_PER_NODE
+    return IB_BW if spans else NVLINK_BW
+
+
 def effective_collective_seconds(collectives: Mapping[str, dict], links: Mapping[str, float]
                                  ) -> tuple[float, float]:
     """(ring-effective bytes, seconds) of a step's collectives:

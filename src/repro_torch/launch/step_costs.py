@@ -37,7 +37,9 @@ What is counted (:class:`StepCounter`):
   ``torch.distributed`` (:class:`CountingAxis`), in order: kind, axis,
   group size, dtype and bytes (the larger of input and output, as
   ``hlo_analysis`` counts them); the autograd Functions around them run
-  unchanged, so the backward's are counted too;
+  unchanged, so the backward's are counted too, and so is the sum of a
+  shared KV head's k and v gradients over its replica group (axis
+  ``kv_replicas``, ``sharding.kv_replicas`` ranks);
 * the peak of live bytes: every storage alive at once, from the
   parameters, optimizer state, batch and caches made before the step to
   every activation, gradient and scratch made in it (a storage's bytes
@@ -128,6 +130,7 @@ def count_collectives(model: lm.LM, log: list) -> lm.LM:
         return made[id(axis)]
 
     model.model_axis = counting(model.model_axis)
+    model.kv_axis = counting(model.kv_axis)
     model.row_axes = tuple(counting(a) for a in model.row_axes)
     if model.fsdp is not None:
         model.fsdp.axis = counting(model.fsdp.axis)
@@ -418,7 +421,10 @@ def count_step(cfg: ArchConfig, shape: InputShape, sizes: Mapping[str, int],
     The rank at ``coords`` ({axis: index}, default 0 on every axis) is
     counted; ``sharding.check_plan`` refuses a plan whose axes do not divide
     every sharded dimension, so every rank of an accepted plan holds the
-    same shapes.  Training keeps float32 masters and computes in
+    same shapes but for its attention heads: where a replica group shares
+    each KV head (``sharding.attn_heads``), its ranks split the query
+    heads, the larger pieces first, so model index 0 holds the most.
+    Training keeps float32 masters and computes in
     ``compute_dtype``, serving stores and computes in it (bfloat16: the
     card's policy).  Raises ``ValueError`` or ``NotImplementedError`` where
     ``check_plan`` refuses the plan."""

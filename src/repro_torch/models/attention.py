@@ -31,11 +31,22 @@ reference's ``_flash_bwd``).  KV caches are updated in place.
 
 Sharded over a model axis (``axis``, :mod:`repro_torch.sharding`), q, k and
 v hold the rank's contiguous heads (``n_heads`` and ``n_kv`` are the
-rank's counts; GQA groups stay whole because the KV heads divide by the
-axis), the KV cache the rank's KV heads, and ``o`` its rows: its float32
-partial is summed over the axis (``MeshAxis.reduce``).  The input enters
-the rank's heads through ``MeshAxis.copy``, so in training its gradient's
-partials are summed over the axis.
+rank's counts, ``sharding.attn_heads``), the KV cache the rank's KV heads,
+and ``o`` its rows: its float32 partial is summed over the axis
+(``MeshAxis.reduce``).  Where the KV heads divide over the axis, each rank
+holds Hkv / m of them with all their query heads.  Where they are fewer
+than the ranks, a group of R ranks holds one KV head whole (its k and v
+columns and its cache, the same on each) and splits its query heads; a
+rank may hold none, and then launches no kernel and its partial is zero
+(:func:`chunked_attention` returns the empty heads, :func:`out_proj`
+their zero product), while it joins every collective as the others do.
+The input enters the rank's heads through ``MeshAxis.copy``, so in
+training its gradient's partials are summed over the axis; a shared KV
+head's ``dK Wk^T`` and ``dV Wv^T`` on each rank of its group come from
+that rank's query heads alone, so that sum adds each query head's part
+once, as the unsharded model does.  The k and v weights' gradients are
+partial in the same way: :func:`repro_torch.models.lm.value_and_grad`
+sums them over the replica group.
 """
 from __future__ import annotations
 
@@ -129,8 +140,11 @@ def chunked_attention(
     ``meta`` tensors (a dry run: the kernel's launch counted) and CPU
     tensors that autograd records (the kernel's twins, forward and
     backward).  Other CPU tensors run the reference's scan on ``q_pos`` /
-    ``kv_pos``.
+    ``kv_pos``.  With no query head (a rank of a replica group that holds
+    none) it returns ``q``'s empty heads in ``dtype`` and launches nothing.
     """
+    if q.shape[2] == 0:
+        return q.to(dtype)
     recorded = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad)
     if q.device.type in ("cuda", "meta") or (recorded and q_offset is not None):
@@ -206,8 +220,10 @@ def out_proj(out: torch.Tensor, o: torch.Tensor, dtype: torch.dtype,
     if axis is None:
         return mm(out, o, dtype)
     # row-parallel o: the rank's heads give a partial sum; reduction over
-    # the model axis
-    return reduce_sum(mm_f32(out, o, dtype), axis, dtype)
+    # the model axis.  A rank with no query head adds zeros (the product
+    # over no heads, which keeps its input's gradient on the graph)
+    partial = torch.matmul(out.float(), o.float()) if H == 0 else mm_f32(out, o, dtype)
+    return reduce_sum(partial, axis, dtype)
 
 
 class AttnCache(NamedTuple):

@@ -51,6 +51,12 @@ batch.  Every family runs sharded: Mamba2 and RWKV6 blocks on the rank's
 heads (:mod:`repro_torch.models.ssm`), zamba2's shared attention block
 and whisper's encoder and cross attention head-parallel like any
 attention, the recurrent states and ring caches at the rank's heads.
+Where the KV heads are fewer than the model axis's ranks, each is held
+whole by a replica group that splits its query heads
+(``sharding.attn_heads``; a rank may hold none): its cache is on every
+rank of the group, and its k and v gradients, each rank's from its own
+query heads, are summed over the group (``kv_axis``), so the replicas
+step alike.
 """
 from __future__ import annotations
 
@@ -135,16 +141,32 @@ def encoder_stages(cfg: ArchConfig) -> list[StageSpec]:
     return [StageSpec("attn", cfg.encoder_layers, ("global",))]
 
 
-def attention_calls(cfg: ArchConfig, prefill: bool) -> int:
+def rank_heads(cfg: ArchConfig, axis: Optional[MeshAxis]) -> tuple[int, int]:
+    """(query heads, KV heads) of attention a rank holds on the model
+    ``axis`` (``sharding.attn_heads``; the whole model's without one)."""
+    if axis is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    from repro_torch.sharding import attn_heads
+
+    (_, n_q), (_, n_kv) = attn_heads(cfg, axis.size, axis.rank)
+    return n_q, n_kv
+
+
+def attention_calls(cfg: ArchConfig, prefill: bool, model: tuple[int, int] = (1, 0)) -> int:
     """Attention calls (flash launches on the card) in one forward: one per
     attention layer, two with cross-attention, one per application of the
-    shared block, and at prefill one per encoder layer."""
+    shared block, and at prefill one per encoder layer; none on a rank of
+    a model axis (``model``: its size and the rank's index) that holds no
+    query head."""
     calls = 0
     for stage in stages_for(cfg):
         if stage.kind == "attn":
             calls += stage.repeats * len(stage.sub) * (2 if stage.cross_attn else 1)
         calls += stage.repeats if stage.shared_attn else 0
-    return calls + (cfg.encoder_layers if prefill else 0)
+    calls += cfg.encoder_layers if prefill else 0
+    if calls and model[0] > 1 and rank_heads(cfg, MeshAxis(None, *model))[0] == 0:
+        return 0
+    return calls
 
 
 def wkv_calls(cfg: ArchConfig) -> int:
@@ -154,15 +176,17 @@ def wkv_calls(cfg: ArchConfig) -> int:
                if stage.kind == "rwkv")
 
 
-def train_step_launches(cfg: ArchConfig) -> dict:
+def train_step_launches(cfg: ArchConfig, model: tuple[int, int] = (1, 0)) -> dict:
     """Kernel launches of one training step on the card (one
     :func:`value_and_grad`), by kernel: each attention and WKV call's
     forward kernel once, twice with ``cfg.remat`` (the super-block runs
-    again in the backward), and its backward kernel once.  Kernels the
-    model does not call are left out."""
+    again in the backward), and its backward kernel once; on a rank of a
+    model axis (``model``: its size and the rank's index), its own
+    (:func:`attention_calls`).  Kernels the model does not call are left
+    out."""
     forwards = 2 if cfg.remat else 1
     out = {}
-    attn, rwkv = attention_calls(cfg, True), wkv_calls(cfg)
+    attn, rwkv = attention_calls(cfg, True, model), wkv_calls(cfg)
     if attn:
         out.update(flash_attention=forwards * attn, flash_attention_bwd=attn)
     if rwkv:
@@ -218,8 +242,9 @@ class LM(nn.Module):
     attention block, ``encoder`` whisper's encoder.  ``model_axis`` is
     None, or the mesh axis a sharded model's slices are spread over;
     ``row_axes`` the mesh axes the batch's rows split over; ``fsdp`` None,
-    or the weights held as the rank's piece over the data axis
-    (:mod:`repro_torch.sharding` sets all three).
+    or the weights held as the rank's piece over the data axis;
+    ``kv_axis`` None, or the replica group sharing the rank's KV head
+    (:mod:`repro_torch.sharding` sets all four).
     """
 
     def __init__(self, cfg: ArchConfig, compute_dtype: torch.dtype, embed: torch.Tensor,
@@ -238,6 +263,7 @@ class LM(nn.Module):
         self.model_axis: Optional[MeshAxis] = None
         self.row_axes: tuple[MeshAxis, ...] = ()
         self.fsdp: Optional[Fsdp] = None
+        self.kv_axis: Optional[MeshAxis] = None
 
 
 def _init_attn_block(gen, cfg: ArchConfig, cross: bool, device, moe: bool,
@@ -353,13 +379,13 @@ def init_cache(params: LM, batch: int, seq_len: int) -> list[list[dict]]:
     device = params.embed.device
     dtype = params.compute_dtype
     hd = cfg.resolved_head_dim
-    # a sharded model's cache holds the rank's KV heads, its recurrent
-    # states the rank's heads
+    # a sharded model's cache holds the rank's KV heads (a shared one on
+    # every rank of its group), its recurrent states the rank's heads
     axis = params.model_axis
-    n_kv = cfg.n_kv_heads // (1 if axis is None else axis.size)
 
     def kv(slots):
-        return init_attn_cache(batch, slots, n_kv, hd, dtype=dtype, device=device)
+        return init_attn_cache(batch, slots, rank_heads(cfg, axis)[1], hd, dtype=dtype,
+                               device=device)
 
     caches = []
     for stage in stages_for(cfg):
@@ -393,9 +419,8 @@ def _apply_attn_block(p: AttnBlock, cfg: ArchConfig, x: torch.Tensor, *, kind: s
                       dtype: torch.dtype, causal: bool = True,
                       axis: Optional[MeshAxis] = None, rows: tuple = ()):
     window = cfg.window if kind == "local" else None
-    n = 1 if axis is None else axis.size   # the rank's heads: a contiguous 1/n of each
-    heads = dict(n_heads=cfg.n_heads // n, n_kv=cfg.n_kv_heads // n, hd=cfg.resolved_head_dim,
-                 axis=axis)
+    n_q, n_kv = rank_heads(cfg, axis)   # the rank's heads (sharding.attn_heads)
+    heads = dict(n_heads=n_q, n_kv=n_kv, hd=cfg.resolved_head_dim, axis=axis)
     h = rmsnorm(x, p.ln1, cfg.norm_eps, dtype)
     attn_out, _ = attend(
         p.attn, h, **heads,
@@ -719,7 +744,10 @@ def value_and_grad(params: LM, batch: dict, *, microbatches: int = 1
     piece of the whole batch's gradient: summed over those axes (a weight's
     piece over the data axis already by its gather's reduce-scatter) and
     divided by their ranks.  With equal rows on each rank that is the
-    reference's mean over the global batch."""
+    reference's mean over the global batch.  Then each ``k`` and ``v``
+    gradient of a KV head a replica group shares (``params.kv_axis``),
+    each rank's from its own query heads, is summed over the group, last,
+    so every replica holds the same sum."""
     if microbatches == 1:
         loss, grads = _value_and_grad(params, batch)
     else:
@@ -742,6 +770,10 @@ def value_and_grad(params: LM, batch: dict, *, microbatches: int = 1
         grads = {k: t / microbatches for k, t in grads.items()}
     if params.row_axes:
         loss, grads = _mean_over_rows(params, loss, grads)
+    if params.kv_axis is not None:
+        for name, g in grads.items():
+            if name.rsplit(".", 1)[-1] in ("k", "v"):
+                params.kv_axis.all_reduce_(g)
     return loss, grads
 
 

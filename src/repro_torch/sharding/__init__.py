@@ -21,14 +21,19 @@ the reference's leading stacked ``None`` is not part of a port spec.
 Execution, serving and training alike: :func:`init_params_sharded` and
 :func:`shard_params` give one rank the contiguous slice of every sharded
 dimension that ``torch.tensor_split`` gives it (a Mamba2 leaf's columns
-over ``model`` by component instead, :func:`mamba_parts`), and attach the mesh's axes
-(:class:`ShardLayout`): the model axis, over which
+over ``model`` by component instead, :func:`mamba_parts`, and an attention
+leaf's by head, :func:`attn_heads`: where the KV heads are fewer than the
+model axis's ranks, a group of ranks shares each KV head and splits its
+query heads), and attach the mesh's axes (:class:`ShardLayout`): the model
+axis, over which
 :mod:`repro_torch.models` sums the row-parallel partials; with ``fsdp_tp``
 on a data axis above 1, the weights held as the rank's piece over
 ``data`` (FSDP), gathered just before use and their gradients
 reduce-scattered; and the axes the batch's rows split over, over which
 :func:`repro_torch.models.lm.value_and_grad` averages the loss and the
-gradients.  :func:`repro_torch.models.lm.make_train_step` then steps each
+gradients; and the group of ranks that shares the rank's KV head (the
+replica group), over which the KV weights' gradients are summed.
+:func:`repro_torch.models.lm.make_train_step` then steps each
 rank's pieces with the elementwise optimizer, its state the rank's pieces
 (:func:`opt_state_specs`).  The collectives are written out, driven by the
 plan (no ``DistributedDataParallel`` or FSDP wrapper, which read no mixed
@@ -36,15 +41,16 @@ plan (no ``DistributedDataParallel`` or FSDP wrapper, which read no mixed
 ``model`` entries in the ``tp_only`` layout; :func:`check_plan` refuses
 anything else, with the reason.  The batch splits over ``data``
 (:func:`local_batch`).  The KV caches (ring caches too) and the recurrent
-states of a sharded model hold each rank's heads, which head-parallel
-attention, Mamba2 and RWKV6 need;
+states of a sharded model hold each rank's heads (a shared KV head's cache
+on each rank of its group), which head-parallel attention, Mamba2 and
+RWKV6 need;
 :func:`cache_specs` is the reference's cache plan (sequence over ``model``
 from 8192 slots, replicated below), ported as a plan and not what the
 execution lays out.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, NamedTuple, Optional, Union
 
 import functools
 import math
@@ -255,16 +261,88 @@ def mamba_parts(cfg: ArchConfig, name: str) -> Optional[tuple[tuple[int, bool], 
     return ((d_in, True), (2 * N, False))
 
 
+def _has_attention(cfg: ArchConfig) -> bool:
+    return cfg.block_kind == "attn" or bool(cfg.attn_every)
+
+
+def attn_heads(cfg: ArchConfig, m: int, i: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((first query head, count), (first KV head, count)) that model index
+    ``i`` of a model axis of ``m`` holds of ``cfg``'s attention; query head
+    h reads KV head h // G (G = Hq / Hkv).  The rule Megatron uses:
+
+    * ``Hkv % m == 0``: Hkv / m KV heads a rank, with their G query heads
+      each (a contiguous 1 / m of both);
+    * ``m % Hkv == 0``: R = m / Hkv consecutive ranks (a *replica group*)
+      share KV head i // R, each holding it whole, and split its G query
+      heads (contiguous) as ``torch.tensor_split`` splits them, the larger
+      pieces first; a rank may hold no query head;
+    * else ``ValueError``: the plan cannot give every rank whole heads.
+    """
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    G = Hq // Hkv
+    if Hkv % m == 0:
+        n = Hkv // m
+        return (i * n * G, n * G), (i * n, n)
+    if m % Hkv == 0:
+        R = m // Hkv
+        j, r = divmod(i, R)
+        base, extra = divmod(G, R)
+        return (j * G + r * base + min(r, extra), base + (r < extra)), (j, 1)
+    raise ValueError(f"{cfg.name}: {Hkv} KV heads (of {Hq} query heads) and a model axis of "
+                     f"{m}: neither divides the other, so no rank holds whole heads")
+
+
+def kv_replicas(cfg: ArchConfig, m: int) -> int:
+    """R: the ranks of a model axis of ``m`` that share each KV head
+    (:func:`attn_heads`; 1 where the KV heads divide over the axis or the
+    model has no attention)."""
+    if not _has_attention(cfg) or cfg.n_kv_heads % m == 0 or m % cfg.n_kv_heads:
+        return 1
+    return m // cfg.n_kv_heads
+
+
+class HeadCut(NamedTuple):
+    """How an attention leaf's dimension over ``model`` is cut: by head
+    (:func:`attn_heads`), ``hd`` columns (``q``, ``k``, ``v``) or rows
+    (``o``) a head; ``kv`` for ``k`` and ``v``, whose KV heads a replica
+    group holds whole on each of its ranks."""
+    cfg: ArchConfig
+    kv: bool
+
+    def run(self, m: int, i: int) -> tuple[int, int]:
+        """(start, length) of model index ``i``'s run of the dimension."""
+        q, kv = attn_heads(self.cfg, m, i)
+        start, count = kv if self.kv else q
+        hd = self.cfg.resolved_head_dim
+        return start * hd, count * hd
+
+
+def model_parts(cfg: ArchConfig, name: str):
+    """How a leaf's dimension over ``model`` is cut where a contiguous 1 / m
+    would not give a rank whole heads: :func:`mamba_parts` for a Mamba2
+    leaf, a :class:`HeadCut` for an attention projection (``q``, ``k``,
+    ``v``, ``o``: whisper's cross attention and zamba2's shared block too);
+    None for every other leaf.  :func:`local_slice`, :func:`place_slice`,
+    :func:`local_shape` and :func:`piece_writers` take it as ``parts``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("q", "k", "v", "o"):
+        return HeadCut(cfg, leaf in ("k", "v"))
+    return mamba_parts(cfg, name)
+
+
 def _ranges(d: int, entry, coords: Mapping[str, tuple[int, int]], parts
             ) -> list[tuple[int, int]]:
     """(start, length) of each run of a dimension of ``d`` that the rank
-    holds: one contiguous 1 / n run, or with ``parts`` (the dimension over
-    ``model``) its run of each split part and the whole of the others."""
+    holds: one contiguous 1 / n run, with a :class:`HeadCut` (the dimension
+    over ``model``) its heads' run, or with :func:`mamba_parts` its run of
+    each split part and the whole of the others."""
     i, n = _piece(entry, coords)
     if n == 1:
         return [(0, d)]
     if parts is None or entry != "model":
         return [(i * (d // n), d // n)]
+    if isinstance(parts, HeadCut):
+        return [parts.run(n, i)]
     out, at = [], 0
     for width, split in parts:
         out.append((at + i * (width // n), width // n) if split else (at, width))
@@ -272,16 +350,23 @@ def _ranges(d: int, entry, coords: Mapping[str, tuple[int, int]], parts
     return out
 
 
-def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int], parts=None) -> tuple:
+def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int], parts=None,
+                model_index: int = 0) -> tuple:
     """The shape of one rank's piece of a ``shape`` leaf on a mesh of
     ``sizes`` ({axis: ranks}); a dim its axes do not divide rounds up, as
-    GSPMD pads it; with ``parts`` (:func:`mamba_parts`) the dimension over
-    ``model`` holds the rank's piece of each split part and the others
-    whole."""
+    GSPMD pads it; with ``parts`` (:func:`model_parts`) the dimension over
+    ``model`` holds the heads of the rank at ``model_index`` (0: a rank
+    with the most query heads), or its piece of each split part of a
+    Mamba2 leaf and the others whole."""
     def width(d, e):
         n = math.prod(sizes.get(a, 1) for a in _axes(e))
         if parts is None or e != "model" or n == 1:
             return -(-d // n)
+        if isinstance(parts, HeadCut):
+            try:
+                return parts.run(n, model_index)[1]
+            except ValueError:   # a plan check_plan refuses: rounded up, as GSPMD pads
+                return -(-d // n)
         return sum(-(-w // n) if split else w for w, split in parts)
 
     return tuple(width(d, e) for d, e in zip(shape, spec))
@@ -290,9 +375,9 @@ def local_shape(shape: tuple, spec: Spec, sizes: Mapping[str, int], parts=None) 
 def local_slice(t: torch.Tensor, spec: Spec, coords: Mapping[str, tuple[int, int]],
                 parts=None) -> torch.Tensor:
     """This rank's piece of ``t``: the contiguous piece ``tensor_split``
-    gives along each sharded dim (a view), or with ``parts``
-    (:func:`mamba_parts`) the runs of the dimension over ``model`` put
-    together (a copy)."""
+    gives along each sharded dim (a view), its heads' run with a
+    :class:`HeadCut` (a view), or with :func:`mamba_parts` the runs of the
+    dimension over ``model`` put together (a copy)."""
     for dim, entry in enumerate(spec):
         runs = _ranges(t.shape[dim], entry, coords, parts)
         if len(runs) == 1:
@@ -321,17 +406,26 @@ def place_slice(full: torch.Tensor, piece: torch.Tensor, spec: Spec,
     return full
 
 
-def piece_writers(spec: Spec, coords: list) -> list[int]:
+def piece_writers(spec: Spec, coords: list, parts=None) -> list[int]:
     """The ranks whose pieces of a leaf laid out by ``spec`` put the whole
     leaf together once (``coords[r]``: rank r's ``{axis: (index, size)}``):
     those at index 0 of every axis ``spec`` does not split over, so a leaf
     replicated over ``pod`` or ``data`` is taken from index 0 of those
-    axes.  Each piece is one such rank's; a Mamba2 leaf's replicated
-    columns (:func:`mamba_parts`) come from each of its model ranks, each
-    a copy of the same values."""
+    axes, and a KV head a replica group shares (``parts`` a
+    :class:`HeadCut`) from the group's first rank.  Each piece is one such
+    rank's; a Mamba2 leaf's replicated columns (:func:`mamba_parts`) come
+    from each of its model ranks, each a copy of the same values."""
     used = {a for e in spec for a in _axes(e)}
-    return [r for r, c in enumerate(coords)
-            if all(i == 0 for a, (i, _) in c.items() if a not in used)]
+
+    def first(c):
+        if not all(i == 0 for a, (i, _) in c.items() if a not in used):
+            return False
+        if isinstance(parts, HeadCut) and parts.kv and "model" in used:
+            i, m = c.get("model", (0, 1))
+            return i % kv_replicas(parts.cfg, m) == 0
+        return True
+
+    return [r for r, c in enumerate(coords) if first(c)]
 
 
 def head_counts(cfg: ArchConfig) -> list[tuple[str, int]]:
@@ -339,7 +433,7 @@ def head_counts(cfg: ArchConfig) -> list[tuple[str, int]]:
     model axis: attention's query and KV heads (every family with
     attention), Mamba2's and RWKV6's heads."""
     out = []
-    if cfg.block_kind == "attn" or cfg.attn_every:
+    if _has_attention(cfg):
         out += [("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)]
     if cfg.block_kind == "mamba2":
         out.append(("Mamba heads", ssm.mamba_dims(cfg)[2]))
@@ -348,17 +442,28 @@ def head_counts(cfg: ArchConfig) -> list[tuple[str, int]]:
     return out
 
 
+def check_heads(cfg: ArchConfig, m: int) -> None:
+    """Refuse, with the reason, heads a model axis of ``m`` cannot give
+    every rank whole: attention's where :func:`attn_heads` cannot, Mamba2's
+    and RWKV6's where they do not divide over the axis."""
+    if _has_attention(cfg):
+        attn_heads(cfg, m, 0)
+    for what, n in head_counts(cfg):
+        if what not in ("query heads", "KV heads") and n % m:
+            raise ValueError(f"{cfg.name}: {n} {what} do not divide over a model axis of {m}")
+
+
 def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
     """Refuse, with the reason, a plan the port cannot execute on a mesh of
     ``sizes`` ({axis: ranks}); return whether it shards over ``model``.
 
     Refused: names or ranks that are not ``cfg``'s parameters'; ``model``
     entries other than ``tp_only``'s layout; a weight dimension over
-    several axes, or over ``pod``, or two over ``data``; heads of any kind
-    (:func:`head_counts`) that do not divide over the model axis; and any
-    sharded dimension the axes' size does not divide (experts or their F,
-    ``vocab_padded``, an FSDP dimension, each split part of a Mamba2
-    leaf's, ...)."""
+    several axes, or over ``pod``, or two over ``data``; heads the model
+    axis cannot give every rank whole (:func:`check_heads`); and any
+    sharded dimension the
+    axes' size does not divide (experts or their F, ``vocab_padded``, an
+    FSDP dimension, each split part of a Mamba2 leaf's, ...)."""
     named = meta_params(cfg)
     shapes = {n: tuple(p.shape) for n, p in named.items()}
     if set(plan) != set(shapes):
@@ -386,14 +491,13 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
             if got != want[name]:
                 raise ValueError(f"{name}: {spec} is not the tp_only layout {want[name]} "
                                  "over model that the sharded apply functions run")
-        for what, n in head_counts(cfg):
-            if n % m:
-                raise ValueError(f"{cfg.name}: {n} {what} do not divide over a model axis "
-                                 f"of {m}")
+        check_heads(cfg, m)
     for name, spec in plan.items():
-        parts = mamba_parts(cfg, name)
+        parts = model_parts(cfg, name)
         for dim, (d, entry) in enumerate(zip(shapes[name], spec)):
             n = count(entry)
+            if isinstance(parts, HeadCut) and entry == "model":
+                continue   # cut by head (attn_heads)
             widths = ([w for w, split in parts if split] if parts and entry == "model"
                       else [d])
             if any(w % n for w in widths):
@@ -405,14 +509,15 @@ def check_plan(cfg: ArchConfig, plan: Plan, sizes: Mapping[str, int]) -> bool:
 class ShardLayout:
     """One rank's part of a checked plan: its coordinates on the mesh, the
     model axis its slices are spread over (None when no weight is), the
-    axes the batch's rows split over, and the data axis its FSDP pieces are
-    gathered over (None without FSDP)."""
+    axes the batch's rows split over, the data axis its FSDP pieces are
+    gathered over (None without FSDP), and the replica group that shares
+    its KV head (None where no KV head is shared, :func:`kv_replicas`)."""
 
     def __init__(self, cfg: ArchConfig, plan: Plan, coords: Mapping[str, tuple[int, int]],
                  model_axis: Optional[MeshAxis], row_axes: tuple = (),
-                 data_axis: Optional[MeshAxis] = None):
+                 data_axis: Optional[MeshAxis] = None, kv_axis: Optional[MeshAxis] = None):
         self.cfg, self.plan, self.coords, self.model_axis = cfg, plan, coords, model_axis
-        self.row_axes, self.data_axis = tuple(row_axes), data_axis
+        self.row_axes, self.data_axis, self.kv_axis = tuple(row_axes), data_axis, kv_axis
         # parameter name -> the dimension held as the rank's piece over data
         self.fsdp_dims = {} if data_axis is None else {
             name: spec.index("data") for name, spec in plan.items() if "data" in spec}
@@ -420,7 +525,7 @@ class ShardLayout:
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole parameter ``name`` (a view, or a
         copy for a Mamba2 leaf cut by :func:`mamba_parts`)."""
-        return local_slice(t, self.plan[name], self.coords, mamba_parts(self.cfg, name))
+        return local_slice(t, self.plan[name], self.coords, model_parts(self.cfg, name))
 
     def keep(self, name: str, t: torch.Tensor, expert: Optional[int] = None
              ) -> Optional[torch.Tensor]:
@@ -436,11 +541,12 @@ class ShardLayout:
             spec = spec[1:]
         if all(_piece(e, self.coords)[1] == 1 for e in spec):
             return t
-        return local_slice(t, spec, self.coords, mamba_parts(self.cfg, name)).clone()
+        return local_slice(t, spec, self.coords, model_parts(self.cfg, name)).clone()
 
     def attach(self, model: lm.LM) -> lm.LM:
         """``model`` (the rank's pieces) with the layout's axes set."""
         model.model_axis, model.row_axes = self.model_axis, self.row_axes
+        model.kv_axis = self.kv_axis
         model.fsdp = (None if not self.fsdp_dims
                       else Fsdp(self.data_axis, self.fsdp_dims, model))
         return model
@@ -450,6 +556,33 @@ class ShardLayout:
         (:meth:`attach` it once its tensors are made)."""
         return lm.init_params(self.cfg, dtype=dtype, device="meta", compute_dtype=compute_dtype,
                               keep=self.keep)
+
+
+# (id of a mesh, R) -> (the mesh, this rank's replica group): each group is
+# made once a mesh, however many layouts read it
+_REPLICA_GROUPS: dict = {}
+
+
+def _replica_group(mesh, R: int):
+    """This rank's replica group on ``mesh``: the R consecutive ranks of its
+    model axis that share its KV head.  Every rank makes every group of the
+    mesh (``dist.new_group``), in the same order; a mesh with no process
+    group (the dry run's ``CountingMesh``) has none."""
+    grid = getattr(mesh, "mesh", None)
+    if grid is None:
+        return None
+    key = (id(mesh), R)
+    if key not in _REPLICA_GROUPS:
+        import torch.distributed as dist
+
+        me, mine = dist.get_rank(), None
+        for row in grid.reshape(-1, grid.shape[-1]).tolist():   # each model axis
+            for j in range(0, len(row), R):
+                group = dist.new_group(row[j:j + R])
+                if me in row[j:j + R]:
+                    mine = group
+        _REPLICA_GROUPS[key] = (mesh, mine)
+    return _REPLICA_GROUPS[key][1]
 
 
 def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
@@ -467,8 +600,15 @@ def layout(cfg: ArchConfig, plan: Plan, mesh) -> ShardLayout:
 
     pod, data = axis("pod"), axis("data")
     fsdp = data is not None and any("data" in s for s in plan.values())
+    kv = None
+    if over_model:
+        i, m = coords["model"]
+        R = kv_replicas(cfg, m)
+        if R > 1:
+            kv = MeshAxis(_replica_group(mesh, R), R, i % R, "kv_replicas")
     return ShardLayout(cfg, plan, coords, axis("model") if over_model else None,
-                       tuple(a for a in (pod, data) if a is not None), data if fsdp else None)
+                       tuple(a for a in (pod, data) if a is not None), data if fsdp else None,
+                       kv)
 
 
 def init_params_sharded(cfg: ArchConfig, plan: Plan, mesh, *, seed: int = 0,

@@ -3,6 +3,7 @@
 It runs inside one rank process of ``repro_torch.launch.mesh.run_ranks``
 (gloo on the CPU) and imports torch and the port only, never jax.
 """
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -17,13 +18,14 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw, cosine_schedule
 
 
-def _run(mesh, arch: str, scheme: str, kind: str, batch: int, seq: int) -> list:
+def _run(mesh, arch: str, scheme: str, kind: str, batch: int, seq: int, changes=()) -> list:
     """The collectives of one step of ``kind`` (``train``: ``make_train_step``
     with the dry run's AdamW; ``prefill``: ``make_prefill_step``) of
-    ``arch`` at ``reduced()`` size on this rank, float32 on the CPU, as
+    ``arch`` at ``reduced()`` size (with ``changes``, (field, value) pairs,
+    to its configuration) on this rank, float32 on the CPU, as
     :class:`repro_torch.launch.step_costs.CountingAxis` records them while
     they run."""
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
     plan = sharding.plan_for(cfg, scheme)
     train = kind == "train"
     params = sharding.init_params_sharded(cfg, plan, mesh, seed=1, dtype=torch.float32,
@@ -43,7 +45,7 @@ def _run(mesh, arch: str, scheme: str, kind: str, batch: int, seq: int) -> list:
 
 def collectives_rank(store: str, quad: list, pair: list) -> dict:
     """This rank's collectives of each ``quad`` case (label, arch, scheme,
-    kind, batch, seq) on a 2x2 mesh, then of each ``pair`` case on 1x2 (the
+    kind, batch, seq[, changes]) on a 2x2 mesh, then of each ``pair`` case on 1x2 (the
     first two ranks), with the rank's coordinates on each mesh."""
     torch.set_num_threads(1)
     mesh = make_mesh(2, 2, device_type="cpu")

@@ -168,21 +168,22 @@ def train_cli(argv: list) -> list:
 def assemble(cfg, plan: dict, results: list, key, field: str) -> tuple[dict, bool]:
     """({name: tensor}, same): each leaf put together from the ranks'
     pieces (``results[r][key][field]``, keyed by parameter name, beside
-    ``results[r]["coords"]``; a Mamba2 leaf's by its components,
-    ``sharding.mamba_parts``), and whether every two ranks holding the same
-    piece hold it bit for bit."""
+    ``results[r]["coords"]``; a Mamba2 leaf's by its components, an
+    attention leaf's by head, ``sharding.model_parts``), and whether every
+    two ranks holding the same piece (the same runs of the leaf: a KV head
+    a replica group shares too) hold it bit for bit."""
     full = {n: torch.zeros(p.shape) for n, p in
             lm.init_params(cfg, dtype=torch.float32, device="meta").named_parameters()}
     seen, same = {}, True
     for res in results:
         coords = res["coords"]
         for name, piece in res[key][field].items():
-            spec = plan[name]
-            at = tuple(sharding._piece(e, coords) for e in spec)
+            spec, parts = plan[name], sharding.model_parts(cfg, name)
+            at = tuple(tuple(sharding._ranges(d, e, coords, parts))
+                       for d, e in zip(full[name].shape, spec))
             first = seen.setdefault((name, at), piece)
             same = same and torch.equal(first, piece)
-            sharding.place_slice(full[name], piece, spec, coords,
-                                 sharding.mamba_parts(cfg, name))
+            sharding.place_slice(full[name], piece, spec, coords, parts)
     return full, same
 
 

@@ -46,9 +46,27 @@ def _mamba_columns(cfg, name, m):
     return -(-split // m) + 2 * N
 
 
+def _head_columns(cfg, name, m):
+    """A rank's columns of ``q``, ``k``, ``v`` (rows of ``o``) over a model
+    axis of ``m`` by the head rule: whole KV heads, Hkv / m a rank or one
+    shared by m / Hkv ranks, and model index 0's query heads (the most: a
+    shared KV head's G query heads split with the larger pieces first);
+    None for any other leaf."""
+    if name not in ("q", "k", "v", "o"):
+        return None
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if name in ("k", "v"):
+        return hd * max(1, Hkv // m)
+    if Hkv % m == 0:
+        return hd * Hq // m
+    return hd * -(-(Hq // Hkv) // (m // Hkv))
+
+
 def _ref_bytes(arch, scheme, sizes):
     """Each rank's bytes of the reference's plan; Mamba2's ``in_proj`` and
-    ``conv_w`` hold B and C whole over ``model`` (``_mamba_columns``)."""
+    ``conv_w`` hold B and C whole over ``model`` (``_mamba_columns``), and
+    attention's ``q``, ``k``, ``v`` and ``o`` whole heads
+    (``_head_columns``)."""
     cfg, aparams = _abstract(arch)
     specs = ref_sharding.param_specs(aparams, cfg, scheme=scheme)
     total = 0
@@ -58,7 +76,10 @@ def _ref_bytes(arch, scheme, sizes):
         for dim, entry in enumerate(tuple(spec)):
             axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
             shape[dim] = -(-shape[dim] // math.prod(sizes[a] for a in axes))
-            cols = _mamba_columns(cfg, getattr(path[-1], "key", None), sizes["model"])
+            key = getattr(path[-1], "key", None)
+            cols = _mamba_columns(cfg, key, sizes["model"])
+            if cols is None:
+                cols = _head_columns(cfg, key, sizes["model"])
             if entry == "model" and cols is not None:
                 shape[dim] = cols
         total += math.prod(shape) * leaf.dtype.itemsize
@@ -110,12 +131,19 @@ def test_recurrent_and_encoder_families_execute(arch):
 
 def test_serving_records_and_refusals():
     rec = dryrun.dryrun_one("llama3.2-3b", "decode_32k", "single", scheme="tp_only")
-    # 128 rows over 16 data ranks; 8 KV heads over 16 do not divide: whole
-    # (and 24 query heads: the port refuses the plan, with the reason)
+    # 128 rows over 16 data ranks; 8 KV heads over 16: each shared by two
+    # ranks, one whole KV head's cache a rank (its 3 query heads split 2 / 1)
     cfg = get_config("llama3.2-3b")
-    kv = 2 * cfg.n_layers * (128 // 16) * 32768 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    kv = 2 * cfg.n_layers * (128 // 16) * 32768 * 1 * cfg.resolved_head_dim * 2
     assert rec["bytes_per_rank"]["cache"] == kv
-    assert not rec["port_executes"] and "24 query heads" in rec["refusal"]
+    assert rec["port_executes"] and rec["refusal"] is None and rec["roofline"] is not None
+    # 8 KV heads and 3 ranks: neither divides, the plan is refused with the
+    # reason and the caches counted whole
+    refused = dryrun.dryrun_one("llama3.2-3b", "decode_32k", "1x3", scheme="tp_only")
+    assert not refused["port_executes"] and "neither divides" in refused["refusal"]
+    assert refused["roofline"] is None
+    assert refused["bytes_per_rank"]["cache"] == 2 * cfg.n_layers * 128 * 32768 * (
+        cfg.n_kv_heads * cfg.resolved_head_dim * 2)
     skip = dryrun.dryrun_one("granite-8b", "long_500k", "multi")
     assert skip["status"] == "skip" and skip["mesh"] == "2x16x16"
 

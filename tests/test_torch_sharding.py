@@ -178,13 +178,20 @@ def test_plan_check_accepts_what_it_executes():
         c = _reduced(arch)
         assert not sharding.check_plan(c, sharding.plan_for(c, "ddp"), {"data": 2, "model": 2})
     assert not sharding.check_plan(cfg, sharding.plan_for(cfg, "tp_only"), {"data": 4, "model": 1})
+    # KV heads fewer than the model axis's ranks: 4 KV heads over 8, each
+    # shared by two ranks that split its query heads (sharding.attn_heads)
+    tiny = _reduced("tinyllama-1.1b")
+    assert sharding.check_plan(tiny, sharding.plan_for(tiny, "tp_only"), {"model": 8})
 
 
 @pytest.mark.parametrize("case", [
     ("fsdp_tp over data 2", "tinyllama-1.1b", {"d_model": 255}, "fsdp_tp",
      {"data": 2, "model": 2}, r"embed: dim 1 \(255\)"),
-    ("query heads 8 over 3", "tinyllama-1.1b", {}, "tp_only", {"model": 3}, "query heads"),
-    ("KV heads 4 over 8", "tinyllama-1.1b", {}, "tp_only", {"model": 8}, "KV heads"),
+    # 4 KV heads (of 8 query heads) and 3 ranks: neither divides the other
+    ("query heads 8 over 3", "tinyllama-1.1b", {}, "tp_only", {"model": 3},
+     "4 KV heads .* neither divides"),
+    ("6 KV heads over 4", "tinyllama-1.1b", {"n_heads": 6, "n_kv_heads": 6}, "tp_only",
+     {"model": 4}, "6 KV heads .* neither divides"),
     ("expert F 126 over 4", "qwen2-moe-a2.7b", {"expert_d_ff": 126}, "tp_only", {"model": 4},
      r"dim 2 \(126\)"),
     ("48 experts over 32", "llama4-scout-17b-a16e",

@@ -36,11 +36,10 @@ One rank's step runs on ``meta`` tensors and is counted.  On the CPU, at
 * the dry run's records (``launch/dryrun.py``) at the reference's
   production meshes, 16x16 and 2x16x16, every architecture at every input
   shape at full width, one super-block of each stage deep (the whole
-  ``--all --mesh both`` at full depth takes minutes): each plan that
-  ``check_plan`` accepts has positive roofline terms, a counted peak at or
-  above its plan-only bytes and a ``useful_ratio``; each refused one (heads
-  that do not divide over the model axis of 16) its refusal and
-  ``roofline: null``.
+  ``--all --mesh both`` at full depth takes minutes): ``check_plan``
+  accepts every plan (KV heads fewer than 16 shared by replica groups),
+  each with positive roofline terms, a counted peak at or above its
+  plan-only bytes and a ``useful_ratio``.
 """
 import dataclasses
 import functools
@@ -77,22 +76,27 @@ SPAWN_TIMEOUT_S = 300.0
 # (label, arch, scheme, kind, batch, seq): on 2x2, then on 1x2
 QUAD = [("granite 2x2 fsdp_tp", "granite-8b", "fsdp_tp", "train", 4, 20),
         ("zamba2 2x2 fsdp_tp", "zamba2-7b", "fsdp_tp", "train", 4, 20),
-        ("qwen2-moe 2x2 fsdp_tp", "qwen2-moe-a2.7b", "fsdp_tp", "train", 4, 20)]
+        ("qwen2-moe 2x2 fsdp_tp", "qwen2-moe-a2.7b", "fsdp_tp", "train", 4, 20),
+        # 4 query heads over one KV head: the two model ranks share it, and
+        # its k and v gradients are summed over them (axis kv_replicas)
+        ("tinyllama 4/1 heads 2x2 fsdp_tp", "tinyllama-1.1b", "fsdp_tp", "train", 4, 20,
+         (("n_heads", 4), ("n_kv_heads", 1)))]
 PAIR = [("rwkv6 1x2 tp_only", "rwkv6-1.6b", "tp_only", "train", 4, 20),
         ("gemma3 1x2 tp_only", "gemma3-4b", "tp_only", "train", 2, 20),
         ("whisper 1x2 tp_only prefill", "whisper-medium", "tp_only", "prefill", 2, 20)]
 
 
-def _count(arch, kind, batch=B, seq=S, sizes=None, scheme="fsdp_tp", coords=None):
+def _count(arch, kind, batch=B, seq=S, sizes=None, scheme="fsdp_tp", coords=None, changes=()):
     sizes = tuple((sizes or {"data": 1, "model": 1}).items())
     coords = None if coords is None else tuple(coords.items())
-    return _counted(arch, kind, batch, seq, sizes, scheme, coords)
+    return _counted(arch, kind, batch, seq, sizes, scheme, coords, changes)
 
 
 @functools.lru_cache(maxsize=None)
-def _counted(arch, kind, batch, seq, sizes, scheme, coords):
-    """count_step of ``arch`` at reduced() size, float32 (as the CPU runs)."""
-    cfg = get_config(arch).reduced()
+def _counted(arch, kind, batch, seq, sizes, scheme, coords, changes=()):
+    """count_step of ``arch`` at reduced() size, float32 (as the CPU runs),
+    with ``changes`` ((field, value) pairs) to its configuration."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
     return step_costs.count_step(cfg, InputShape(kind, seq, batch, kind), dict(sizes), scheme,
                                  None if coords is None else dict(coords),
                                  compute_dtype=torch.float32)
@@ -205,12 +209,12 @@ def ranks(spawned):
 
 @pytest.mark.parametrize("case", QUAD + PAIR, ids=lambda c: c[0])
 def test_collectives_match_real_ranks(ranks, case):
-    label, arch, scheme, kind, batch, seq = case
+    label, arch, scheme, kind, batch, seq, *changes = case
     quad = case in QUAD
     sizes = {"data": 2, "model": 2} if quad else {"data": 1, "model": 2}
     for res in (ranks[::3] if quad else ranks[:2]):   # 2x2: ranks 0 and 3, apart on both axes
         coords = res["quad_coords" if quad else "pair_coords"]
-        counted = _count(arch, kind, batch, seq, sizes, scheme, coords)
+        counted = _count(arch, kind, batch, seq, sizes, scheme, coords, *changes)
         assert res[label], label   # the step ran collectives
         assert counted["collective_log"] == res[label], (label, coords)
 
@@ -333,19 +337,13 @@ def test_records_at_the_production_meshes(mesh):
     for arch in ARCH_NAMES:
         full = get_config(arch)
         cfg = _one_superblock(full)
-        # the port's refusal at these meshes: heads that do not divide over 16
-        divides = all(n % sizes["model"] == 0 for _, n in sharding.head_counts(full))
         for shape in INPUT_SHAPES:
             rec = dryrun.record(cfg, shape, sizes, "fsdp_tp")
             if dryrun.skip_reason(full, INPUT_SHAPES[shape]):
                 assert rec["status"] == "skip"
                 continue
-            assert rec["port_executes"] == divides and (rec["refusal"] is None) == divides
+            assert rec["port_executes"] and rec["refusal"] is None, (arch, shape)
             r = rec["roofline"]
-            if not divides:
-                assert "do not divide over a model axis of 16" in rec["refusal"]
-                assert r is None and rec["peak_bytes_per_rank"] is None, (arch, shape)
-                continue
             accepted += 1
             assert min(r["compute_s"], r["memory_s"], r["collective_s"]) > 0, (arch, shape, r)
             assert r["dominant"] == max(("compute", "memory", "collective"),
@@ -355,4 +353,5 @@ def test_records_at_the_production_meshes(mesh):
             assert r["useful_ratio"] > 0 and r["step_flops"] > 0 and r["step_bytes"] > 0
             assert rec["collectives"] and rec["top_ops"] and rec["top_bytes"]
             assert "sequence" in r["note"] or "residual" in r["note"]
-    assert accepted == {"single": 14, "multi": 14}[mesh]
+    # every record but the 7 long_500k skips of full-attention architectures
+    assert accepted == {"single": 33, "multi": 33}[mesh]
