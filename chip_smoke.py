@@ -575,8 +575,9 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tinyllama-1.1b", 4, 2048   # phase 10a
 # TRAIN_MIN_DROP, as phase 10a), at 1x4 tp_only and 2x2 fsdp_tp.
 # Then zamba2-7b (6.75 B parameters: 108 GB of float32 masters, gradients
 # and AdamW moments; no one card trains it) at 1x4 tp_only and 2x2
-# fsdp_tp, and gemma3-4b (4.55 B; 73 GB of masters, gradients and moments, 8.6 GB of
-# float32 logits over its 262,144 words at 4 x 2048) at 1x4 tp_only.
+# fsdp_tp, and gemma3-4b (4.55 B; 73 GB of masters, gradients and moments; its
+# 262,144 words at 4 x 2048 give 8.6 GB of float32 logits, of which a rank's
+# vocab-parallel loss forms its quarter) at 1x4 tp_only.
 # granite-8b's 2x2 run also saves its state (ckpt.save_sharded, ~99 GB:
 # float32 masters and AdamW's m and v) after TRAIN_RESUME_AFTER steps,
 # restores it into fresh models after the tenth and takes the last steps
@@ -3772,7 +3773,8 @@ def _check_sharded_train(torch, run: dict, ranks: list, want: dict, checked: set
         f"rank's heads); init "
         f"{[round(r['init_s'], 2) for r in ranks]} s, step {[round(r['step_s'], 3) for r in ranks]}"
         f" s (the ranks time-slice one card); peak {[round(r['peak_gib'], 1) for r in ranks]} "
-        f"GiB allocated, {[round(r['reserved_gib'], 1) for r in ranks]} GiB reserved")
+        f"GiB allocated, {[round(r['reserved_gib'], 1) for r in ranks]} GiB reserved; rank 0: "
+        f"step {ranks[0]['step_s']:.4f} s, max_memory_allocated {ranks[0]['peak_gib']:.4f} GiB")
     require(loss_rel <= tol["loss"], f"{label}: loss {loss_rel}")
     require(worst_g[0] <= tol["grad"], f"{label}: gradient {worst_g}, limit {tol['grad']}")
     require(worst_p[0] == 0.0, f"{label}: parameter {worst_p[1]} {worst_p[0]} outside its window")

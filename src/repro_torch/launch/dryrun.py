@@ -37,10 +37,14 @@ coherent.  The port runs eagerly and compiles nothing.  Each record holds:
   include the sum of the shared heads' k and v gradients over the group
   (``kv_replicas``).
 
-The count is of what the port runs.  The reference's dry run also shards
-the residual stream between blocks over (data, model) (sequence
-parallelism); the port keeps it replicated over ``model``, and its records
-say so.  ``fits`` holds the plan's bytes against the card's memory
+The count is of what the port runs.  As under the reference's ``logits``
+hint, the train step's logits stay vocab-parallel over ``model``: its loss
+(``lm.cross_entropy``) all-gathers a (B, S - 1) float32 logsumexp a rank
+and all-reduces the gold logits, and no rank forms the whole vocabulary's
+logits; prefill and decode gather one position's.  The reference's dry run
+also shards the residual stream between blocks over (data, model)
+(sequence parallelism); the port keeps it replicated over ``model``, and
+its records say so.  ``fits`` holds the plan's bytes against the card's memory
 (``torch.cuda.get_device_properties`` where a card is present, else an
 H100's 80 GB, labelled as such); the roofline's ``fits_hbm`` holds the
 counted peak.  Meshes: the reference's production meshes, ``single`` 16x16
@@ -73,9 +77,10 @@ H100_BYTES = 80e9   # H100 SXM, 80 GB (data sheet): the figure used without a ca
 PRODUCTION = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
 NOTE = ("step_flops and step_bytes counted from the port's step executed on meta tensors "
         "(launch/step_costs.py; bytes: every op's operands and outputs, unfused) on model "
-        "index 0, a rank with the most query heads where ranks share a KV head; the "
-        "residual stream stays replicated over model between blocks, where the reference's "
-        "dry run shards it over (data, model); H100 SXM data-sheet rates")
+        "index 0, a rank with the most query heads where ranks share a KV head; the train "
+        "step's logits and loss vocab-parallel over model, as the reference's logits hint "
+        "keeps them; the residual stream stays replicated over model between blocks, where "
+        "the reference's dry run shards it over (data, model); H100 SXM data-sheet rates")
 
 
 def mesh_sizes(mesh: str) -> dict[str, int]:

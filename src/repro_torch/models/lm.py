@@ -37,10 +37,13 @@ Sharded (tensor and expert parallel over a mesh's model axis,
 The embedding is vocab-parallel (ids outside the rank's rows give zero
 rows, summed over the axis: exact), attention head-parallel, the MLP and
 MoE as :mod:`repro_torch.models.layers` and :mod:`repro_torch.models.moe`
-say, and the head's vocab-parallel logits are gathered by summing disjoint
-slices into a zeroed buffer (exact).  Every collective is an autograd
-Function (:class:`repro_torch.models.layers.MeshAxis`), so a sharded model
-trains: each replicated leaf's gradient comes out whole on every model
+say, and the head vocab-parallel.  The train step's loss takes the rank's
+logits columns as they are (:func:`cross_entropy`: each position's
+logsumexp put together over the axis from the ranks', the gold logit from
+the rank holding it), so no rank forms the whole vocabulary's logits;
+serving gathers one position's by summing disjoint slices into a zeroed
+buffer (exact).  Every collective is an autograd Function
+(:class:`repro_torch.models.layers.MeshAxis`), so a sharded model trains: each replicated leaf's gradient comes out whole on every model
 rank, each sharded leaf's as the rank's slice.  Weights held as the rank's
 piece over the data axis (``fsdp``, FSDP) are gathered inside each
 super-block, under its checkpoint, so only one super-block's whole weights
@@ -590,7 +593,36 @@ def forward(
     positions of the token embeddings, and the encoder-decoder runs its
     encoder (non-causal self-attention with RoPE) over the frames first;
     decode reads both from the caches.  Train mode takes no cache and, with
-    ``cfg.remat``, recomputes each super-block in the backward."""
+    ``cfg.remat``, recomputes each super-block in the backward.  On a mesh
+    the rank's vocab-parallel logits are gathered whole on every rank (what
+    serving's greedy argmax reads); :func:`lm_loss` never gathers them."""
+    axis = params.model_axis
+    with _whole_over_data(params):
+        x, new_caches, aux_total = _trunk(
+            params, tokens, mode=mode, cache=cache, decode_pos=decode_pos,
+            vision_embeds=vision_embeds, encoder_frames=encoder_frames, last_only=last_only)
+        logits = _head(params, x)
+        if axis is not None:
+            logits = _gather_vocab(logits, axis, params.compute_dtype)
+    if not return_aux:
+        return logits, new_caches
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, new_caches, aux_total
+
+
+def _whole_over_data(params: LM):
+    """The block within which the embedding, the head and the final norm
+    are whole over the data axis (FSDP); nothing to do without FSDP."""
+    return contextlib.nullcontext() if params.fsdp is None else params.fsdp.gathered(params, False)
+
+
+def _trunk(params: LM, tokens: torch.Tensor, *, mode: str, cache: Optional[list] = None,
+           decode_pos: Optional[int] = None, vision_embeds: Optional[torch.Tensor] = None,
+           encoder_frames: Optional[torch.Tensor] = None, last_only: bool = False):
+    """:func:`forward` up to the head, called under :func:`_whole_over_data`:
+    the final-normed hidden state (B, S or 1, D) in the compute dtype, the
+    new cache and the Switch loss (None without MoE)."""
     cfg = params.cfg
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -604,62 +636,59 @@ def forward(
     remat = mode == "train" and cfg.remat
     axis = params.model_axis
     rows = params.row_axes if mode == "train" else ()   # the Switch loss over the batch
-    top = contextlib.nullcontext() if params.fsdp is None else params.fsdp.gathered(params, False)
-    with top:   # the embedding and the head whole over the data axis
-        B, S = tokens.shape
-        x = (params.embed[tokens].to(dtype) if axis is None
-             else _embed_sharded(params, tokens, dtype))
-        if mode == "decode":
-            q_pos = torch.full((1,), decode_pos, dtype=torch.int64, device=tokens.device)
-        else:
-            q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
-            decode_pos = None
-            if vision_embeds is not None:
-                nv = vision_embeds.shape[1]
-                if nv > S:
-                    raise ValueError(f"{nv} vision embeddings do not fit a prompt of {S} tokens")
-                x = torch.cat([vision_embeds.to(dtype), x[:, nv:]], dim=1)
+    B, S = tokens.shape
+    x = (params.embed[tokens].to(dtype) if axis is None
+         else _embed_sharded(params, tokens, dtype))
+    if mode == "decode":
+        q_pos = torch.full((1,), decode_pos, dtype=torch.int64, device=tokens.device)
+    else:
+        q_pos = torch.arange(S, dtype=torch.int64, device=tokens.device)
+        decode_pos = None
+        if vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            if nv > S:
+                raise ValueError(f"{nv} vision embeddings do not fit a prompt of {S} tokens")
+            x = torch.cat([vision_embeds.to(dtype), x[:, nv:]], dim=1)
 
-        enc_out = None
-        if cfg.is_enc_dec and mode != "decode":
-            e = encoder_frames.to(dtype)
-            e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
-            for si, stage in enumerate(encoder_stages(cfg)):
-                e, _, _ = _apply_stage(
-                    params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
-                    decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
-                    remat=remat, axis=axis, rows=rows, fsdp=params.fsdp,
-                )
-            enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
-
-        aux_total = None
-        new_caches: Optional[list] = None if cache is None else []
-        for si, stage in enumerate(stages_for(cfg)):
-            x, nc, aux = _apply_stage(
-                params.stages[si], stage, cfg, x,
-                cache=None if cache is None else cache[si],
-                q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
-                shared_attn=params.shared_attn, dtype=dtype, remat=remat, axis=axis, rows=rows,
-                fsdp=params.fsdp,
+    enc_out = None
+    if cfg.is_enc_dec and mode != "decode":
+        e = encoder_frames.to(dtype)
+        e_pos = torch.arange(e.shape[1], dtype=torch.int64, device=e.device)
+        for si, stage in enumerate(encoder_stages(cfg)):
+            e, _, _ = _apply_stage(
+                params.encoder.stages[si], stage, cfg, e, cache=None, q_pos=e_pos,
+                decode_pos=None, enc_out=None, shared_attn=None, dtype=dtype, causal=False,
+                remat=remat, axis=axis, rows=rows, fsdp=params.fsdp,
             )
-            aux_total = _add(aux_total, aux)
-            if new_caches is not None:
-                new_caches.append(nc)
+        enc_out = rmsnorm(e, params.encoder.final_norm, cfg.norm_eps, dtype)
 
-        if last_only:
-            x = x[:, -1:]
-        x = rmsnorm(x, params.final_norm, cfg.norm_eps, dtype)
-        head = params.embed.T if cfg.tie_embeddings else params.lm_head
-        if axis is not None:   # the rank's vocabulary columns of the head
-            x = axis.copy(x)
-        logits = mm(x, head, dtype)
-        if axis is not None:
-            logits = _gather_vocab(logits, axis, dtype)
-        if not return_aux:
-            return logits, new_caches
-        if aux_total is None:
-            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        return logits, new_caches, aux_total
+    aux_total = None
+    new_caches: Optional[list] = None if cache is None else []
+    for si, stage in enumerate(stages_for(cfg)):
+        x, nc, aux = _apply_stage(
+            params.stages[si], stage, cfg, x,
+            cache=None if cache is None else cache[si],
+            q_pos=q_pos, decode_pos=decode_pos, enc_out=enc_out,
+            shared_attn=params.shared_attn, dtype=dtype, remat=remat, axis=axis, rows=rows,
+            fsdp=params.fsdp,
+        )
+        aux_total = _add(aux_total, aux)
+        if new_caches is not None:
+            new_caches.append(nc)
+
+    if last_only:
+        x = x[:, -1:]
+    return rmsnorm(x, params.final_norm, cfg.norm_eps, dtype), new_caches, aux_total
+
+
+def _head(params: LM, x: torch.Tensor) -> torch.Tensor:
+    """The logits of the final-normed ``x`` in the compute dtype: the whole
+    padded vocabulary, or on a mesh the rank's vocab-parallel columns (the
+    head's, or the tied embedding's rows)."""
+    head = params.embed.T if params.cfg.tie_embeddings else params.lm_head
+    if params.model_axis is not None:
+        x = params.model_axis.copy(x)
+    return mm(x, head, params.compute_dtype)
 
 
 def _embed_sharded(params: LM, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -678,27 +707,54 @@ def _embed_sharded(params: LM, tokens: torch.Tensor, dtype: torch.dtype) -> torc
 def _gather_vocab(logits: torch.Tensor, axis: MeshAxis, dtype: torch.dtype) -> torch.Tensor:
     """The rank's vocab-parallel logits (..., V_l) placed into a zeroed
     (..., V_l * size) buffer at its columns and summed over the model
-    axis: a gather written as an exact all-reduce of disjoint slices."""
+    axis: a gather written as an exact all-reduce of disjoint slices.
+    Serving's only: the train step's loss never gathers them."""
     V_l = logits.shape[-1]
     full = logits.new_zeros((*logits.shape[:-1], V_l * axis.size), dtype=torch.float32)
     full[..., axis.rank * V_l:(axis.rank + 1) * V_l] = logits
     return axis.reduce(full).to(dtype)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  axis: Optional[MeshAxis] = None) -> torch.Tensor:
+    """Each position's ``logsumexp(logits) - logits[label]`` in float32, of
+    ``labels``' shape.  With ``axis``, ``logits`` are the rank's
+    vocab-parallel columns [rank * V_l, (rank + 1) * V_l) and no rank forms
+    the whole vocabulary (Megatron's vocab-parallel cross entropy): each
+    rank's logsumexp over its columns is put together with the others' over
+    the axis and reduced by one more logsumexp (that concat's backward keeps
+    the rank's piece: every rank computes the same loss), and the gold logit
+    is the one of the rank holding the label, summed with zeros over the
+    axis (exact)."""
+    logits = logits.float()
+    if axis is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return logz - gold
+    V_l = logits.shape[-1]
+    logz = torch.logsumexp(axis.concat(torch.logsumexp(logits, dim=-1)[None], 0), dim=0)
+    local = labels - axis.rank * V_l
+    inside = (local >= 0) & (local < V_l)
+    gold = torch.gather(logits, -1, local.clamp(0, V_l - 1)[..., None])[..., 0]
+    return logz - axis.reduce(torch.where(inside, gold, 0.0))
+
+
 def lm_loss(params: LM, batch: dict) -> torch.Tensor:
     """Next-token cross entropy over every position of ``batch["tokens"]``,
     the logits in float32, plus ``AUX_LOSS_COEF`` times the Switch loss: the
-    reference's ``lm_loss`` (its ``cfg`` is the model's)."""
+    reference's ``lm_loss`` (its ``cfg`` is the model's).  On a mesh the
+    logits stay the rank's vocab-parallel columns (:func:`cross_entropy`),
+    as the reference's ``logits`` sharding keeps them."""
     tokens = batch["tokens"]
-    logits, _, aux = forward(
-        params, tokens, mode="train", vision_embeds=batch.get("vision_embeds"),
-        encoder_frames=batch.get("encoder_frames"), return_aux=True,
-    )
-    logits = logits[:, :-1].float()
-    labels = tokens[:, 1:]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(logz - gold) + AUX_LOSS_COEF * aux
+    with _whole_over_data(params):
+        x, _, aux = _trunk(params, tokens, mode="train",
+                           vision_embeds=batch.get("vision_embeds"),
+                           encoder_frames=batch.get("encoder_frames"))
+        logits = _head(params, x)[:, :-1]
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce = cross_entropy(logits, tokens[:, 1:], params.model_axis)
+    return torch.mean(ce) + AUX_LOSS_COEF * aux
 
 
 @contextlib.contextmanager

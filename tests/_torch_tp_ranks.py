@@ -307,14 +307,35 @@ def collectives_case(device_type: str = "cpu") -> dict:
     (dz,) = torch.autograd.grad(s, z, torch.full((2, 3), float(i + 1), device=device))
     out["small"] = {"x": x.detach(), "dx": dx, "reduce": r.detach(), "dy": dy,
                     "sum": s.detach(), "dz": dz}
+    whole, labels = vocab_parallel_inputs(n)
+    V_l = whole.shape[-1] // n
+    logits = whole[..., i * V_l:(i + 1) * V_l].to(device).requires_grad_()
+    loss = lm.cross_entropy(logits, labels.to(device), axis).mean()
+    (dlogits,) = torch.autograd.grad(loss, logits)
+    out["vocab"] = {"loss": loss.detach(), "grad": dlogits}
     return {k: {f: t.cpu() for f, t in v.items()} for k, v in out.items()}
+
+
+def vocab_parallel_inputs(n: int, V_l: int = 7) -> tuple:
+    """Seeded float32 logits (2, 9, n * V_l), the same on every rank, and
+    labels (2, 9) that hit the first and the last column of every rank's
+    range (the rest drawn)."""
+    gen = torch.Generator().manual_seed(100)
+    whole = 3 * torch.randn((2, 9, n * V_l), generator=gen)
+    labels = torch.randint(0, n * V_l, (18,), generator=gen)
+    edges = torch.tensor([c for r in range(n) for c in (r * V_l, r * V_l + V_l - 1)])
+    labels[:len(edges)] = edges
+    return whole, labels[torch.randperm(18, generator=gen)].reshape(2, 9)
 
 
 def check_collectives(out: list, dim: int) -> None:
     """Asserts on every rank's :func:`collectives_case`: the gather along
     ``dim`` puts the pieces together in rank order and its backward sums the
     gradient and keeps the rank's piece; ``copy`` sums the gradient,
-    ``reduce`` the value, ``sum`` both."""
+    ``reduce`` the value, ``sum`` both; ``lm.cross_entropy`` over the ranks'
+    vocab-parallel columns gives ``F.cross_entropy``'s loss on the whole
+    logits (1e-6 relative, the same bits on every rank) and each rank its
+    columns of the gradient (within 1e-6 of their largest)."""
     n = len(out)
     whole = torch.cat([res[dim]["piece"] for res in out], dim=dim)
     g = sum(res[dim]["g"] for res in out)
@@ -329,6 +350,17 @@ def check_collectives(out: list, dim: int) -> None:
         assert torch.equal(small["dx"], ranks_sum)
         assert torch.allclose(small["reduce"], x) and torch.equal(small["dy"], torch.ones(2, 3))
         assert torch.allclose(small["sum"], x) and torch.equal(small["dz"], ranks_sum)
+    whole, labels = vocab_parallel_inputs(n)
+    whole.requires_grad_()
+    want = torch.nn.functional.cross_entropy(whole.flatten(0, 1), labels.flatten())
+    (dwhole,) = torch.autograd.grad(want, whole)
+    V_l = whole.shape[-1] // n
+    for r, res in enumerate(out):
+        assert torch.equal(res["vocab"]["loss"], out[0]["vocab"]["loss"])
+        torch.testing.assert_close(res["vocab"]["loss"], want.detach(), rtol=1e-6, atol=0)
+        cols = dwhole[..., r * V_l:(r + 1) * V_l]
+        err = (res["vocab"]["grad"] - cols).abs().max()
+        assert err <= 1e-6 * cols.abs().max(), (r, float(err))
 
 
 def jobs(calls: list) -> list:

@@ -7,7 +7,9 @@ parameter bytes equal what the reference's ``param_specs`` over
 up) by its axes' sizes, with no device.  A train step's AdamW state is
 twice its float32 parameters.  granite-8b's train step does not fit 80 GB
 a card over 4x1 ``ddp`` and does over 1x4 ``tp_only`` and 2x2 ``fsdp_tp``.
-The launcher writes one JSON record a combination.
+gemma3-4b's train step at 16x16 fits with its logits vocab-parallel and
+would not with them gathered.  The launcher writes one JSON record a
+combination.
 """
 import functools
 import json
@@ -15,6 +17,7 @@ import math
 
 import jax
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from repro import sharding as ref_sharding
@@ -23,6 +26,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import lm as ref_lm
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
+from repro_torch.models import lm
 
 MESHES = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
 
@@ -127,6 +131,41 @@ def test_recurrent_and_encoder_families_execute(arch):
     assert one["port_executes"]
     if arch == "zamba2-7b":
         assert not one["fits"] and 6.7e9 < one["bytes_per_rank"]["params"] / 4 < 6.8e9
+
+
+def _gathered_loss(params, batch):
+    """``lm.lm_loss`` with the whole vocabulary's logits gathered on every
+    rank (``lm.forward``'s serving path), the loss the train step took
+    before its vocab-parallel form."""
+    tokens = batch["tokens"]
+    logits, _, aux = lm.forward(params, tokens, mode="train", return_aux=True)
+    logits = logits[:, :-1].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+    return torch.mean(logz - gold) + lm.AUX_LOSS_COEF * aux
+
+
+def test_vocab_parallel_loss_fits_16x16(monkeypatch):
+    """gemma3-4b's train_4k step on the reference's 16x16 mesh (16 rows of
+    4096 tokens a rank, 262,144 vocabulary columns) never gathers its logits:
+    its counted peak fits an 80 GB card with room, and its all-reduce over
+    ``model`` is at least one float32 copy of the whole logits below the
+    same step's with them gathered, whose peak does not fit."""
+    def refuse(*args):
+        raise AssertionError("the train step gathered its logits")
+
+    with monkeypatch.context() as patched:
+        patched.setattr(lm, "_gather_vocab", refuse)
+        rec = dryrun.dryrun_one("gemma3-4b", "train_4k", "single")
+    with monkeypatch.context() as patched:
+        patched.setattr(lm, "lm_loss", _gathered_loss)
+        gathered = dryrun.dryrun_one("gemma3-4b", "train_4k", "single")
+    assert rec["roofline"]["fits_hbm"] and not gathered["roofline"]["fits_hbm"]
+    assert rec["peak_bytes_per_rank"] < 30 * 2**30
+    B, S, V = 16, 4096, get_config("gemma3-4b").vocab_padded
+    model = rec["collectives"]["all-reduce over model"]["bytes"]
+    assert model < 140e9
+    assert gathered["collectives"]["all-reduce over model"]["bytes"] - model >= B * (S - 1) * V * 4
 
 
 def test_serving_records_and_refusals():
